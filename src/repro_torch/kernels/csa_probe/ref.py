@@ -1,0 +1,140 @@
+"""Plain PyTorch version of the fused CSA probe (port of
+`repro.kernels.csa_probe.ref`).
+
+The legacy window path (`repro_torch.core.search._window`) gathers 2W full
+doubled hash rows per (query, shift) and recomputes every candidate's LCP.
+The fused form uses the sorted-order identity
+
+    lcp(a, c) = min(lcp(a, b), lcp(b, c))      for a <= b <= c
+
+over the CSA's adjacent-LCP table ``L``: only the two *boundary* candidates
+at the insertion position are compared with the query; every other window
+slot's LCP is a running min of ``L`` entries walking away from the boundary.
+The output is bit-identical to `_window`.
+
+`csa_probe_plain` is the CUDA kernel's plain version (same arguments, same
+outputs); the kernel wrapper calls it for CPU tensors, and the on-card
+checks hold the kernel against it.
+
+Deduplication is a scatter-max into an (n,)-slot buffer per query followed
+by one top-lam that breaks ties toward the smaller id, so ids, values and
+order match `core.search.dedupe_topk` exactly.
+"""
+from __future__ import annotations
+
+import torch
+
+from ...core.csa import CSA
+from ...core.search import _insertion_pos, _pad_lam, _row_lcp_less
+
+# worklist rows per chunk of the plain probe (bounds its transients)
+_ROWS = 1 << 16
+# buffer entries per chunk of the scatter-max dedupe
+_BUF = 1 << 27
+
+
+def window_from_adjacent(csa: CSA, qd_r: torch.Tensor, i: torch.Tensor,
+                         pos: torch.Tensor, width: int):
+    """LCPs of the 2W-slot window around insertion positions `pos` (R,) in
+    I[i], from the adjacent-LCP table.  qd_r: (R, 2m) doubled probe strings.
+    Returns (ids (R, 2W), lcps (R, 2W)) == `core.search._window`."""
+    n, m = csa.n, csa.m
+    dev = qd_r.device
+    il = i.long()[:, None]
+    pos_c = pos[:, None]
+    offs = torch.arange(-width, width, dtype=torch.int32, device=dev)
+    ps = torch.clamp(pos_c + offs, 0, n - 1)  # (R, 2W) window sorted positions
+    ids = csa.I[il, ps.long()]
+
+    # boundary LCPs: the only two full string comparisons of the window
+    t_l = csa.I[i.long(), torch.clamp(pos - 1, 0, n - 1).long()]
+    t_u = csa.I[i.long(), torch.clamp(pos, 0, n - 1).long()]
+    lcp_l, _ = _row_lcp_less(csa, t_l, qd_r, i)
+    lcp_u, _ = _row_lcp_less(csa, t_u, qd_r, i)
+
+    jj = torch.arange(width, dtype=torch.int32, device=dev)
+    big = torch.full((), m, dtype=torch.int32, device=dev)
+    # down chain: lcp(q, sorted[pos-1-j]) = min(lcp_l, L[pos-2], .., L[pos-1-j])
+    p_down = pos_c - 2 - jj
+    adj_down = torch.where(p_down >= 0, csa.L[il, torch.clamp(p_down, 0, n - 1).long()], big)
+    # up chain: lcp(q, sorted[pos+j]) = min(lcp_u, L[pos], .., L[pos+j-1])
+    p_up = pos_c + jj
+    adj_up = torch.where(p_up <= n - 2, csa.L[il, torch.clamp(p_up, 0, n - 1).long()], big)
+    down = torch.minimum(lcp_l[:, None], _exclusive_min(adj_down, m))
+    up = torch.minimum(lcp_u[:, None], _exclusive_min(adj_up, m))
+    lcps = torch.where(
+        ps >= pos_c,
+        torch.gather(up, 1, torch.clamp(ps - pos_c, 0, width - 1).long()),
+        torch.gather(down, 1, torch.clamp(pos_c - 1 - ps, 0, width - 1).long()),
+    ).to(torch.int32)
+    return ids, lcps
+
+
+def _exclusive_min(adj: torch.Tensor, m: int) -> torch.Tensor:
+    """out[:, 0] = m, out[:, j] = min(adj[:, :j])."""
+    run = torch.cummin(adj, dim=1).values
+    return torch.cat([torch.full_like(run[:, :1], m), run[:, :-1]], dim=1)
+
+
+def probe_pairs_ref(csa: CSA, qd: torch.Tensor, shifts: torch.Tensor, width: int):
+    """Worklist form: one (probe string, shift) pair per row.
+    qd: (R, 2m) doubled probe strings; shifts: (R,).
+    Returns (ids (R, 2W), lcps (R, 2W)) int32."""
+    R = qd.shape[0]
+    ids = torch.empty((R, 2 * width), dtype=torch.int32, device=qd.device)
+    lcps = torch.empty_like(ids)
+    shifts = shifts.to(torch.int32)
+    for lo in range(0, R, _ROWS):
+        s = slice(lo, min(lo + _ROWS, R))
+        zero = torch.zeros_like(shifts[s])
+        pos = _insertion_pos(csa, qd[s], shifts[s], zero, zero + csa.n)
+        ids[s], lcps[s] = window_from_adjacent(csa, qd[s], shifts[s], pos, width)
+    return ids, lcps
+
+
+def csa_probe_plain(I, L, Hd, qd, shifts, qidx, width: int):
+    """The kernel's plain version: row r searches shift `shifts[r]` for probe
+    string `qd[qidx[r]]`.  Returns (ids (R, 2W), lcps (R, 2W)) int32."""
+    csa = CSA(I=I, P=None, Hd=Hd, L=L)  # the probe never reads P
+    return probe_pairs_ref(csa, qd[qidx.long()], shifts, width)
+
+
+def search_windows_ref(csa: CSA, qd: torch.Tensor, width: int):
+    """Full-shift form: all m shifts of every query.
+    qd: (B, 2m).  Returns (ids (B, m, 2W), lcps (B, m, 2W))."""
+    B, m = qd.shape[0], csa.m
+    shifts = torch.arange(m, dtype=torch.int32, device=qd.device).repeat(B)
+    rows = qd.repeat_interleave(m, dim=0)
+    ids, lcps = probe_pairs_ref(csa, rows, shifts, width)
+    return ids.reshape(B, m, -1), lcps.reshape(B, m, -1)
+
+
+def dedupe_topk_scatter(ids: torch.Tensor, lcps: torch.Tensor, n: int, lam: int):
+    """Max-LCP per id + global top-lam via scatter-max into an (n,) buffer
+    per query.  Bit-identical to `core.search.dedupe_topk` (set, values and
+    order).  ids/lcps: (B, pool); -1-padded slots are dropped.
+
+    Top-lam ties must go to the lower id (the buffer is full of ties), which
+    `torch.topk` does not promise; each entry is therefore ranked by the
+    unique int64 key (lcp + 1) * 2^32 + (n - 1 - id)."""
+    B = ids.shape[0]
+    k = min(lam, n)
+    dev = ids.device
+    out_ids = torch.empty((B, k), dtype=torch.int32, device=dev)
+    vals = torch.empty((B, k), dtype=torch.int32, device=dev)
+    tie = (n - 1) - torch.arange(n, dtype=torch.int64, device=dev)
+    step = max(1, _BUF // (n + 1))
+    for lo in range(0, B, step):
+        s = slice(lo, min(lo + step, B))
+        idc = ids[s].long()
+        safe = torch.where(idc >= 0, idc, n)  # -1 padding -> slot n -> dropped
+        buf = torch.full((idc.shape[0], n + 1), -1, dtype=torch.int32, device=dev)
+        buf.scatter_reduce_(1, safe, lcps[s].to(torch.int32), reduce="amax")
+        key = ((buf[:, :n].to(torch.int64) + 1) << 32) | tie
+        del buf
+        top = torch.topk(key, k, dim=1).values  # unique keys: no tie to break
+        v = ((top >> 32) - 1).to(torch.int32)
+        idx = ((n - 1) - (top & 0xFFFFFFFF)).to(torch.int32)
+        out_ids[s] = torch.where(v >= 0, idx, torch.full_like(idx, -1))
+        vals[s] = v
+    return _pad_lam(out_ids, vals, lam)
