@@ -2,14 +2,24 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path on one NVIDIA card at the paper's SIFT size
-(n = 1,000,000, d = 128, m = 64; clustered synthetic data, Euclidean family
-at w = 16): LCCSIndex.build on the card, then LCCSIndex.search of 10,000
-queries in batches of 1,000 through the "lccs" and "multiprobe-skip"
-sources (fp32 store) and the two-stage int8 store.  It builds the CUDA
-kernels from the sources in the checkout, shows through their launch counts
-that the main path went through them, holds each kernel against its plain
-PyTorch version on the card at the main path's shapes, and times both.
+Drives the port's paths on one NVIDIA card at the paper's SIFT size
+(n = 1,000,000, d = 128, m = 64; clustered synthetic data):
+
+  * the main path (Euclidean family at w = 16): LCCSIndex.build on the card,
+    then LCCSIndex.search of 10,000 queries in batches of 1,000 through the
+    "lccs" and "multiprobe-skip" sources (fp32 store) and the two-stage int8
+    store;
+  * the angular path (the paper's sift-angular: normalised rows, the
+    gaussian cross-polytope family): build + "lccs" search;
+  * the dynamic path (SegmentedLCCSIndex, the main path's family): a bulk
+    load into one segment, a stream of inserts into the delta buffer,
+    deletes from both, search, a size-tiered compaction, search again;
+  * the "bruteforce" source on the main fp32 index.
+
+It builds the CUDA kernels from the sources in the checkout, shows through
+their launch counts (reset before each path, read after it) that each path
+went through its kernels, holds each kernel against its plain PyTorch
+version on the card at the paths' shapes, and times both.
 
 Each phase prints one JSON line; any failure exits non-zero.  The last line
 is {"ok": true, "device": {...}}.  Without CUDA, or without the rest of the
@@ -33,6 +43,21 @@ N, D, M, W_BUCKET = 1_000_000, 128, 64, 16.0
 N_QUERIES, BATCH, K = 10_000, 1_000, 10
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (published)
 FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores (published)
+# H100 SXM int32 outside the tensor cores: 132 SMs x 64 INT32 lanes (Hopper
+# architecture white paper) x 1.98 GHz boost clock, one operation a lane
+INT32_OPS = 132 * 64 * 1.98e9
+# the dynamic path: a bulk load of the first rows into one segment (padded to
+# 2^20), then the rest streamed in inserts of 2^14 rows (a 2^16 buffer)
+N_BULK, INSERT_ROWS, N_DELETE = 934_464, 16_384, 10_000
+# the kernels of each path: each must launch at least once in its run
+MAIN_KERNELS = ("csa_probe", "gather_l2", "gather_q", "hash_rp")
+ANGULAR_KERNELS = ("hash_xp", "csa_probe", "gather_l2")
+DYNAMIC_KERNELS = ("hash_rp", "csa_probe", "circrun", "gather_l2")
+# a hash may differ between kernel and plain version (another summation
+# order) only where the float64 value lies within this relative distance of
+# a bucket boundary (hash_rp) or of a tie between vertices (hash_xp), and in
+# at most this share of the outputs
+HASH_BOUNDARY_RTOL, HASH_MAX_SHARE = 1e-5, 1e-4
 LCCS = dict(k=K, lam=100, width=100, source="lccs")
 SKIP = dict(k=K, lam=200, width=64, source="multiprobe-skip", probes=17)
 GATHER_TOL = dict(rtol=1e-5, atol=1e-5)  # fp32 summation order
@@ -176,7 +201,6 @@ def run(dev: torch.device) -> None:
     # -- 3. main path: fp32 searches -----------------------------------------
     index.search(Q[:BATCH], SearchParams(**LCCS))  # warm-up
     index.search(Q[:BATCH], SearchParams(**SKIP))
-    launches = {}
     common.reset_launch_counts()
     results = {}
     for name, kw in (("lccs", LCCS), ("multiprobe-skip", SKIP)):
@@ -236,8 +260,8 @@ def run(dev: torch.device) -> None:
          qps=N_QUERIES / secs, seconds=secs, recall_at_10=recall_at_k(ids8, truth))
     emit(phase="launches", run="int8 lccs", counts=int8_counts)
     launches = {k: fp32_counts[k] + int8_counts[k] for k in fp32_counts}
-    for k, v in launches.items():
-        if v == 0:
+    for k in MAIN_KERNELS:
+        if launches[k] == 0:
             fail(f"kernel {k} was never launched on the main path")
 
     # -- 6. each kernel vs its plain version at the main path's shapes ------
@@ -311,15 +335,12 @@ def run(dev: torch.device) -> None:
         B, Lc = b_ids.shape
         nbytes = uniq * row_bytes + b_ids.numel() * 4 * 2 + B * D * 4
         flops = 3 * B * Lc * D
-        bound_s = max(nbytes / HBM_BYTES_PER_S, flops / FP32_FLOPS)
         kernels.append(dict(
             name=name, route="cuda", source=src, replaces=repl,
             launches=launches[name], max_abs_err=err,
             ms=median_ms(lambda: kernel(*k_args, metric="euclidean"), 50),
             plain_ms=median_ms(lambda: plain(*k_args, metric="euclidean"), 5),
-            bound_ms=bound_s * 1e3,
-            bound_by="bytes" if nbytes / HBM_BYTES_PER_S >= flops / FP32_FLOPS
-            else "operations",
+            **bound(nbytes, flops, FP32_FLOPS),
             library_ms=None, shape=dict(B=B, L=Lc, n=N, d=D, unique_rows=uniq),
         ))
     emit(phase="kernels_vs_plain", tolerance=dict(csa_probe="bit-identical",
@@ -341,8 +362,24 @@ def run(dev: torch.device) -> None:
             fail(f"small input: {kw['source']} candidates differ between card and CPU")
         _, cd = stages.verify(cpu.store, cpu.tail, Qs, ci, p, "euclidean")
         _, gd = stages.verify(gpu.store, gpu.tail, Qs.to(dev), gi, p, "euclidean")
+        if not torch.allclose(cd, gd.cpu(), **GATHER_TOL):
+            explain_verify_mismatch(cpu, gpu, Qs, ci, gi, p, kw["source"])
         torch.testing.assert_close(cd, gd.cpu(), **GATHER_TOL)
     emit(phase="small_input_vs_cpu", n=4000, ok=True)
+
+    # -- 8.-12. the paths of the second slice ---------------------------------
+    del index8
+    torch.cuda.empty_cache()
+    ctx = dict(dev=dev, X=X, Q=Q, X_np=X_np, truth=truth, src_rows=src_rows, index=index)
+    angular = run_angular(ctx)
+    dynamic = run_dynamic(ctx)
+    brute_counts = run_bruteforce(ctx)
+    for part in (angular["counts"], dynamic["counts"], brute_counts):
+        for k in launches:
+            launches[k] += part[k]
+    for rec in kernels:  # every path's launches, not only the main path's
+        rec["launches"] = launches[rec["name"]]
+    kernels += new_kernels_vs_plain(ctx, angular, dynamic, launches)
 
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -350,6 +387,417 @@ def run(dev: torch.device) -> None:
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}),
           flush=True)
+
+
+def explain_verify_mismatch(cpu, gpu, Qs, ci, gi, p, source: str) -> None:
+    """Print what differs when the card's and the CPU's verify disagree:
+    the inputs, the gather kernel against its plain version on both
+    devices, and a second run of the card's verify."""
+    from repro_torch.exec import stages
+    from repro_torch.kernels.gather_l2 import gather_dist_kernel, gather_dist_ref
+
+    dev = gi.device
+    qd = Qs.to(dev)
+
+    def rel(a, b):
+        a, b = a.cpu(), b.cpu()
+        ok = torch.isfinite(a) & torch.isfinite(b)
+        return float(((a - b).abs() / b.abs().clamp(min=1e-6))[ok].max())
+
+    k = gather_dist_kernel(gpu.store.rows, gi, qd)
+    # every candidate's distance on both devices, against float64 on the CPU
+    full_c = cpu.store.gather_dist(ci, Qs, metric="euclidean", use_kernel=True)
+    full_g = gpu.store.gather_dist(gi, qd, metric="euclidean", use_kernel=True).cpu()
+    rows = cpu.store.rows[torch.clamp(ci, min=0).long()].double()
+    f64 = ((rows - Qs.double()[:, None, :]) ** 2).sum(-1).sqrt()
+    bad = ~torch.isclose(full_c, full_g, **GATHER_TOL) & (ci >= 0)
+    emit(phase="verify_mismatch", source=source,
+         bad_slots=int(bad.sum()), bad_queries=bad.any(dim=1).nonzero()[:, 0].tolist(),
+         cpu_vs_float64=rel(full_c, f64), card_vs_float64=rel(full_g, f64),
+         tf32=[torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32,
+               torch.get_float32_matmul_precision()],
+         rows_equal=torch.equal(cpu.store.rows, gpu.store.rows.cpu()),
+         ids_equal=torch.equal(ci, gi.cpu()), queries_equal=torch.equal(Qs, qd.cpu()),
+         kernel_vs_card_plain=rel(k, gather_dist_ref(gpu.store.rows, gi, qd)),
+         kernel_vs_cpu_plain=rel(k, gather_dist_ref(cpu.store.rows, ci, Qs)),
+         verify_again_equal=torch.equal(
+             stages.verify(gpu.store, gpu.tail, qd, gi, p, "euclidean")[1],
+             stages.verify(gpu.store, gpu.tail, qd, gi, p, "euclidean")[1]))
+
+
+def exact_top_cos(X: torch.Tensor, Q: torch.Tensor, k: int) -> torch.Tensor:
+    """Ground-truth k most cosine-similar rows of a row-normalised X, by
+    chunked Q @ X.T (smoke check only)."""
+    out = []
+    for s in range(0, Q.shape[0], BATCH):
+        out.append(torch.topk(Q[s:s + BATCH] @ X.T, k, dim=1).indices)
+    return torch.cat(out)
+
+
+def bound(nbytes: float, ops: float, rate: float) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    memory rate and the operations over their peak rate."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
+    return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
+                bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def pow2_at_least(x: int) -> int:
+    return 1 << (x - 1).bit_length()
+
+
+def require(counts: dict, names, path: str) -> None:
+    for k in names:
+        if counts[k] == 0:
+            fail(f"kernel {k} was never launched on the {path} path")
+
+
+def dyadic(x, bits: int = 4) -> np.ndarray:
+    """Round to multiples of 2^-bits: the projections of such rows by such a
+    family are exact in fp32, so the card and the CPU hash them alike."""
+    return (np.round(np.asarray(x, np.float64) * 2 ** bits) / 2 ** bits).astype(np.float32)
+
+
+def run_angular(ctx) -> dict:
+    """Phase 8: the paper's sift-angular configuration (normalised rows,
+    gaussian cross-polytope family, m = 64) built and searched on the card."""
+    from repro_torch.core import LCCSIndex, SearchParams
+    from repro_torch.data import clustered_vectors, queries_from
+    from repro_torch.kernels import common
+
+    dev = ctx["dev"]
+    Xa_np = clustered_vectors(N, D, n_clusters=100, seed=0, normalize=True)
+    Qa_np = queries_from(Xa_np, N_QUERIES, jitter=0.001, seed=1)
+    Xa = torch.from_numpy(Xa_np).to(dev)
+    Qa = torch.from_numpy(Qa_np).to(dev)
+    del Xa_np
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    common.reset_launch_counts()
+    aidx, build_s = sync_time(lambda: LCCSIndex.build(
+        Xa, m=M, family="angular", rotation="gaussian", device=dev))
+    build_counts = common.launch_counts()
+    emit(phase="build_index", config="sift-angular gaussian", n=N, d=D, m=M, seconds=build_s,
+         index_bytes=aidx.index_bytes(), store_bytes=aidx.store_bytes(),
+         peak_mem_bytes=torch.cuda.max_memory_allocated(), mem_before_bytes=base)
+    p = SearchParams(**LCCS)
+    aidx.search(Qa[:BATCH], p)  # warm-up
+    common.reset_launch_counts()
+    (ids, dists), secs = sync_time(lambda: run_searches(aidx, Qa, p))
+    search_counts = common.launch_counts()
+    check_outputs(ids, dists, N_QUERIES)
+    truth = exact_top_cos(Xa, Qa, K)
+    top1 = float((ids[:, 0].long() == ctx["src_rows"]).float().mean())
+    emit(phase="search", config="sift-angular gaussian", source="lccs", params=LCCS,
+         qps=N_QUERIES / secs, seconds=secs, recall_at_10=recall_at_k(ids, truth),
+         top1_self=top1)
+    counts = {k: build_counts[k] + search_counts[k] for k in build_counts}
+    emit(phase="launches", run="sift-angular build + lccs", counts=counts)
+    require(counts, ANGULAR_KERNELS, "angular")
+    if top1 < 0.90:
+        fail(f"angular lccs top-1 self-retrieval {top1} < 0.90")
+    out = dict(counts=counts, family=aidx.family, x_rows=Xa[:65_536].clone(),
+               queries=Qa[:BATCH].clone())
+    del aidx, Xa, Qa
+    torch.cuda.empty_cache()
+    return out
+
+
+def run_dynamic(ctx) -> dict:
+    """Phase 9: the dynamic index on the main corpus: bulk load, streamed
+    inserts, deletes from segment and buffer, search, compaction, search."""
+    from repro_torch.core import SearchParams, SegmentedLCCSIndex
+    from repro_torch.kernels import common
+
+    dev, X, Q = ctx["dev"], ctx["X"], ctx["Q"]
+    common.reset_launch_counts()
+    didx, bulk_s = sync_time(lambda: SegmentedLCCSIndex.build(
+        X[:N_BULK], m=M, family="euclidean", w=W_BUCKET, device=dev))
+    insert_s = []
+    for s in range(N_BULK, N, INSERT_ROWS):
+        _, secs = sync_time(lambda: didx.insert(X[s:s + INSERT_ROWS]))
+        insert_s.append(secs)
+    dels = np.random.default_rng(3).choice(N, N_DELETE, replace=False)
+    was_live, del_s = sync_time(lambda: didx.delete(dels))
+    if was_live != N_DELETE:
+        fail(f"delete reported {was_live} live rows, expected {N_DELETE}")
+    emit(phase="dynamic_load", bulk_rows=N_BULK, bulk_seconds=bulk_s,
+         insert_rows=INSERT_ROWS, insert_seconds=insert_s, delete_seconds=del_s,
+         deleted_in_buffer=int((dels >= N_BULK).sum()), n_live=didx.n_live,
+         buffer_count=didx.buffer_count, segment_caps=[sg.cap for sg in didx.segments],
+         index_bytes=didx.index_bytes(), store_bytes=didx.store_bytes())
+    caps = [pow2_at_least(N_BULK), pow2_at_least(N - N_BULK)]
+    if [sg.cap for sg in didx.segments] != caps[:1] or didx.buffer_count != N - N_BULK:
+        fail(f"the bulk load did not give one segment of {caps[0]} rows and a full buffer")
+    live = didx.alive[:N].clone()
+    live_rows = live.nonzero()[:, 0]
+    truth = live_rows[exact_knn(X[live_rows], Q, K)]
+    src_live = live[ctx["src_rows"]]
+    p = SearchParams(**LCCS)
+    buf_h = didx.buf_h.clone()  # the full delta buffer, for phase 12
+
+    def searched(tag, counts_before):
+        didx.search(Q[:BATCH], p)  # warm-up
+        common.reset_launch_counts()
+        (ids, dists), secs = sync_time(lambda: run_searches(didx, Q, p))
+        counts = common.launch_counts()
+        check_outputs(ids, dists, N_QUERIES)
+        got = ids[ids >= 0].long()
+        if bool((~live[got]).any()):
+            fail(f"dynamic search ({tag}) returned a deleted id")
+        hit1 = (ids[:, 0].long() == ctx["src_rows"]) & src_live
+        top1 = float(hit1.sum()) / float(src_live.sum())
+        emit(phase="search", config="dynamic sift", state=tag, source="lccs", params=LCCS,
+             qps=N_QUERIES / secs, seconds=secs, recall_at_10=recall_at_k(ids, truth),
+             top1_self_live=top1, segment_sizes=didx.segment_sizes(),
+             buffer_count=didx.buffer_count)
+        if top1 < 0.90:
+            fail(f"dynamic lccs top-1 self-retrieval {top1} < 0.90 ({tag})")
+        return {k: counts_before[k] + counts[k] for k in counts}
+
+    counts = searched("segment + buffer", common.launch_counts())
+    emit(phase="launches", run="dynamic load + lccs", counts=counts)
+    emit(phase="stages", config="dynamic sift", state="segment + buffer", batch=BATCH,
+         ms=dynamic_stage_ms(didx, Q[:BATCH], p))
+    common.reset_launch_counts()
+    merged, comp_s = sync_time(lambda: didx.compact())
+    emit(phase="compact", merged_rows=merged, seconds=comp_s,
+         segment_sizes=didx.segment_sizes(), segment_caps=[sg.cap for sg in didx.segments])
+    if [sg.cap for sg in didx.segments] != caps:
+        fail(f"compaction gave segments of {[sg.cap for sg in didx.segments]} rows, "
+             f"expected {caps}")
+    after = searched("two segments", common.launch_counts())
+    counts = {k: counts[k] + after[k] for k in counts}
+    emit(phase="launches", run="dynamic load + lccs + compact + lccs", counts=counts)
+    require(counts, DYNAMIC_KERNELS, "dynamic")
+    qh_batch = didx.family.hash(Q[:BATCH])  # after the count: phase 12's input
+    del didx, truth
+    torch.cuda.empty_cache()
+    small_dynamic_vs_cpu(ctx)
+    return dict(counts=counts, buf_h=buf_h, qh=qh_batch)
+
+
+def dynamic_stage_ms(didx, qb: torch.Tensor, p) -> dict:
+    """Where one dynamic search batch spends its time (not counted as
+    launches): hashing, each segment's inner source, the delta buffer's
+    circrun top-k, and the whole search call."""
+    from repro_torch.core import LCCSIndex, get_source
+    from repro_torch.core.segments import _buffer_topk
+    from repro_torch.exec import resolve_params
+
+    pr = resolve_params(didx, p)
+    inner = get_source(pr.inner)
+    qh = didx.family.hash(qb)
+    ms = {"hash_queries (hash_rp)": median_ms(lambda: didx.family.hash(qb), 5)}
+    for seg in didx.segments:
+        view = LCCSIndex(family=didx.family, store=didx.store, h=seg.h, csa=seg.csa,
+                         metric=didx.metric, tail=didx.tail)
+        ms[f"segment of {seg.cap} rows: {pr.inner}"] = median_ms(
+            lambda: inner(view, qb, qh, pr), 5)
+    ms[f"buffer of {didx.buf_h.shape[0]} rows: circrun top-k"] = median_ms(
+        lambda: _buffer_topk(didx, qh, pr.lam), 5)
+    ms["search (whole batch)"] = median_ms(lambda: didx.search(qb, p), 5)
+    return ms
+
+
+def small_dynamic_vs_cpu(ctx) -> None:
+    """Phase 10: the same ops on a CPU and a card dynamic index sharing one
+    family, on dyadic rows (exact projections on both devices): equal hash
+    strings and CSA tables, equal candidates for shared query strings."""
+    from repro_torch.core import SearchParams, SegmentedLCCSIndex
+    from repro_torch.exec import stages
+
+    dev = ctx["dev"]
+    Xs = dyadic(ctx["X_np"][:4000])
+    pair = []
+    for device in ("cpu", dev):
+        idx = SegmentedLCCSIndex.create(D, m=M, family="euclidean", w=W_BUCKET, device=device)
+        idx.family.a = torch.from_numpy(dyadic(idx.family.a.cpu())).to(device)
+        idx.family.b = torch.from_numpy(dyadic(idx.family.b.cpu())).to(device)
+        idx.insert(Xs[:3000])
+        idx.compact()
+        idx.insert(Xs[3000:3500])
+        idx.delete(np.arange(0, 3500, 9))
+        idx.insert(Xs[3500:])
+        pair.append(idx)
+    cpu, gpu = pair
+    if not torch.equal(cpu.buf_h, gpu.buf_h.cpu()):
+        fail("small dynamic input: buffer hash strings differ between card and CPU")
+    for s_c, s_g in zip(cpu.segments, gpu.segments, strict=True):
+        for t_c, t_g in zip(s_c.csa.tables(), s_g.csa.tables()):
+            if not torch.equal(t_c, t_g.cpu()):
+                fail("small dynamic input: segment tables differ between card and CPU")
+    Qs = torch.from_numpy(Xs[:64] + 0.0625)
+    qh = cpu.family.hash(Qs)
+    for inner in ("lccs", "multiprobe-skip", "bruteforce"):
+        kw = dict(SKIP) if inner == "multiprobe-skip" else dict(LCCS)
+        kw.update(source="segmented", inner=inner)
+        p = SearchParams(**kw, use_probe_kernel=True, use_gather_kernel=True)
+        ci, cl = stages.probe(cpu, Qs, qh, p)
+        gi, gl = stages.probe(gpu, Qs.to(dev), qh.to(dev), p)
+        if not (torch.equal(ci, gi.cpu()) and torch.equal(cl, gl.cpu())):
+            fail(f"small dynamic input: {inner} candidates differ between card and CPU")
+        _, cd = stages.verify(cpu.store, cpu.tail, Qs, ci, p, "euclidean")
+        _, gd = stages.verify(gpu.store, gpu.tail, Qs.to(dev), gi, p, "euclidean")
+        torch.testing.assert_close(cd, gd.cpu(), **GATHER_TOL)
+    emit(phase="small_dynamic_vs_cpu", n=4000, segments=cpu.segment_sizes(),
+         buffer_count=cpu.buffer_count, ok=True)
+
+
+def run_bruteforce(ctx) -> dict:
+    """Phase 11: the "bruteforce" source (the circrun kernel over all n
+    strings) on the main fp32 index, the first 1,000 queries."""
+    from repro_torch.core import SearchParams
+    from repro_torch.kernels import common
+
+    index, Q = ctx["index"], ctx["Q"]
+    kw = dict(k=K, lam=100, source="bruteforce")
+    p = SearchParams(**kw)
+    index.search(Q[:100], p)  # warm-up
+    common.reset_launch_counts()
+    (ids, dists), secs = sync_time(lambda: index.search(Q[:BATCH], p))
+    counts = common.launch_counts()
+    check_outputs(ids, dists, BATCH)
+    emit(phase="search", store="fp32", source="bruteforce", params=kw, qps=BATCH / secs,
+         seconds=secs, recall_at_10=recall_at_k(ids, ctx["truth"][:BATCH]),
+         top1_self=float((ids[:, 0].long() == ctx["src_rows"][:BATCH]).float().mean()))
+    emit(phase="launches", run="fp32 bruteforce", counts=counts)
+    require(counts, ("circrun",), "bruteforce")
+    # the batch's time: the circrun kernel over every chunk, against the
+    # whole source (circrun + the top-k of each chunk's ranking keys)
+    from repro_torch.core.bruteforce import _LENS_ELEMS, bruteforce_topk
+    from repro_torch.kernels.circrun import circrun
+
+    from repro_torch.core.lsh import topk_largest, topk_largest_lcp
+
+    qh = index.family.hash(Q[:BATCH])
+    step = max(1, _LENS_ELEMS // N)
+    lens = circrun(index.h, qh[:step])
+    if not all(torch.equal(a, b.to(torch.int32)) for a, b in
+               zip(topk_largest_lcp(lens, 100), topk_largest(lens, 100))):
+        fail("the two top-k of one bruteforce chunk differ")
+    emit(phase="stages", store="fp32", source="bruteforce", batch=BATCH, ms={
+        "circrun (all chunks)": median_ms(
+            lambda: [circrun(index.h, qh[s:s + step]) for s in range(0, BATCH, step)], 3),
+        f"top-100 of one ({step}, {N}) chunk: unique int64 keys (topk_largest_lcp)":
+            median_ms(lambda: topk_largest_lcp(lens, 100), 3),
+        f"top-100 of one ({step}, {N}) chunk: stable sort (topk_largest)":
+            median_ms(lambda: topk_largest(lens, 100), 3),
+        "bruteforce_topk (circrun + top-k)": median_ms(
+            lambda: bruteforce_topk(index.h, qh, 100), 3),
+        "search (whole batch)": median_ms(lambda: index.search(Q[:BATCH], p), 3),
+    })
+    return counts
+
+
+def new_kernels_vs_plain(ctx, angular, dynamic, launches) -> list:
+    """Phase 12: hash_rp, hash_xp and circrun against their plain versions at
+    the paths' shapes, timed beside their bounds and a library call."""
+    from repro_torch.core.bruteforce import _LENS_ELEMS
+    from repro_torch.kernels.circrun import circrun, circrun_ref
+    from repro_torch.kernels.hash_rp import hash_rp, hash_rp_ref
+    from repro_torch.kernels.hash_xp import hash_xp, hash_xp_ref
+
+    X, index = ctx["X"], ctx["index"]
+    kernels = []
+
+    # B6 circrun, bit for bit: the delta buffer's shape, then one chunk of the
+    # bruteforce source at n = 10^6
+    buf_h, qh = dynamic["buf_h"], dynamic["qh"]
+    chunk = max(1, _LENS_ELEMS // N)
+    qh_main = index.family.hash(ctx["Q"][:chunk])
+    shapes = {}
+    for tag, h, q in (("buffer", buf_h, qh), ("bruteforce chunk", index.h, qh_main)):
+        if not torch.equal(circrun(h, q), circrun_ref(h, q)):
+            fail(f"circrun kernel != plain version at the {tag} shape")
+        shapes[tag] = dict(B=int(q.shape[0]), n=int(h.shape[0]), m=int(h.shape[1]))
+    Bq, nb = qh.shape[0], buf_h.shape[0]
+    c_bytes = 4 * (nb * M + Bq * M + Bq * nb)
+    c_ops = Bq * nb * 2 * M
+    kernels.append(dict(
+        name="circrun", route="cuda", source="src/repro_torch/kernels/csrc/circrun.cu",
+        replaces="src/repro/kernels/circrun/circrun.py:45", launches=launches["circrun"],
+        max_abs_err=0, ms=median_ms(lambda: circrun(buf_h, qh), 20),
+        plain_ms=median_ms(lambda: circrun_ref(buf_h, qh), 3),
+        **bound(c_bytes, c_ops, INT32_OPS), library_ms=None, int32_ops_per_s=INT32_OPS,
+        shape=shapes["buffer"],
+        checked_bit_identical=shapes,
+    ))
+
+    # B4 hash_rp over the full build input of the main path
+    fam = index.family
+    a, b, w = fam.a.contiguous(), fam.b.contiguous(), fam.w
+    k_h = hash_rp(X, a, b, w=w)
+    p_h = hash_rp_ref(X, a, b, w=w)
+    diff = k_h != p_h
+    n_diff = int(diff.sum())
+    if n_diff:
+        rows = diff.any(dim=1).nonzero()[:, 0]
+        v = (X[rows].double() @ a.double() + b.double()) / w
+        near = (v - torch.round(v)).abs() <= HASH_BOUNDARY_RTOL * torch.clamp(v.abs(), min=1.0)
+        if bool((diff[rows] & ~near).any()) or int((k_h - p_h).abs().max()) > 1:
+            fail("hash_rp kernel differs from its plain version away from a bucket boundary")
+    share = n_diff / diff.numel()
+    if share > HASH_MAX_SHARE:
+        fail(f"hash_rp mismatch share {share} > {HASH_MAX_SHARE}")
+    r_bytes = 4 * (N * D + D * M + M + N * M)
+    r_flops = 2 * N * D * M
+    kernels.append(dict(
+        name="hash_rp", route="cuda", source="src/repro_torch/kernels/csrc/hash_rp.cu",
+        replaces="src/repro/kernels/hash_rp/hash_rp.py:41", launches=launches["hash_rp"],
+        max_abs_err=int((k_h - p_h).abs().max()), mismatch_share=share,
+        ms=median_ms(lambda: hash_rp(X, a, b, w=w), 20),
+        plain_ms=median_ms(lambda: hash_rp_ref(X, a, b, w=w), 5),
+        **bound(r_bytes, r_flops, FP32_FLOPS),
+        library_ms=median_ms(lambda: torch.addmm(b, X, a), 20),
+        library_call="torch.addmm(b, x, a)", shape=dict(n=N, d=D, m=M),
+    ))
+    del k_h, p_h, diff
+
+    # B5 hash_xp over the first 65,536 rows of the angular corpus
+    xa, rot = angular["x_rows"], angular["family"].rot.contiguous()
+    na, ma, dr = xa.shape[0], rot.shape[0], rot.shape[2]
+    k_x = hash_xp(xa, rot)
+    p_x = hash_xp_ref(xa, rot)
+    diff = k_x != p_x
+    n_diff = int(diff.sum())
+    if n_diff:
+        rows = diff.any(dim=1).nonzero()[:, 0]
+        y = torch.einsum("nd,mde->nme", xa[rows].double(), rot.double())
+        top2 = torch.topk(torch.cat([y, -y], dim=-1), 2, dim=-1).values
+        near = (top2[..., 0] - top2[..., 1]) <= HASH_BOUNDARY_RTOL * top2[..., 0].abs()
+        if bool((diff[rows] & ~near).any()):
+            fail("hash_xp kernel differs from its plain version away from a near tie")
+    share = n_diff / diff.numel()
+    if share > HASH_MAX_SHARE:
+        fail(f"hash_xp mismatch share {share} > {HASH_MAX_SHARE}")
+    x_flops = 2 * na * ma * D * dr
+    x_bytes = 4 * (na * D + ma * D * dr + na * ma)
+    rot_flat = rot.permute(1, 0, 2).reshape(D, ma * dr).contiguous()
+    kernels.append(dict(
+        name="hash_xp", route="cuda", source="src/repro_torch/kernels/csrc/hash_xp.cu",
+        replaces="src/repro/kernels/hash_xp/hash_xp.py:27", launches=launches["hash_xp"],
+        max_abs_err=int((k_x - p_x).abs().max()), mismatch_share=share,
+        ms=median_ms(lambda: hash_xp(xa, rot), 10),
+        plain_ms=median_ms(lambda: hash_xp_ref(xa, rot), 3),
+        **bound(x_bytes, x_flops, FP32_FLOPS),
+        library_ms=median_ms(lambda: xa @ rot_flat, 10),
+        library_call="x @ rot as (d, m*dr)", shape=dict(n=na, d=D, m=ma, dr=dr),
+    ))
+    del k_x, p_x, rot_flat
+
+    # the multiprobe invariant: no alternative equals the base string's
+    # symbol, for both hashed families, on one query batch
+    for tag, family, qb in (("rp", fam, ctx["Q"][:BATCH]),
+                            ("xp gaussian", angular["family"], angular["queries"])):
+        vals, _ = family.alternatives(qb, 4)
+        if bool((vals == family.hash(qb)[..., None]).any()):
+            fail(f"multiprobe: an {tag} alternative equals the base symbol")
+    emit(phase="kernels_vs_plain", kernels=["circrun", "hash_rp", "hash_xp"],
+         tolerance=dict(circrun="bit-identical",
+                        hash=dict(boundary_rtol=HASH_BOUNDARY_RTOL, max_share=HASH_MAX_SHARE)),
+         multiprobe_invariant=True, ok=True)
+    return kernels
 
 
 if __name__ == "__main__":

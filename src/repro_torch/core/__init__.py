@@ -1,7 +1,7 @@
-"""LCCS-LSH core, PyTorch port of `repro.core`: `LCCSIndex` + `SearchParams`
-+ the candidate-source registry."""
+"""LCCS-LSH core, PyTorch port of `repro.core`: `LCCSIndex`, the dynamic
+`SegmentedLCCSIndex`, `SearchParams` + the candidate-source registry."""
 from . import multiprobe
-from .bruteforce import bruteforce_topk, circ_run_lengths
+from .bruteforce import bruteforce_topk
 from .csa import CSA, build_csa, circular_ranks
 from .index import LCCSIndex, candidates, resolve_device, search
 from .lsh import (
@@ -9,10 +9,13 @@ from .lsh import (
     CrossPolytopeLSH,
     RandomProjectionLSH,
     distance,
+    family_from_arrays,
     make_family,
 )
 from .params import SearchParams, WindowWidthWarning
 from .search import klccs_search, klccs_search_pairs, klccs_search_with_lens
+# importing .segments registers the "segmented" candidate source
+from .segments import Segment, SegmentedLCCSIndex
 from .sources import CandidateSource, available_sources, get_source, register_source
 
 __all__ = [
@@ -23,14 +26,16 @@ __all__ = [
     "LCCSIndex",
     "RandomProjectionLSH",
     "SearchParams",
+    "Segment",
+    "SegmentedLCCSIndex",
     "WindowWidthWarning",
     "available_sources",
     "bruteforce_topk",
     "build_csa",
     "candidates",
-    "circ_run_lengths",
     "circular_ranks",
     "distance",
+    "family_from_arrays",
     "get_source",
     "klccs_search",
     "klccs_search_pairs",

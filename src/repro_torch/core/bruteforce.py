@@ -2,38 +2,45 @@
 (PyTorch port of `repro.core.bruteforce`).
 
 |LCCS(T, Q)| equals the longest circular run of 1s in the element-wise match
-vector (T == Q).  Queries are scored one at a time: a batched form would hold
-a (B, n, 2m) transient.
+vector (T == Q).  Scoring goes through the `circrun` kernel wrapper (the
+hand-written CUDA kernel on a CUDA tensor, its plain version on a CPU
+tensor); queries are scored in chunks that bound the (Bc, n) int32 lengths
+buffer to 256 MB.
 """
 from __future__ import annotations
 
 import torch
 
-from .lsh import topk_largest
+from ..kernels.circrun import circrun
+from .lsh import topk_largest_lcp
 from .search import _pad_lam
 
+# (queries, rows) lengths one chunk may hold: 256 MB of int32, and twice
+# that in the int64 ranking keys of `topk_largest_lcp`
+_LENS_ELEMS = 1 << 26
 
-def circ_run_lengths(h: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
-    """h: (n, m) int32, q: (m,) int32 -> (n,) int32 LCCS lengths."""
-    n, m = h.shape
-    e = h == q[None, :]
-    ee = torch.cat([e, e], dim=1)  # (n, 2m)
-    j = torch.arange(1, 2 * m + 1, dtype=torch.int32, device=h.device)
-    # run length ending at j is j - (position of the most recent mismatch)
-    blockers = torch.where(ee, torch.zeros_like(j), j)
-    last_block = torch.cummax(blockers, dim=1).values
-    runs = j[None, :] - last_block
-    return torch.clamp(runs.amax(dim=1), max=m).to(torch.int32)
+
+def circ_topk(h: torch.Tensor, q_hash: torch.Tensor, k: int, ok: torch.Tensor | None = None):
+    """Top-k LCCS lengths of the rows of h per query, ties to the lower row
+    (the `lax.top_k` contract).  Rows where `ok` is False score -1.
+    Returns (vals, rows): (B, k) int32 each, k <= n."""
+    n = h.shape[0]
+    B = q_hash.shape[0]
+    dev = h.device
+    vals = torch.empty((B, k), dtype=torch.int32, device=dev)
+    rows = torch.empty((B, k), dtype=torch.int32, device=dev)
+    step = max(1, _LENS_ELEMS // max(1, n))
+    for lo in range(0, B, step):
+        lens = circrun(h, q_hash[lo:lo + step])  # (Bc, n)
+        if ok is not None:
+            lens = torch.where(ok, lens, torch.full_like(lens, -1))
+        vals[lo:lo + step], rows[lo:lo + step] = topk_largest_lcp(lens, k)
+        del lens
+    return vals, rows
 
 
 def bruteforce_topk(h: torch.Tensor, q_hash: torch.Tensor, lam: int):
     """Score every database string against each query; return top-lam
     ids/lcps (B, lam) int32, ties to the lower id, -1 padded past n."""
-    n = h.shape[0]
-    k = min(lam, n)
-    ids, vals = [], []
-    for q in q_hash:
-        v, i = topk_largest(circ_run_lengths(h, q), k)
-        ids.append(i.to(torch.int32))
-        vals.append(v)
-    return _pad_lam(torch.stack(ids), torch.stack(vals), lam)
+    vals, ids = circ_topk(h, q_hash, min(lam, h.shape[0]))
+    return _pad_lam(ids, vals, lam)

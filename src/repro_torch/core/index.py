@@ -224,8 +224,7 @@ class LCCSIndex:
         dev = resolve_device(device)
         with open(path, "rb") as f:
             blob = pickle.load(f)
-        cls = lsh_mod.FAMILIES[blob["family_cls"]]
-        fam = cls(**{k: _to_tensor(v, dev) for k, v in blob["family_fields"].items()})
+        fam = lsh_mod.family_from_arrays(blob["family_cls"], blob["family_fields"], dev)
         csa = None if blob["csa"] is None else CSA(
             *[None if x is None else _to_tensor(x, dev) for x in blob["csa"]]
         )

@@ -15,28 +15,36 @@ so a seed gives the same family on every device).  The draws differ from
 the JAX package's `jax.random` draws: to compare the two packages, build a
 family from the reference's arrays (`LCCSIndex.load` does this).
 
+Hashing goes through the kernels of `repro_torch.kernels`: `hash_rp` for
+the random-projection family and `hash_xp` for the cross-polytope family
+with a gaussian rotation (the hand-written CUDA kernel on a CUDA tensor, its
+plain version on a CPU tensor).  The pseudo rotation stays plain torch: the
+reference has no kernel for it.
+
 Hash boundaries: ``floor(((x @ a) + b) / w)`` keeps the reference's op
-order (a division, not a multiply by 1/w), and hashing switches TF32 off for
-matmuls and cuDNN (`_no_tf32`): a bucket boundary flips on the last bit of
-the projection, and with it the hash string and the whole CSA.
+order (a division, not a multiply by 1/w), and hashing switches TF32 off
+for matmuls and cuDNN (`kernels.common.no_tf32`): a bucket boundary flips
+on the last bit of the projection, and with it the hash string and the
+whole CSA.  The kernels sum in another order than cuBLAS, so on the card
+`alternatives` takes the base bucket or vertex from `hash` itself: no
+alternative ever equals the base string's symbol, as in the reference,
+where both come from one projection.
 """
 from __future__ import annotations
 
 import math
 from dataclasses import dataclass, field
 
+import numpy as np
 import torch
+
+from ..kernels.common import no_tf32
+from ..kernels.hash_rp import hash_rp
+from ..kernels.hash_xp import hash_xp
 
 
 def _next_pow2(x: int) -> int:
     return 1 << (x - 1).bit_length()
-
-
-def _no_tf32() -> None:
-    """Full float32 matmuls for hashing: TF32 keeps ~10 mantissa bits and
-    would move projections across bucket boundaries."""
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
 
 
 def _generator(seed: int) -> torch.Generator:
@@ -49,6 +57,19 @@ def topk_largest(x: torch.Tensor, k: int, dim: int = -1):
     promise.  A stable descending sort keeps equal entries in index order."""
     vals, idx = torch.sort(x, dim=dim, descending=True, stable=True)
     return vals.narrow(dim, 0, k), idx.narrow(dim, 0, k)
+
+
+def topk_largest_lcp(lcp: torch.Tensor, k: int):
+    """`topk_largest` along the last dim for integer LCP scores >= -1 over
+    fewer than 2^32 entries, without a full sort: each entry is ranked by the
+    unique int64 key (lcp + 1) * 2^32 + (n - 1 - index), so `torch.topk`
+    has no tie to break.  Returns (values, indices), int32 each.  The rows
+    of the dedupe buffer and of the circrun lengths are full of ties and
+    10^6 wide, where a stable sort of the whole row costs more."""
+    n = lcp.shape[-1]
+    tie = (n - 1) - torch.arange(n, dtype=torch.int64, device=lcp.device)
+    top = torch.topk(((lcp.to(torch.int64) + 1) << 32) | tie, k, dim=-1).values
+    return ((top >> 32) - 1).to(torch.int32), ((n - 1) - (top & 0xFFFFFFFF)).to(torch.int32)
 
 
 # ---------------------------------------------------------------------------
@@ -81,19 +102,21 @@ class RandomProjectionLSH:
         return self.a.shape[0]
 
     def projections(self, x: torch.Tensor) -> torch.Tensor:
-        _no_tf32()
+        no_tf32()
         return x.to(torch.float32) @ self.a + self.b
 
     def hash(self, x: torch.Tensor) -> torch.Tensor:
-        proj = self.projections(x)
-        return torch.floor(proj / self.w).to(torch.int32)
+        x = x.to(torch.float32).contiguous()
+        return hash_rp(x, self.a.contiguous(), self.b.contiguous(), w=self.w)
 
     def alternatives(self, x: torch.Tensor, n_alt: int = 4):
         """Multi-Probe LSH (Lv et al. 2007) alternatives: h +- j, scored by
-        the squared distance of the projection to the boundary."""
+        the squared distance of the projection to the boundary.  The base
+        bucket h is `hash`'s own (on the CPU it equals floor(proj / w) bit
+        for bit), so no alternative equals the base symbol."""
         n_alt = max(2, n_alt)
         proj = self.projections(x)  # (B, m)
-        h = torch.floor(proj / self.w)
+        h = self.hash(x).to(torch.float32)
         f = proj - h * self.w  # in-bucket offset, [0, w)
         js = torch.arange(1, n_alt // 2 + 1, dtype=torch.float32, device=proj.device)
         up = ((js - 1.0) * self.w + (self.w - f[..., None])) ** 2  # (B, m, J)
@@ -167,7 +190,7 @@ class CrossPolytopeLSH:
 
     def rotations(self, x: torch.Tensor) -> torch.Tensor:
         """(n, d) -> (n, m, dr) rotated copies."""
-        _no_tf32()
+        no_tf32()
         x = x.to(torch.float32)
         if self.rotation == "gaussian":
             return torch.einsum("nd,mde->nme", x, self.rot)
@@ -181,6 +204,8 @@ class CrossPolytopeLSH:
         return y / torch.sqrt(torch.tensor(float(self.dr), dtype=torch.float32))
 
     def hash(self, x: torch.Tensor) -> torch.Tensor:
+        if self.rotation == "gaussian":
+            return hash_xp(x.to(torch.float32).contiguous(), self.rot.contiguous())
         y = self.rotations(x)  # (n, m, dr)
         idx = torch.argmax(torch.abs(y), dim=-1)  # first maximum, as jnp.argmax
         sgn = torch.gather(y, -1, idx[..., None])[..., 0] < 0
@@ -188,14 +213,18 @@ class CrossPolytopeLSH:
 
     def alternatives(self, x: torch.Tensor, n_alt: int = 4):
         """FALCONN-style alternatives: other cross-polytope vertices ranked by
-        margin (|y_top| - |y_j|)^2."""
+        margin (|y_top| - |y_j|)^2.  Of the n_alt + 1 best vertices, the one
+        `hash` chose is dropped (the top one, unless the kernel resolved a
+        near tie the other way), so no alternative equals the base symbol."""
         n_alt = min(n_alt, self.dr - 1)
         y = self.rotations(x)  # (B, m, dr)
         top_vals, top_idx = topk_largest(torch.abs(y), n_alt + 1)  # best first
-        idx = top_idx[..., 1:]  # (B, m, n_alt)
-        sgn = torch.gather(y, -1, idx) < 0
-        vals = (idx + torch.where(sgn, self.dr, 0)).to(torch.int32)
-        scores = (top_vals[..., :1] - top_vals[..., 1:]) ** 2
+        sgn = torch.gather(y, -1, top_idx) < 0
+        verts = (top_idx + torch.where(sgn, self.dr, 0)).to(torch.int32)
+        is_base = (verts == self.hash(x)[..., None]).to(torch.int8)
+        keep = torch.argsort(is_base, dim=-1, stable=True)[..., :n_alt]  # (B, m, n_alt)
+        vals = torch.gather(verts, -1, keep)
+        scores = (top_vals[..., :1] - torch.gather(top_vals, -1, keep)) ** 2
         return vals, scores
 
 
@@ -237,6 +266,18 @@ FAMILIES = {
     "CrossPolytopeLSH": CrossPolytopeLSH,
     "BitSamplingLSH": BitSamplingLSH,
 }
+
+
+def family_from_arrays(family_cls: str, fields: dict, device):
+    """A family rebuilt from plain arrays on `device`: `family_cls` is its
+    class name (a key of `FAMILIES`), `fields` its dataclass fields as numpy
+    arrays and Python scalars (the reference's pickle fields, or a JAX
+    family's arrays through `np.asarray`).  This is how a family crosses from
+    the reference to the port; `LCCSIndex.load` uses it."""
+    return FAMILIES[family_cls](**{
+        k: torch.from_numpy(np.array(v)).to(device) if isinstance(v, np.ndarray) else v
+        for k, v in fields.items()
+    })
 
 
 def make_family(kind: str, seed: int, d: int, m: int, device="cpu", **kw):

@@ -16,7 +16,8 @@ Fields
 k            number of neighbours returned after verification.
 lam          lambda: candidate-set size of the lambda-LCCS search (paper §4.1).
 source       candidate-source name from the registry (`repro.core.sources`):
-             "bruteforce" | "lccs" | "multiprobe-full" | "multiprobe-skip".
+             "bruteforce" | "lccs" | "multiprobe-full" | "multiprobe-skip"
+             | "segmented" (the dynamic index's wrapper; see `inner`).
 mode         inner k-LCCS search mode: "parallel" (vmapped binary searches)
              or "narrowed" (paper-faithful Corollary 3.2 scan).
 width        window half-width of the k-LCCS search; None = max(4, min(lam, 64)).
@@ -37,9 +38,9 @@ skip_budget  static cap on re-searched shifts per (query, probe) in the
              "multiprobe-skip" source.  None = a heuristic cap (16 shifts per
              perturbation term, clipped to m); set it to m (or larger) for
              exact §4.2 semantics, or lower to trade recall for speed.
-inner        per-part candidate source of the reference's wrapping
-             "segmented" and "sharded" sources (not yet ported); ignored by
-             every source the port has.
+inner        per-part candidate source of the wrapping "segmented" source
+             (and of the reference's "sharded" one, not yet ported); the
+             segmented index sets it from `source` at search time.
 shards       expected shard count of a sharded index (None accepts any);
              the monolithic index ignores it.
 store        expected vector-store kind for the verify scan ("fp32" | "bf16"

@@ -12,6 +12,10 @@ of `repro.exec.stages`, the stages the monolithic topology runs).
                  rerank_rows          stage 2: exact fp32 rerank of gathered
                                       rows
                  verify               the composed verification
+    merge        merge_candidates     exact max-LCP merge of per-part
+                                      candidate sets (the segmented fan-out)
+                 pad_candidates, local_to_global, mask_dead
+                                      the id algebra around it
 
 Every top-k here breaks ties toward the lower index, as `lax.top_k` does in
 the reference (a stable sort, never a raw `torch.topk`).
@@ -155,3 +159,44 @@ def verify(store, tail, queries, cand_ids, params, metric: str):
     surv_ids, _ = survivors(store, queries, cand_ids, params, metric)
     rows = gather_fp32(store, tail, surv_ids)
     return rerank_rows(rows, queries, surv_ids, params.k, metric)
+
+
+# ---------------------------------------------------------------------------
+# merge stages + id algebra (segmented fan-out)
+# ---------------------------------------------------------------------------
+
+
+def merge_candidates(ids: torch.Tensor, lcps: torch.Tensor, lam: int):
+    """Candidate-set merge: max-LCP dedupe per id + global top-lambda over a
+    concatenated (B, sum_parts) pool.  Exact because LCCS scoring is
+    pointwise per object (the reference's vmapped `dedupe_topk`; the port's
+    `dedupe_topk` is batched over rows already)."""
+    from ..core.search import dedupe_topk  # lazy: core imports exec
+
+    return dedupe_topk(ids, lcps, lam)
+
+
+def pad_candidates(ids: torch.Tensor, vals: torch.Tensor, lam: int):
+    """(B, j) -> (B, lam), -1 padded, for j <= lam (part-local top-k sets
+    narrower than the merge width)."""
+    j = ids.shape[1]
+    if j < lam:
+        ids = torch.nn.functional.pad(ids, (0, lam - j), value=-1)
+        vals = torch.nn.functional.pad(vals, (0, lam - j), value=-1)
+    return ids, vals
+
+
+def local_to_global(local_ids: torch.Tensor, gid: torch.Tensor) -> torch.Tensor:
+    """Map part-local candidate ids through a part's (rows,) global-id array;
+    -1 padding (and padded rows, gid -1) stays -1."""
+    rows = gid.shape[0]
+    g = gid[torch.clamp(local_ids, 0, rows - 1).long()]
+    return torch.where(local_ids >= 0, g, torch.full_like(g, -1))
+
+
+def mask_dead(gids: torch.Tensor, vals: torch.Tensor, alive: torch.Tensor):
+    """Tombstone mask: candidates whose global id is dead (or padding) are
+    dropped from the merge (id -> -1, score -> -1)."""
+    live = (gids >= 0) & alive[torch.clamp(gids, min=0).long()]
+    return (torch.where(live, gids, torch.full_like(gids, -1)),
+            torch.where(live, vals, torch.full_like(vals, -1)))

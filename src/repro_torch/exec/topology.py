@@ -1,9 +1,12 @@
-"""Monolithic topology adapter (PyTorch port of the monolithic half of
+"""Monolithic and segmented topology adapters (PyTorch port of
 `repro.exec.topology`).
 
-`search_pipeline` is the staged hash -> probe -> verify body.  The one
-different execution shape is the disk-lazy rerank tail: a quantized index
-whose fp32 rows live in an .npy runs stage 1 (hash -> probe -> survivors) on
+`search_pipeline` is the staged hash -> probe -> verify body.  Both adapters
+run it; the segmented index differs only in params resolution: its
+per-segment fan-out and exact candidate merge live in the registered
+"segmented" candidate source (`core.segments`).  The one different
+execution shape is the disk-lazy rerank tail: a quantized index whose fp32
+rows live in an .npy runs stage 1 (hash -> probe -> survivors) on
 the device, gathers the survivors' rows from the memmap on the host, and
 reranks them on the device.
 """
@@ -76,4 +79,17 @@ def _monolithic_build(index, p: SearchParams):
     return run
 
 
+def _segmented_resolve(index, p: SearchParams) -> SearchParams:
+    # `p.source` names the *per-segment* source; rewrite it onto the
+    # registered "segmented" wrapper (source="segmented", inner=<source>).
+    # SearchParams itself rejects inner="segmented" / "sharded" (recursion).
+    if p.source != "segmented":
+        with _suppress_width_warning():
+            p = p.replace(source="segmented", inner=p.source)
+    return _resolve_common(index, p)
+
+
 register_topology("monolithic", resolve=_resolve_common, build=_monolithic_build)
+# a segmented index keeps its rerank tail resident (disk-lazy tails are a
+# static-index feature), so it runs the plain monolithic body
+register_topology("segmented", resolve=_segmented_resolve, build=_monolithic_build)

@@ -1,5 +1,5 @@
-"""Shared kernel plumbing: the nvcc build, the ctypes loader, launch counters
-and the argument checker.
+"""Shared kernel plumbing: the nvcc build, the ctypes loader, launch counters,
+the argument checker and the TF32 switch of the hashing matmuls.
 
 The CUDA sources live in `csrc/`.  At first use on a card, `library()`
 compiles every `csrc/*.cu` to an object with its own `nvcc` (all started
@@ -27,11 +27,14 @@ import torch
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
+# no --use_fast_math: hash_rp's division and floor must stay IEEE, or a
+# projection moves across a bucket boundary
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 # C signatures of the entry points in csrc/ (restype is cudaError_t == int)
 SIGNATURES = {
     # I, L, Hd, qd, shifts, qidx, ids_out, lcps_out, n, m, R, width, stream
@@ -40,11 +43,18 @@ SIGNATURES = {
     "gather_l2_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # codes, scale, ids, queries, out, n, d, B, Lc, angular, stream
     "gather_q_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # x, a, b, out, n, d, m, w, stream
+    "hash_rp_launch": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
+    # x, rot, out, n, d, m, dr, stream
+    "hash_xp_launch": (_P, _P, _P, _I, _I, _I, _I, _P),
+    # h, q, out, n, m, B, stream
+    "circrun_launch": (_P, _P, _P, _I, _I, _I, _P),
 }
 
 # launches per kernel since the last reset: each wrapper adds one where it
 # launches its kernel, and nowhere else
-LAUNCHES: dict[str, int] = {"csa_probe": 0, "gather_l2": 0, "gather_q": 0}
+LAUNCHES: dict[str, int] = {"csa_probe": 0, "gather_l2": 0, "gather_q": 0,
+                            "hash_rp": 0, "hash_xp": 0, "circrun": 0}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -57,6 +67,13 @@ def reset_launch_counts() -> None:
 
 def launch_counts() -> dict[str, int]:
     return dict(LAUNCHES)
+
+
+def no_tf32() -> None:
+    """Full float32 matmuls for hashing: TF32 keeps ~10 mantissa bits and
+    would move projections across bucket boundaries."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
 
 
 def find_nvcc() -> str:

@@ -25,6 +25,7 @@ from __future__ import annotations
 import torch
 
 from ...core.csa import CSA
+from ...core.lsh import topk_largest_lcp
 from ...core.search import _insertion_pos, _pad_lam, _row_lcp_less
 
 # worklist rows per chunk of the plain probe (bounds its transients)
@@ -115,14 +116,12 @@ def dedupe_topk_scatter(ids: torch.Tensor, lcps: torch.Tensor, n: int, lam: int)
     order).  ids/lcps: (B, pool); -1-padded slots are dropped.
 
     Top-lam ties must go to the lower id (the buffer is full of ties), which
-    `torch.topk` does not promise; each entry is therefore ranked by the
-    unique int64 key (lcp + 1) * 2^32 + (n - 1 - id)."""
+    `torch.topk` does not promise: `topk_largest_lcp` ranks unique keys."""
     B = ids.shape[0]
     k = min(lam, n)
     dev = ids.device
     out_ids = torch.empty((B, k), dtype=torch.int32, device=dev)
     vals = torch.empty((B, k), dtype=torch.int32, device=dev)
-    tie = (n - 1) - torch.arange(n, dtype=torch.int64, device=dev)
     step = max(1, _BUF // (n + 1))
     for lo in range(0, B, step):
         s = slice(lo, min(lo + step, B))
@@ -130,11 +129,8 @@ def dedupe_topk_scatter(ids: torch.Tensor, lcps: torch.Tensor, n: int, lam: int)
         safe = torch.where(idc >= 0, idc, n)  # -1 padding -> slot n -> dropped
         buf = torch.full((idc.shape[0], n + 1), -1, dtype=torch.int32, device=dev)
         buf.scatter_reduce_(1, safe, lcps[s].to(torch.int32), reduce="amax")
-        key = ((buf[:, :n].to(torch.int64) + 1) << 32) | tie
+        v, idx = topk_largest_lcp(buf[:, :n], k)
         del buf
-        top = torch.topk(key, k, dim=1).values  # unique keys: no tie to break
-        v = ((top >> 32) - 1).to(torch.int32)
-        idx = ((n - 1) - (top & 0xFFFFFFFF)).to(torch.int32)
         out_ids[s] = torch.where(v >= 0, idx, torch.full_like(idx, -1))
         vals[s] = v
     return _pad_lam(out_ids, vals, lam)

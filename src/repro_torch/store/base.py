@@ -10,8 +10,11 @@ them.  Protocol:
   gather(ids)                    (B, L, d) float32 rows for id matrix `ids`
   gather_dist(ids, queries, metric=..., use_kernel=...)
                                  (B, L) distances of gathered rows to queries
+  set_rows(rows, x)              write rows `rows` from float rows (quantize
+                                 on ingest); in place, returns the store
+  padded_to(cap)                 grow to `cap` rows (zero padding), a new store
   nbytes()                       resident bytes of this representation
-  n / d                          row count, dimensionality
+  n / d / shape                  row count, dimensionality, (n, d)
 
 Class attributes:
   kind   registry name ("fp32" | "bf16" | "int8" | ...)
@@ -40,6 +43,10 @@ class VectorStore(Protocol):
         use_kernel: bool = False,
     ) -> torch.Tensor: ...
 
+    def set_rows(self, rows: torch.Tensor, x: torch.Tensor) -> "VectorStore": ...
+
+    def padded_to(self, cap: int) -> "VectorStore": ...
+
     def nbytes(self) -> int: ...
 
     @property
@@ -47,6 +54,9 @@ class VectorStore(Protocol):
 
     @property
     def d(self) -> int: ...
+
+    @property
+    def shape(self) -> tuple[int, int]: ...
 
 
 _REGISTRY: dict[str, type] = {}

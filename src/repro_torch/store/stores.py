@@ -19,7 +19,12 @@ Distance scanning (`gather_dist`) dispatches per store:
   bf16   dense torch gather on upcast rows (no dedicated kernel)
 
 With use_kernel=True the kernel wrappers launch the CUDA kernel for CUDA
-tensors and run its plain version for CPU tensors.  All stores return
+tensors and run its plain version for CPU tensors.
+
+`set_rows` writes the new rows IN PLACE and returns the store itself (the
+reference's functional update copies the whole array); `padded_to` returns a
+new, larger store.  The dynamic index owns its store, so nothing else sees
+the write.  All stores return
 *ranking-consistent* distances (sqrt'd Euclidean / 1-cos angular, +inf on
 id < 0 padding).
 """
@@ -89,6 +94,17 @@ class Fp32Store:
             return _mask_pad(ids, _fix_kernel_dist(d, metric))
         return _mask_pad(ids, _dist_rows(self.gather(ids), queries, metric))
 
+    def set_rows(self, rows: torch.Tensor, x) -> "Fp32Store":
+        """Write rows `rows` (in place) from (len(rows), d) float rows."""
+        self.rows[rows.long()] = x.to(torch.float32)
+        return self
+
+    def padded_to(self, cap: int) -> "Fp32Store":
+        n, d = self.rows.shape
+        if cap <= n:
+            return self
+        return Fp32Store(rows=torch.cat([self.rows, self.rows.new_zeros((cap - n, d))]))
+
     def nbytes(self) -> int:
         return self.rows.numel() * 4
 
@@ -99,6 +115,10 @@ class Fp32Store:
     @property
     def d(self) -> int:
         return self.rows.shape[1]
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        return tuple(self.rows.shape)
 
 
 @dataclass
@@ -124,6 +144,17 @@ class Bf16Store:
         del use_kernel  # a bf16 gather is a cast away from the fp32 path
         return _mask_pad(ids, _dist_rows(self.gather(ids), queries, metric))
 
+    def set_rows(self, rows: torch.Tensor, x) -> "Bf16Store":
+        """Write rows `rows` (in place), rounded to bfloat16 on ingest."""
+        self.rows[rows.long()] = x.to(torch.float32).to(torch.bfloat16)
+        return self
+
+    def padded_to(self, cap: int) -> "Bf16Store":
+        n, d = self.rows.shape
+        if cap <= n:
+            return self
+        return Bf16Store(rows=torch.cat([self.rows, self.rows.new_zeros((cap - n, d))]))
+
     def nbytes(self) -> int:
         return self.rows.numel() * 2
 
@@ -134,6 +165,10 @@ class Bf16Store:
     @property
     def d(self) -> int:
         return self.rows.shape[1]
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        return tuple(self.rows.shape)
 
 
 def _quantize_rows(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -179,6 +214,22 @@ class Int8Store:
             return _mask_pad(ids, _fix_kernel_dist(d, metric))
         return _mask_pad(ids, _dist_rows(self.gather(ids), queries, metric))
 
+    def set_rows(self, rows: torch.Tensor, x) -> "Int8Store":
+        """Write rows `rows` (in place), quantized on ingest exactly as
+        `from_dense` quantizes."""
+        q, scale = _quantize_rows(x)
+        r = rows.long()
+        self.q[r] = q
+        self.scale[r] = scale
+        return self
+
+    def padded_to(self, cap: int) -> "Int8Store":
+        n, d = self.q.shape
+        if cap <= n:
+            return self
+        return Int8Store(q=torch.cat([self.q, self.q.new_zeros((cap - n, d))]),
+                         scale=torch.cat([self.scale, self.scale.new_zeros((cap - n,))]))
+
     def nbytes(self) -> int:
         return self.q.numel() * 1 + self.scale.numel() * 4
 
@@ -189,6 +240,10 @@ class Int8Store:
     @property
     def d(self) -> int:
         return self.q.shape[1]
+
+    @property
+    def shape(self) -> tuple[int, int]:
+        return tuple(self.q.shape)
 
 
 for _cls in (Fp32Store, Bf16Store, Int8Store):

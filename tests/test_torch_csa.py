@@ -11,8 +11,9 @@ import torch
 from repro.core import lsh as ref_lsh
 from repro.core.csa import build_csa as ref_build_csa
 from repro.core.csa import build_csa_oracle, circular_ranks as ref_ranks
-from repro_torch.core.bruteforce import bruteforce_topk, circ_run_lengths
+from repro_torch.core.bruteforce import bruteforce_topk
 from repro_torch.core.csa import build_csa, circular_ranks
+from repro_torch.kernels.circrun import circrun
 
 torch.set_num_threads(2)
 
@@ -60,7 +61,7 @@ def test_bruteforce_parity(n, m, lam):
     rng = np.random.default_rng(n)
     h = rng.integers(-1, 2, size=(n, m)).astype(np.int32)
     q = rng.integers(-1, 2, size=(4, m)).astype(np.int32)
-    assert np.array_equal(circ_run_lengths(torch.from_numpy(h), torch.from_numpy(q[0])).numpy(),
+    assert np.array_equal(circrun(torch.from_numpy(h), torch.from_numpy(q[0])).numpy(),
                           np.asarray(ref_crl(jnp.asarray(h), jnp.asarray(q[0]))))
     ri, rl = ref_bf(jnp.asarray(h), jnp.asarray(q), lam)
     oi, ol = bruteforce_topk(torch.from_numpy(h), torch.from_numpy(q), lam)
