@@ -14,12 +14,21 @@ Drives the port's paths on one NVIDIA card at the paper's SIFT size
   * the dynamic path (SegmentedLCCSIndex, the main path's family): a bulk
     load into one segment, a stream of inserts into the delta buffer,
     deletes from both, search, a size-tiered compaction, search again;
-  * the "bruteforce" source on the main fp32 index.
+  * the "bruteforce" source on the main fp32 index;
+  * the retrieval serving path (RetrievalEngine, as `repro_torch.launch.serve`
+    drives it) with two embedding models at full width and depth, random
+    weights from seed 0: gemma-2b (18 attention layers, the flash_attn
+    kernel) over 4,096 documents of 32 tokens and 256 requests, and
+    falcon-mamba-7b (64 Mamba-1 layers, the ssm_scan kernel) over 1,024
+    documents and 128 requests; each static, then as a dynamic stream with
+    an insert / delete / compact burst;
+  * the same smoke-size models on the card and on the CPU.
 
 It builds the CUDA kernels from the sources in the checkout, shows through
 their launch counts (reset before each path, read after it) that each path
 went through its kernels, holds each kernel against its plain PyTorch
-version on the card at the paths' shapes, and times both.
+version on the card at the paths' shapes (flash_attn and ssm_scan also at
+one long shape each), and times both.
 
 Each phase prints one JSON line; any failure exits non-zero.  The last line
 is {"ok": true, "device": {...}}.  Without CUDA, or without the rest of the
@@ -61,6 +70,19 @@ HASH_BOUNDARY_RTOL, HASH_MAX_SHARE = 1e-5, 1e-4
 LCCS = dict(k=K, lam=100, width=100, source="lccs")
 SKIP = dict(k=K, lam=200, width=64, source="multiprobe-skip", probes=17)
 GATHER_TOL = dict(rtol=1e-5, atol=1e-5)  # fp32 summation order
+# the serving path: (arch, corpus documents, requests), documents of 32
+# tokens, an angular index of m = 32 (the CLI's defaults), batches of 32
+SERVE = (("gemma-2b", 4096, 256), ("falcon-mamba-7b", 1024, 128))
+SERVE_TOKENS, SERVE_M, SERVE_BATCH = 32, 32, 32
+SERVE_KERNEL = {"gemma-2b": "flash_attn", "falcon-mamba-7b": "ssm_scan"}
+SMALL_SERVE_DOCS = 256
+# card vs CPU embeddings of the smoke models: float32 through a few layers,
+# cuBLAS against the CPU's summation order
+EMB_TOL = dict(rtol=1e-4, atol=1e-5)
+# kernel vs plain version on the card: float32 summation order, and the
+# order of the online softmax (flash_attn) or of the C contraction (ssm_scan)
+FLASH_TOL = dict(rtol=1e-4, atol=1e-4)
+SCAN_TOL = dict(rtol=1e-5, atol=1e-5)
 
 
 def emit(**rec) -> None:
@@ -105,13 +127,14 @@ def median_ms(fn, reps: int) -> float:
 
 
 @contextmanager
-def recording(module, name: str, store: list):
-    """Record the arguments of every call to module.<name> (the wrapper the
-    main path calls) while the block runs."""
+def recording(module, name: str, store: list, keep: int | None = None):
+    """Record the arguments of every call (or of the first `keep` calls) to
+    module.<name> (the wrapper the main path calls) while the block runs."""
     orig = getattr(module, name)
 
     def rec(*args, **kw):
-        store.append((args, kw))
+        if keep is None or len(store) < keep:
+            store.append((args, kw))
         return orig(*args, **kw)
 
     setattr(module, name, rec)
@@ -380,6 +403,19 @@ def run(dev: torch.device) -> None:
     for rec in kernels:  # every path's launches, not only the main path's
         rec["launches"] = launches[rec["name"]]
     kernels += new_kernels_vs_plain(ctx, angular, dynamic, launches)
+
+    # -- 13.-16. the serving path of the third slice --------------------------
+    del ctx, angular, dynamic, index, X, Q, truth, src_rows, results, ids, dists, ids8, d8
+    torch.cuda.empty_cache()
+    serve = run_serving(dev)
+    for k in launches:
+        launches[k] += serve["counts"][k]
+    for rec in kernels:
+        rec["launches"] = launches[rec["name"]]
+    kernels += serve_kernels_vs_plain(serve, launches)
+    names = [rec["name"] for rec in kernels]
+    if sorted(names) != sorted(common.LAUNCHES):
+        fail(f"the kernels line lists {names}, the library has {sorted(common.LAUNCHES)}")
 
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
@@ -797,6 +833,275 @@ def new_kernels_vs_plain(ctx, angular, dynamic, launches) -> list:
          tolerance=dict(circrun="bit-identical",
                         hash=dict(boundary_rtol=HASH_BOUNDARY_RTOL, max_share=HASH_MAX_SHARE)),
          multiprobe_invariant=True, ok=True)
+    return kernels
+
+
+def run_serving(dev) -> dict:
+    """Phases 13-15: each serving model at full width and depth, static then
+    dynamic (counts reset before each run and read after it), the kernel's
+    arguments of one embedded batch recorded for phase 16, then the smoke
+    models on the card against the CPU."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import lm_token_batches
+    from repro_torch.kernels import common
+    from repro_torch.kernels.flash_attn import ops as flash_ops
+    from repro_torch.kernels.ssm_scan import ops as scan_ops
+    from repro_torch.models import init_model
+    from repro_torch.serve import RetrievalEngine
+
+    counts = {k: 0 for k in common.LAUNCHES}
+    recorded = {}
+    for arch, n_docs, n_req in SERVE:
+        cfg = ARCHS[arch]
+        base = torch.cuda.memory_allocated()
+        model, init_s = sync_time(lambda: init_model(cfg, seed=0, device=dev))
+        emit(phase="init_model", arch=arch, seconds=init_s, n_layers=cfg.n_layers,
+             d_model=cfg.d_model, params=sum(p.numel() for p in model.parameters()),
+             weight_bytes=torch.cuda.memory_allocated() - base)
+        engine = RetrievalEngine(cfg, model, m=SERVE_M, metric="angular",
+                                 max_batch=SERVE_BATCH, device=dev)
+        corpus, _ = lm_token_batches(vocab=cfg.vocab, seed=0)(0, n_docs, SERVE_TOKENS)
+        for dynamic in (False, True):
+            run_counts = serve_once(engine, corpus, n_req, dynamic)
+            for k in counts:
+                counts[k] += run_counts[k]
+            if not dynamic:  # after the static run's counts are read
+                profile_batch(engine, corpus[:SERVE_BATCH])
+        kernel = SERVE_KERNEL[arch]
+        module, fn = (flash_ops, "flash_attention") if kernel == "flash_attn" \
+            else (scan_ops, "ssm_scan")
+        calls = []
+        with recording(module, fn, calls, keep=1):
+            engine.embed(corpus[:SERVE_BATCH])
+        recorded[kernel] = calls[0]
+        del engine, model
+        torch.cuda.empty_cache()
+    small_serve_vs_cpu(dev)
+    return dict(counts=counts, recorded=recorded)
+
+
+def serve_once(engine, corpus: np.ndarray, n_req: int, dynamic: bool) -> dict:
+    """One serving run as `repro_torch.launch.serve` drives it: build the
+    index over the corpus, then serve a stream of corpus documents (with
+    --dynamic: an insert / delete / compact burst in its middle).  Checks
+    the answers and that the path launched its kernels."""
+    from repro_torch.data import lm_token_batches
+    from repro_torch.kernels import common
+    from repro_torch.launch.serve import request_stream
+
+    cfg, n_docs = engine.cfg, corpus.shape[0]
+    state = "dynamic" if dynamic else "static"
+    engine.stats.reset()
+    torch.cuda.reset_peak_memory_stats()
+    common.reset_launch_counts()
+    _, build_s = sync_time(lambda: engine.build_index(corpus, dynamic=dynamic))
+    extra = None
+    if dynamic:
+        extra, _ = lm_token_batches(vocab=cfg.vocab, seed=0)(1, SERVE_BATCH, SERVE_TOKENS)
+    picks, stream = request_stream(corpus, n_req, extra)
+    results, wall = sync_time(lambda: engine.serve_stream(stream))
+    counts = common.launch_counts()
+    qres = [r for r in results if not (isinstance(r, tuple) and isinstance(r[0], str))]
+    ids = np.stack([i for i, _ in qres])
+    dists = np.stack([d for _, d in qres])
+    k = engine.search_params.k
+    if ids.shape != (n_req, k) or not np.isfinite(dists[ids >= 0]).all():
+        fail(f"serve {cfg.name} {state}: bad answers {ids.shape}")
+    hit = (ids == picks[:, None]).any(axis=1)
+    live = np.ones(n_req, bool)
+    if dynamic:  # queries after the delete: the picks still live, no deleted id back
+        mid = next(i for i, r in enumerate(stream) if isinstance(r, tuple))  # the insert
+        deleted = stream[mid + 1][1]
+        live[mid:] = ~np.isin(picks[mid:], deleted)
+        if np.isin(ids[mid:], deleted).any():
+            fail(f"serve {cfg.name} dynamic: a deleted id came back")
+    self_ret = float(hit[live].mean())
+    s = engine.stats
+    embedded = -(-n_docs // SERVE_BATCH) + s.batches + (1 if dynamic else 0)
+    kernel = SERVE_KERNEL[cfg.name]
+    emit(phase="serve", arch=cfg.name, state=state, docs=n_docs, tokens=SERVE_TOKENS,
+         requests=n_req, m=SERVE_M, params=dict(k=k, lam=engine.search_params.lam),
+         build_seconds=build_s, embed_seconds=s.embed_s,
+         embed_tokens_per_s=s.requests * SERVE_TOKENS / s.embed_s, search_seconds=s.search_s,
+         serve_seconds=wall, requests_per_s=n_req / wall, batches=s.batches,
+         embed_ms_per_batch=s.embed_s / s.batches * 1e3,
+         search_ms_per_batch=s.search_s / s.batches * 1e3, self_retrieval=self_ret,
+         self_retrieval_queries=int(live.sum()), churn=[s.inserts, s.deletes, s.compactions],
+         embedded_batches=embedded, launches=counts,
+         index_bytes=engine.index.index_bytes(), store_bytes=engine.index.store_bytes(),
+         peak_mem_bytes=torch.cuda.max_memory_allocated())
+    if self_ret < 0.90:
+        fail(f"serve {cfg.name} {state}: self-retrieval {self_ret} < 0.90")
+    if counts[kernel] != cfg.n_layers * embedded:
+        fail(f"serve {cfg.name} {state}: {kernel} launched {counts[kernel]} times, expected "
+             f"{cfg.n_layers} x {embedded} embedded batches")
+    require(counts, ("csa_probe", "gather_l2") + (("circrun",) if dynamic else ()),
+            f"{cfg.name} {state} serving")
+    return counts
+
+
+# kernel-name fragments -> the part of a served batch they belong to
+KERNEL_GROUPS = (("flash_attn_kernel", "flash_attn"), ("ssm_scan_kernel", "ssm_scan"),
+                 ("gemm", "matmul (cuBLAS)"), ("csa_probe_kernel", "index kernels"),
+                 ("gather_dist_kernel", "index kernels"), ("circrun_kernel", "index kernels"))
+
+
+def profile_batch(engine, tokens: np.ndarray) -> None:
+    """Where one served batch spends the card's time: torch.profiler over one
+    `serve_batch` (embed + search) on the static index, device time summed
+    by kernel group, and the share of the batch's wall time in which no
+    kernel ran (measured under the profiler, which adds host time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    engine.serve_batch(tokens)  # warm-up
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, wall = sync_time(lambda: engine.serve_batch(tokens))
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    groups: dict = {}
+    for e in kern:
+        g = next((grp for frag, grp in KERNEL_GROUPS if frag in e.name.lower()), "other")
+        groups[g] = groups.get(g, 0.0) + e.time_range.elapsed_us() / 1e3
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kern)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:  # the union of the kernels' intervals
+        busy += max(0.0, b - max(a, end))
+        end = max(end, b)
+    busy_ms = busy / 1e3
+    emit(phase="profile_batch", arch=engine.cfg.name, batch=len(tokens), wall_ms=wall * 1e3,
+         kernels=len(kern), device_busy_ms=busy_ms,
+         idle_share=(1.0 - busy_ms / (wall * 1e3)) if kern else "not measured",
+         device_ms_by_group=groups)
+
+
+def small_serve_vs_cpu(dev) -> None:
+    """Phase 15: the smoke-size models with the same weights on the card and
+    on the CPU: embeddings within EMB_TOL, and an index built on each device
+    from the CPU's embeddings serves identical ids.  The embeddings are
+    rounded to multiples of 2^-10 for the index, so the pseudo-rotation
+    hashes and the verify sums are exact in fp32 on both devices."""
+    import copy
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.core import LCCSIndex, SearchParams
+    from repro_torch.data import lm_token_batches
+    from repro_torch.models import init_model
+    from repro_torch.serve import RetrievalEngine
+
+    for arch in SERVE_KERNEL:
+        cfg = ARCHS[arch].smoke()
+        cpu_model = init_model(cfg, seed=0, device="cpu")
+        card_model = copy.deepcopy(cpu_model).to(dev)
+        corpus, _ = lm_token_batches(vocab=cfg.vocab, seed=0)(0, SMALL_SERVE_DOCS, SERVE_TOKENS)
+        e_cpu = RetrievalEngine(cfg, cpu_model, device="cpu").embed(corpus)
+        e_card = RetrievalEngine(cfg, card_model, device=dev).embed(corpus).cpu()
+        err = float((e_card - e_cpu).abs().max())
+        torch.testing.assert_close(e_card, e_cpu, **EMB_TOL)
+        X = torch.from_numpy(dyadic(e_cpu.numpy(), bits=10))
+        p = SearchParams(k=5, lam=64)
+        idx = {d: LCCSIndex.build(X, m=SERVE_M, family="angular", seed=0, device=d)
+               for d in ("cpu", dev)}
+        ids_cpu, _ = idx["cpu"].search(X[:64], p)
+        ids_card, _ = idx[dev].search(X[:64].to(dev), p)
+        if not torch.equal(idx["cpu"].h, idx[dev].h.cpu()):
+            fail(f"small serve {arch}: hash strings differ between card and CPU")
+        if not torch.equal(ids_cpu, ids_card.cpu()):
+            fail(f"small serve {arch}: served ids differ between card and CPU")
+        emit(phase="small_serve_vs_cpu", arch=arch, docs=SMALL_SERVE_DOCS,
+             embed_max_abs_err=err, tolerance=EMB_TOL, ids_identical=True, ok=True)
+
+
+def flash_record(q, k, v, kw: dict) -> dict:
+    """flash_attn against its plain version on one input: error, times, the
+    bound counting only the unmasked (query, key) pairs, and the time of
+    scaled_dot_product_attention with the same mask (it has no softcap)."""
+    from repro_torch.kernels.flash_attn import attn_mask, flash_attention, flash_attention_ref
+
+    B, Sq, Hq, dh = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    out = flash_attention(q, k, v, **kw)
+    ref = flash_attention_ref(q, k, v, **kw)
+    torch.testing.assert_close(out, ref, **FLASH_TOL)
+    mask = attn_mask(Sq, Skv, causal=kw["causal"], window=kw["window"], device=q.device)
+    pairs = int(mask.sum()) * B * Hq
+    nbytes = 4 * (2 * B * Sq * Hq * dh + 2 * B * Skv * Hkv * dh)
+    qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    sdpa_mask = None if kw["window"] == 0 and Sq == Skv else mask
+    sdpa_causal = kw["causal"] and sdpa_mask is None
+
+    def sdpa():
+        return torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=sdpa_mask, is_causal=sdpa_causal, enable_gqa=True)
+
+    return dict(max_abs_err=float((out - ref).abs().max()),
+                ms=median_ms(lambda: flash_attention(q, k, v, **kw), 20),
+                plain_ms=median_ms(lambda: flash_attention_ref(q, k, v, **kw), 5),
+                **bound(nbytes, 4 * dh * pairs, FP32_FLOPS),
+                library_ms=median_ms(sdpa, 20),
+                shape=dict(B=B, Sq=Sq, Skv=Skv, Hq=Hq, Hkv=Hkv, dh=dh, **kw,
+                           unmasked_pairs=pairs))
+
+
+def scan_record(dt, x, Bc, Cc, A, h0) -> dict:
+    """ssm_scan (the chunked wrapper) against its plain version on one
+    input: error, times, and the bound (bytes: dt, x, B, C, A, h0 read once,
+    y and h written once; operations: 7 a state element and step)."""
+    from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_batched_ref
+
+    B, L, D = dt.shape
+    N = Bc.shape[2]
+    y, h = ssm_scan(dt, x, Bc, Cc, A, h0)
+    y_ref, h_ref = ssm_scan_batched_ref(dt, x, Bc, Cc, A, h0)
+    torch.testing.assert_close(y, y_ref, **SCAN_TOL)
+    torch.testing.assert_close(h, h_ref, **SCAN_TOL)
+    nbytes = 4 * (3 * B * L * D + 2 * B * L * N + D * N + 2 * B * D * N)
+    return dict(max_abs_err=max(float((y - y_ref).abs().max()), float((h - h_ref).abs().max())),
+                ms=median_ms(lambda: ssm_scan(dt, x, Bc, Cc, A, h0), 20),
+                plain_ms=median_ms(lambda: ssm_scan_batched_ref(dt, x, Bc, Cc, A, h0), 3),
+                **bound(nbytes, 7 * B * L * D * N, FP32_FLOPS), library_ms=None,
+                shape=dict(B=B, L=L, D=D, N=N))
+
+
+def serve_kernels_vs_plain(serve: dict, launches: dict) -> list:
+    """Phase 16: flash_attn and ssm_scan against their plain versions at the
+    serving shape (the arguments recorded from one embedded batch) and at one
+    long shape each, timed beside their bounds (and SDPA for flash_attn)."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+
+    def randn(*shape):
+        return torch.randn(shape, generator=g, device=dev)
+
+    (q, k, v), kw = serve["recorded"]["flash_attn"]
+    serving = flash_record(q, k, v, dict(kw))
+    long = {}
+    B, S, Hq, Hkv, dh = 4, 2048, 16, 8, 256
+    q, k, v = randn(B, S, Hq, dh), randn(B, S, Hkv, dh), randn(B, S, Hkv, dh)
+    for tag, kw in (("window 1024, softcap 50", dict(causal=True, window=1024, softcap=50.0)),
+                    ("causal", dict(causal=True, window=0, softcap=0.0))):
+        long[tag] = flash_record(q, k, v, kw)
+    del q, k, v
+    kernels = [dict(
+        name="flash_attn", route="cuda", source="src/repro_torch/kernels/csrc/flash_attn.cu",
+        replaces="src/repro/kernels/flash_attn/flash_attn.py:88",
+        launches=launches["flash_attn"], **serving,
+        library_call="scaled_dot_product_attention (same mask, no softcap, enable_gqa)",
+        long=long)]
+
+    args, _ = serve["recorded"]["ssm_scan"]
+    serving = scan_record(*args)
+    B, L, D, N = 4, 2048, 8192, 16
+    dt = torch.nn.functional.softplus(randn(B, L, D))
+    A = -torch.exp(0.5 * randn(D, N))
+    long = scan_record(dt, randn(B, L, D), randn(B, L, N), randn(B, L, N), A,
+                       torch.zeros((B, D, N), device=dev))
+    kernels.append(dict(
+        name="ssm_scan", route="cuda", source="src/repro_torch/kernels/csrc/ssm_scan.cu",
+        replaces="src/repro/kernels/ssm_scan/ssm_scan.py:48",
+        launches=launches["ssm_scan"], **serving, long={"L 2048": long}))
+    emit(phase="kernels_vs_plain", kernels=["flash_attn", "ssm_scan"],
+         tolerance=dict(flash_attn=FLASH_TOL, ssm_scan=SCAN_TOL), ok=True)
     return kernels
 
 

@@ -1,0 +1,16 @@
+"""Architecture registry of the port: --arch <id> -> ModelConfig.  It names
+only the architectures whose every block kind the port runs."""
+from __future__ import annotations
+
+from .base import ModelConfig
+from .falcon_mamba_7b import CONFIG as falcon_mamba_7b
+from .gemma2_9b import CONFIG as gemma2_9b
+from .gemma_2b import CONFIG as gemma_2b
+
+ARCHS: dict[str, ModelConfig] = {c.name: c for c in [gemma_2b, gemma2_9b, falcon_mamba_7b]}
+
+
+def get_config(arch: str) -> ModelConfig:
+    if arch not in ARCHS:
+        raise KeyError(f"unknown arch {arch!r}; known: {sorted(ARCHS)}")
+    return ARCHS[arch]

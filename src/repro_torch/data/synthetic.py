@@ -1,7 +1,9 @@
 """Synthetic corpora (numpy; copy of `repro.data.synthetic`'s vector
-generators, so the same seed gives the same data in both packages).
+generators and its token stream, so the same seed gives the same data in
+both packages).
 
-Vector datasets are Gaussian-mixture clones shaped like the paper's datasets.
+Vector datasets are Gaussian-mixture clones shaped like the paper's datasets;
+token documents follow a Zipf marginal with a deterministic "grammar".
 """
 from __future__ import annotations
 
@@ -33,3 +35,27 @@ def queries_from(X: np.ndarray, n_queries: int, *, jitter: float = 0.05, seed: i
     idx = rng.choice(X.shape[0], n_queries, replace=False)
     Q = X[idx] + rng.normal(size=(n_queries, X.shape[1])).astype(X.dtype) * jitter
     return Q.astype(X.dtype)
+
+
+def lm_token_batches(vocab: int, *, seed: int = 0):
+    """Infinite deterministic stream factory: batch(step) -> (tokens, labels).
+
+    Tokens follow a Zipf marginal with a deterministic "grammar": with prob
+    0.5 the next token is f(prev) = (prev * 31 + 7) % vocab, else a fresh
+    Zipf draw."""
+
+    def batch(step: int, batch_size: int, seq_len: int):
+        rng = np.random.default_rng((seed << 32) ^ step)
+        fresh = rng.zipf(1.3, size=(batch_size, seq_len + 1)).astype(np.int64)
+        fresh = np.minimum(fresh, vocab - 1)
+        keep = rng.random((batch_size, seq_len + 1)) < 0.5
+        toks = fresh.copy()
+        for t in range(1, seq_len + 1):
+            follow = (toks[:, t - 1] * 31 + 7) % vocab
+            toks[:, t] = np.where(keep[:, t], follow, fresh[:, t])
+        return (
+            toks[:, :-1].astype(np.int32),
+            toks[:, 1:].astype(np.int32),
+        )
+
+    return batch

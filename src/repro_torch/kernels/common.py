@@ -1,5 +1,5 @@
 """Shared kernel plumbing: the nvcc build, the ctypes loader, launch counters,
-the argument checker and the TF32 switch of the hashing matmuls.
+the argument checker and the TF32 switch of the float32 matmuls.
 
 The CUDA sources live in `csrc/`.  At first use on a card, `library()`
 compiles every `csrc/*.cu` to an object with its own `nvcc` (all started
@@ -28,7 +28,8 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
 # no --use_fast_math: hash_rp's division and floor must stay IEEE, or a
-# projection moves across a bucket boundary
+# projection moves across a bucket boundary; flash_attn and ssm_scan keep the
+# accurate expf and tanhf
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -49,12 +50,17 @@ SIGNATURES = {
     "hash_xp_launch": (_P, _P, _P, _I, _I, _I, _I, _P),
     # h, q, out, n, m, B, stream
     "circrun_launch": (_P, _P, _P, _I, _I, _I, _P),
+    # q, k, v, o, B, Sq, Skv, Hq, Hkv, dh, causal, window, softcap, stream
+    "flash_attn_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    # dt, x, Bc, Cc, A, h0, y, h_out, B, L, D, N, t0, t1, stream
+    "ssm_scan_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
 }
 
 # launches per kernel since the last reset: each wrapper adds one where it
 # launches its kernel, and nowhere else
 LAUNCHES: dict[str, int] = {"csa_probe": 0, "gather_l2": 0, "gather_q": 0,
-                            "hash_rp": 0, "hash_xp": 0, "circrun": 0}
+                            "hash_rp": 0, "hash_xp": 0, "circrun": 0,
+                            "flash_attn": 0, "ssm_scan": 0}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
@@ -70,8 +76,9 @@ def launch_counts() -> dict[str, int]:
 
 
 def no_tf32() -> None:
-    """Full float32 matmuls for hashing: TF32 keeps ~10 mantissa bits and
-    would move projections across bucket boundaries."""
+    """Full float32 matmuls for hashing and the model forwards: TF32 keeps
+    ~10 mantissa bits, would move projections across bucket boundaries, and
+    would hold the embeddings to a looser tolerance than the reference's."""
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 

@@ -1,0 +1,56 @@
+"""Shared model components (port of `repro.models.common`): norms, rotary
+embeddings, the dense initialiser."""
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """x * rsqrt(mean(x^2) + eps) * (1 + scale), in float32 (gemma's form:
+    a zero scale is the identity gain)."""
+    dt = x.dtype
+    x = x.to(torch.float32)
+    var = torch.mean(x * x, dim=-1, keepdim=True)
+    out = x * torch.rsqrt(var + eps) * (1.0 + scale.to(torch.float32))
+    return out.to(dt)
+
+
+def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+               eps: float = 1e-5) -> torch.Tensor:
+    dt = x.dtype
+    x = x.to(torch.float32)
+    mu = torch.mean(x, dim=-1, keepdim=True)
+    var = torch.mean((x - mu) ** 2, dim=-1, keepdim=True)
+    out = (x - mu) * torch.rsqrt(var + eps) * scale + bias
+    return out.to(dt)
+
+
+def dense_init_(w: torch.Tensor, generator: torch.Generator, in_axis: int = 0) -> torch.Tensor:
+    """Fill `w` in place with normal / sqrt(fan_in), fan_in = w.shape[in_axis]
+    (the reference's `dense_init`)."""
+    with torch.no_grad():
+        return w.normal_(0.0, 1.0 / math.sqrt(w.shape[in_axis]), generator=generator)
+
+
+# ---------------------------------------------------------------------------
+# Rotary embeddings
+# ---------------------------------------------------------------------------
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta ** exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0) -> torch.Tensor:
+    """x: (B, S, H, dh); positions: (B, S) int."""
+    dh = x.shape[-1]
+    freqs = rope_freqs(dh, theta, device=x.device)  # (dh/2,)
+    ang = positions[..., None].to(torch.float32) * freqs  # (B, S, dh/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)

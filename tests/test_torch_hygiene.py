@@ -1,6 +1,8 @@
 """Port hygiene: `repro_torch` (and chip_smoke.py) never import JAX or the
-reference package, entry points default to CUDA and refuse to fall back to
-the CPU, and the kernel loader fails clearly without nvcc."""
+reference package -- neither the index path, nor the serving engine, nor the
+serve CLI --, entry points default to CUDA and refuse to fall back to the
+CPU, and the kernel loader fails clearly without nvcc."""
+import os
 import re
 import subprocess
 import sys
@@ -17,6 +19,9 @@ torch.set_num_threads(2)
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT = ROOT / "src" / "repro_torch"
+# the caller's own HOME and TMPDIR, so no run points at a shared fixed path
+ENV = {**{k: os.environ[k] for k in ("HOME", "TMPDIR") if k in os.environ},
+       "PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin"}
 FORBIDDEN = re.compile(r"^\s*(import jax|from jax|import repro\.|import repro\s*$|"
                        r"from repro |from repro\.)", re.M)
 
@@ -40,10 +45,55 @@ bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
              or m == "repro" or m.startswith("repro."))
 print("BAD", bad)
 """
-    env = {"PYTHONPATH": str(ROOT / "src"), "PATH": "/usr/bin:/bin", "HOME": "/tmp"}
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
-                         timeout=300, env=env)
+                         timeout=300, env=ENV)
     assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+
+
+@pytest.mark.parametrize("arch", ["gemma-2b", "falcon-mamba-7b"])
+def test_cpu_engine_build_and_serve_loads_no_jax_or_reference(arch):
+    code = f"""
+import sys
+import numpy as np
+import torch
+torch.set_num_threads(2)
+from repro_torch.configs import ARCHS
+from repro_torch.data import lm_token_batches
+from repro_torch.models import init_model
+from repro_torch.serve import RetrievalEngine
+cfg = ARCHS[{arch!r}].smoke()
+eng = RetrievalEngine(cfg, init_model(cfg, device="cpu"), m=8, max_batch=8, device="cpu")
+corpus, _ = lm_token_batches(cfg.vocab, seed=0)(0, 24, 16)
+eng.build_index(corpus, dynamic=True)
+out = eng.serve_stream([corpus[0], ("insert", corpus[:2]), ("delete", [1]), ("compact",),
+                        corpus[2]])
+assert len(out) == 5 and out[0][0].shape == (5,)
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
+             or m == "repro" or m.startswith("repro."))
+print("BAD", bad)
+"""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=300, env=ENV)
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+
+
+def test_serve_cli_loads_no_jax_or_reference():
+    code = """
+import runpy
+import sys
+sys.argv = ["serve", "--arch", "gemma-2b", "--smoke", "--device", "cpu", "--corpus", "32",
+            "--requests", "8", "--m", "8", "--dynamic"]
+runpy.run_module("repro_torch.launch.serve", run_name="__main__")
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
+             or m == "repro" or m.startswith("repro."))
+print("BAD", bad)
+"""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=300, env=ENV)
+    assert out.returncode == 0, out.stderr
+    assert "self-retrieval" in out.stdout and "churn" in out.stdout, out.stdout
     assert "BAD []" in out.stdout, out.stdout
 
 
@@ -62,6 +112,21 @@ def test_build_defaults_to_cuda_and_raises_without_it():
         LCCSIndex.build(X, m=4)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         LCCSIndex.build(X, m=4, device="cuda")
+
+
+def test_model_entry_points_default_to_cuda_and_raise_without_it():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device resolves to CUDA")
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import init_model, params_from_reference
+
+    cfg = ARCHS["gemma-2b"].smoke()
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_model(cfg)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        params_from_reference(cfg, {})
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        params_from_reference(cfg, {}, device="cuda")
 
 
 def test_loader_raises_clearly_without_nvcc(monkeypatch, tmp_path):

@@ -2,7 +2,8 @@
 version on the same CUDA tensors (csa_probe and circrun bit-identical; the
 gathers within rtol 1e-5 / atol 1e-5, fp32 summation order; hash_rp and
 hash_xp may differ only at a bucket boundary or a near tie, see
-`_rp_boundary` and `_xp_near_tie`).  They need a card and skip without one;
+`_rp_boundary` and `_xp_near_tie`; flash_attn within rtol/atol 1e-4 and
+ssm_scan within rtol/atol 1e-5, fp32 summation order and expf/tanhf ulps).  They need a card and skip without one;
 `python3 chip_smoke.py` is the authoritative on-card run."""
 import numpy as np
 import pytest
@@ -14,11 +15,13 @@ from repro_torch.core.search import doubled
 from repro_torch.exec import stages
 from repro_torch.kernels import common
 from repro_torch.kernels.circrun import circrun, circrun_ref
+from repro_torch.kernels.flash_attn import flash_attention, flash_attention_ref
 from repro_torch.kernels.csa_probe import csa_probe, csa_probe_plain
 from repro_torch.kernels.gather_l2 import gather_dist_kernel, gather_dist_ref
 from repro_torch.kernels.gather_q import gather_dist_q_kernel, gather_dist_q_ref
 from repro_torch.kernels.hash_rp import hash_rp, hash_rp_ref
 from repro_torch.kernels.hash_xp import hash_xp, hash_xp_ref
+from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_batched_ref
 from repro_torch.store.stores import _quantize_rows
 
 # a hash may differ between kernel and plain version only where the float64
@@ -251,3 +254,90 @@ def test_segmented_on_card_matches_cpu(dev):
         assert torch.equal(ci, gi.cpu()) and torch.equal(cl, gl.cpu())
     after = common.launch_counts()
     assert after["circrun"] > before["circrun"] and after["csa_probe"] > before["csa_probe"]
+
+
+@pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv,dh,causal,window,softcap", [
+    (32, 32, 32, 8, 1, 256, True, 0, 0.0),      # gemma-2b's serving shape
+    (2, 77, 77, 4, 2, 16, True, 0, 0.0),        # odd length, several tiles
+    (2, 40, 40, 4, 4, 64, False, 0, 0.0),       # non-causal, padded tail
+    (1, 8, 40, 2, 1, 40, True, 0, 0.0),         # Sq < Skv: the ends aligned
+    (2, 100, 100, 6, 3, 256, True, 33, 50.0),   # window + softcap (gemma2)
+    (1, 130, 130, 2, 2, 100, False, 17, 0.0),   # non-causal window
+    (1, 1, 1, 1, 1, 1, True, 0, 0.0),
+])
+def test_flash_attn_kernel_matches_plain(dev, B, Sq, Skv, Hq, Hkv, dh, causal, window, softcap):
+    rng = np.random.default_rng(Sq * dh + Hq)
+    q, k, v = (torch.from_numpy(rng.normal(size=(B, S, H, dh)).astype(np.float32)).to(dev)
+               for S, H in ((Sq, Hq), (Skv, Hkv), (Skv, Hkv)))
+    before = common.launch_counts()["flash_attn"]
+    out = flash_attention(q, k, v, causal=causal, window=window, softcap=softcap)
+    torch.cuda.synchronize()
+    assert common.launch_counts()["flash_attn"] == before + 1
+    ref = flash_attention_ref(q, k, v, causal=causal, window=window, softcap=softcap)
+    assert out.shape == (B, Sq, Hq, dh) and bool(torch.isfinite(out).all())
+    torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+
+
+def test_flash_attn_kernel_rejects_what_it_does_not_take(dev):
+    q, kv = torch.zeros((1, 4, 2, 300), device=dev), torch.zeros((1, 4, 1, 300), device=dev)
+    with pytest.raises(ValueError, match="dh"):
+        flash_attention(q, kv, kv)
+    q, kv = torch.zeros((1, 4, 3, 8), device=dev), torch.zeros((1, 4, 2, 8), device=dev)
+    with pytest.raises(ValueError, match="multiple"):
+        flash_attention(q, kv, kv)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), kv, kv)
+
+
+@pytest.mark.parametrize("B,L,D,N,seq_chunk", [
+    (32, 32, 8192, 16, 2048),   # falcon-mamba-7b's serving shape
+    (3, 77, 200, 16, 2048),     # odd L and D
+    (2, 100, 130, 5, 33),       # chunked: h carried across 4 chunks
+    (1, 1, 1, 1, 1),
+])
+def test_ssm_scan_kernel_matches_plain(dev, B, L, D, N, seq_chunk):
+    rng = np.random.default_rng(L * D + N)
+    f = lambda *shape, s=1.0: torch.from_numpy(  # noqa: E731
+        (rng.normal(size=shape) * s).astype(np.float32)).to(dev)
+    dt = torch.nn.functional.softplus(f(B, L, D))
+    x, Bc, Cc = f(B, L, D), f(B, L, N), f(B, L, N)
+    A = -torch.exp(f(D, N, s=0.5))
+    h0 = f(B, D, N)
+    before = common.launch_counts()["ssm_scan"]
+    y, h = ssm_scan(dt, x, Bc, Cc, A, h0, seq_chunk=seq_chunk)
+    torch.cuda.synchronize()
+    assert common.launch_counts()["ssm_scan"] == before + -(-L // seq_chunk)
+    y_ref, h_ref = ssm_scan_batched_ref(dt, x, Bc, Cc, A, h0)
+    torch.testing.assert_close(y, y_ref, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(h, h_ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("B,D", [(0, 64), (2, 0)])
+def test_ssm_scan_empty_launches_nothing(dev, B, D):
+    L, N = 5, 16
+    z = lambda *shape: torch.zeros(shape, device=dev)  # noqa: E731
+    h0 = z(B, D, N)
+    before = common.launch_counts()["ssm_scan"]
+    y, h = ssm_scan(z(B, L, D), z(B, L, D), z(B, L, N), z(B, L, N), z(D, N), h0)
+    assert common.launch_counts()["ssm_scan"] == before
+    assert y.shape == (B, L, D) and h.shape == (B, D, N)
+
+
+@pytest.mark.parametrize("arch", ["gemma-2b", "falcon-mamba-7b", "gemma2-9b"])
+def test_smoke_model_on_card_matches_cpu(dev, arch):
+    """The same smoke-size weights on both devices: the forward through the
+    kernels equals the plain CPU forward within rtol/atol 1e-4, and it
+    launched the model's kernel once per layer."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import init_model
+
+    cfg = ARCHS[arch].smoke()
+    cpu = init_model(cfg, seed=0, device="cpu")
+    card = init_model(cfg, seed=0, device="cpu").to(dev)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (4, 33)))
+    before = common.launch_counts()
+    out = card(toks.to(dev))
+    after = common.launch_counts()
+    kernel = "ssm_scan" if cfg.family == "ssm" else "flash_attn"
+    assert after[kernel] - before[kernel] == cfg.n_layers
+    torch.testing.assert_close(out.cpu(), cpu(toks), rtol=1e-4, atol=1e-4)
