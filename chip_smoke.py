@@ -28,7 +28,10 @@ It builds the CUDA kernels from the sources in the checkout, shows through
 their launch counts (reset before each path, read after it) that each path
 went through its kernels, holds each kernel against its plain PyTorch
 version on the card at the paths' shapes (flash_attn and ssm_scan also at
-one long shape each), and times both.
+one long shape each, hash_rp and hash_xp also at the GIST width d = 960
+and over one query batch),
+and times both beside each kernel's bound and, where one PyTorch call
+computes the same function, that call (of_bound, vs_library).
 
 Each phase prints one JSON line; any failure exits non-zero.  The last line
 is {"ok": true, "device": {...}}.  Without CUDA, or without the rest of the
@@ -67,6 +70,9 @@ DYNAMIC_KERNELS = ("hash_rp", "csa_probe", "circrun", "gather_l2")
 # a bucket boundary (hash_rp) or of a tie between vertices (hash_xp), and in
 # at most this share of the outputs
 HASH_BOUNDARY_RTOL, HASH_MAX_SHARE = 1e-5, 1e-4
+# the hashes' wide shapes in phase 12: the paper's GIST width, 2^18 rows for
+# hash_rp (the angular path's 65,536 for hash_xp)
+WIDE_D, WIDE_RP_ROWS = 960, 1 << 18
 LCCS = dict(k=K, lam=100, width=100, source="lccs")
 SKIP = dict(k=K, lam=200, width=64, source="multiprobe-skip", probes=17)
 GATHER_TOL = dict(rtol=1e-5, atol=1e-5)  # fp32 summation order
@@ -124,6 +130,25 @@ def median_ms(fn, reps: int) -> float:
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def device_ms(fn, reps: int) -> float:
+    """Mean device time of fn() over `reps` runs after one warm-up run: the
+    time of its kernels on the card under torch.profiler, summed, without
+    the host's launch cost that the CUDA events of median_ms include."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not kern:
+        fail("device_ms: the profiler saw no kernel on the card")
+    return sum(e.time_range.elapsed_us() for e in kern) / 1e3 / reps
 
 
 @contextmanager
@@ -417,6 +442,10 @@ def run(dev: torch.device) -> None:
     if sorted(names) != sorted(common.LAUNCHES):
         fail(f"the kernels line lists {names}, the library has {sorted(common.LAUNCHES)}")
 
+    for rec in kernels:
+        subs = [sub for k in ("wide", "batch", "long") for sub in rec.get(k, {}).values()]
+        for r in (rec, *subs):
+            with_ratios(r)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
@@ -476,6 +505,52 @@ def bound(nbytes: float, ops: float, rate: float) -> dict:
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, ops / rate
     return dict(bound_ms=max(t_bytes, t_ops) * 1e3,
                 bound_by="bytes" if t_bytes >= t_ops else "operations")
+
+
+def with_ratios(rec: dict) -> None:
+    """Add of_bound (bound_ms / ms) and vs_library (ms / library_ms, None
+    without a library call) to a kernel record."""
+    rec["of_bound"] = rec["bound_ms"] / rec["ms"]
+    rec["vs_library"] = rec["ms"] / rec["library_ms"] if rec.get("library_ms") else None
+
+
+def rp_mismatch(x, a, b, w: float, k: torch.Tensor, p: torch.Tensor):
+    """Hold hash_rp's kernel output k to its plain version p: they may differ
+    by one bucket, only where the float64 value lies within
+    HASH_BOUNDARY_RTOL of a bucket boundary, in at most HASH_MAX_SHARE of the
+    outputs.  Returns (max abs difference, mismatch share)."""
+    diff = k != p
+    n_diff = int(diff.sum())
+    if n_diff:
+        rows = diff.any(dim=1).nonzero()[:, 0]
+        v = (x[rows].double() @ a.double() + b.double()) / w
+        near = (v - torch.round(v)).abs() <= HASH_BOUNDARY_RTOL * torch.clamp(v.abs(), min=1.0)
+        if bool((diff[rows] & ~near).any()) or int((k - p).abs().max()) > 1:
+            fail("hash_rp kernel differs from its plain version away from a bucket boundary")
+    share = n_diff / diff.numel()
+    if share > HASH_MAX_SHARE:
+        fail(f"hash_rp mismatch share {share} > {HASH_MAX_SHARE}")
+    return int((k - p).abs().max()), share
+
+
+def xp_mismatch(x, rot, k: torch.Tensor, p: torch.Tensor):
+    """Hold hash_xp's kernel output k to its plain version p: they may pick
+    another vertex only where the two largest of cat([y, -y]) in float64 are
+    within HASH_BOUNDARY_RTOL (relative), in at most HASH_MAX_SHARE of the
+    outputs.  Returns (max abs difference, mismatch share)."""
+    diff = k != p
+    n_diff = int(diff.sum())
+    if n_diff:
+        rows = diff.any(dim=1).nonzero()[:, 0]
+        y = torch.einsum("nd,mde->nme", x[rows].double(), rot.double())
+        top2 = torch.topk(torch.cat([y, -y], dim=-1), 2, dim=-1).values
+        near = (top2[..., 0] - top2[..., 1]) <= HASH_BOUNDARY_RTOL * top2[..., 0].abs()
+        if bool((diff[rows] & ~near).any()):
+            fail("hash_xp kernel differs from its plain version away from a near tie")
+    share = n_diff / diff.numel()
+    if share > HASH_MAX_SHARE:
+        fail(f"hash_xp mismatch share {share} > {HASH_MAX_SHARE}")
+    return int((k - p).abs().max()), share
 
 
 def pow2_at_least(x: int) -> int:
@@ -728,7 +803,9 @@ def run_bruteforce(ctx) -> dict:
 
 def new_kernels_vs_plain(ctx, angular, dynamic, launches) -> list:
     """Phase 12: hash_rp, hash_xp and circrun against their plain versions at
-    the paths' shapes, timed beside their bounds and a library call."""
+    the paths' shapes (the hashes also at d = 960 and over a query batch),
+    timed beside their bounds and a library call (the hashes and their
+    library calls also by their device time alone, `device_ms`)."""
     from repro_torch.core.bruteforce import _LENS_ELEMS
     from repro_torch.kernels.circrun import circrun, circrun_ref
     from repro_torch.kernels.hash_rp import hash_rp, hash_rp_ref
@@ -760,67 +837,71 @@ def new_kernels_vs_plain(ctx, angular, dynamic, launches) -> list:
         checked_bit_identical=shapes,
     ))
 
-    # B4 hash_rp over the full build input of the main path
+    # B4 hash_rp over the full build input of the main path, then at the GIST
+    # width (d = 960) on random rows, then over one query batch
     fam = index.family
     a, b, w = fam.a.contiguous(), fam.b.contiguous(), fam.w
-    k_h = hash_rp(X, a, b, w=w)
-    p_h = hash_rp_ref(X, a, b, w=w)
-    diff = k_h != p_h
-    n_diff = int(diff.sum())
-    if n_diff:
-        rows = diff.any(dim=1).nonzero()[:, 0]
-        v = (X[rows].double() @ a.double() + b.double()) / w
-        near = (v - torch.round(v)).abs() <= HASH_BOUNDARY_RTOL * torch.clamp(v.abs(), min=1.0)
-        if bool((diff[rows] & ~near).any()) or int((k_h - p_h).abs().max()) > 1:
-            fail("hash_rp kernel differs from its plain version away from a bucket boundary")
-    share = n_diff / diff.numel()
-    if share > HASH_MAX_SHARE:
-        fail(f"hash_rp mismatch share {share} > {HASH_MAX_SHARE}")
-    r_bytes = 4 * (N * D + D * M + M + N * M)
-    r_flops = 2 * N * D * M
+    g = torch.Generator(device=X.device)
+    g.manual_seed(0)
+    xw = torch.randn(WIDE_RP_ROWS, WIDE_D, generator=g, device=X.device) * 5
+    aw = torch.randn(WIDE_D, M, generator=g, device=X.device)
+    rp = {}
+    for tag, x_, a_, b_ in (("main", X, a, b), ("wide", xw, aw, b),
+                            ("batch", ctx["Q"][:BATCH], a, b)):
+        n_, d_ = x_.shape
+        err, share = rp_mismatch(x_, a_, b_, w, hash_rp(x_, a_, b_, w=w),
+                                 hash_rp_ref(x_, a_, b_, w=w))
+        rp[tag] = dict(
+            max_abs_err=err, mismatch_share=share,
+            ms=median_ms(lambda: hash_rp(x_, a_, b_, w=w), 20),
+            plain_ms=median_ms(lambda: hash_rp_ref(x_, a_, b_, w=w), 5),
+            **bound(4 * (n_ * d_ + d_ * M + M + n_ * M), 2 * n_ * d_ * M, FP32_FLOPS),
+            library_ms=median_ms(lambda: torch.addmm(b_, x_, a_), 20),
+            device_ms=device_ms(lambda: hash_rp(x_, a_, b_, w=w), 20),
+            library_device_ms=device_ms(lambda: torch.addmm(b_, x_, a_), 20),
+            shape=dict(n=n_, d=d_, m=M))
+    del xw, aw
+    # a small call's device time against its row count (d 128, m 64): one
+    # tile's latency or the grid
+    by_rows = {}
+    for n_ in (1, 1000, 8000, 33_000):
+        x_ = X[:n_]
+        by_rows[n_] = dict(device_ms=device_ms(lambda: hash_rp(x_, a, b, w=w), 20),
+                           library_device_ms=device_ms(lambda: torch.addmm(b, x_, a), 20))
     kernels.append(dict(
         name="hash_rp", route="cuda", source="src/repro_torch/kernels/csrc/hash_rp.cu",
         replaces="src/repro/kernels/hash_rp/hash_rp.py:41", launches=launches["hash_rp"],
-        max_abs_err=int((k_h - p_h).abs().max()), mismatch_share=share,
-        ms=median_ms(lambda: hash_rp(X, a, b, w=w), 20),
-        plain_ms=median_ms(lambda: hash_rp_ref(X, a, b, w=w), 5),
-        **bound(r_bytes, r_flops, FP32_FLOPS),
-        library_ms=median_ms(lambda: torch.addmm(b, X, a), 20),
-        library_call="torch.addmm(b, x, a)", shape=dict(n=N, d=D, m=M),
-    ))
-    del k_h, p_h, diff
+        **rp["main"], library_call="torch.addmm(b, x, a)", wide={"d 960": rp["wide"]},
+        batch={"query batch": rp["batch"]}, device_ms_by_rows=by_rows))
 
-    # B5 hash_xp over the first 65,536 rows of the angular corpus
+    # B5 hash_xp over the first 65,536 rows of the angular corpus, then at the
+    # GIST width on random normalised rows, then over one query batch
     xa, rot = angular["x_rows"], angular["family"].rot.contiguous()
     na, ma, dr = xa.shape[0], rot.shape[0], rot.shape[2]
-    k_x = hash_xp(xa, rot)
-    p_x = hash_xp_ref(xa, rot)
-    diff = k_x != p_x
-    n_diff = int(diff.sum())
-    if n_diff:
-        rows = diff.any(dim=1).nonzero()[:, 0]
-        y = torch.einsum("nd,mde->nme", xa[rows].double(), rot.double())
-        top2 = torch.topk(torch.cat([y, -y], dim=-1), 2, dim=-1).values
-        near = (top2[..., 0] - top2[..., 1]) <= HASH_BOUNDARY_RTOL * top2[..., 0].abs()
-        if bool((diff[rows] & ~near).any()):
-            fail("hash_xp kernel differs from its plain version away from a near tie")
-    share = n_diff / diff.numel()
-    if share > HASH_MAX_SHARE:
-        fail(f"hash_xp mismatch share {share} > {HASH_MAX_SHARE}")
-    x_flops = 2 * na * ma * D * dr
-    x_bytes = 4 * (na * D + ma * D * dr + na * ma)
-    rot_flat = rot.permute(1, 0, 2).reshape(D, ma * dr).contiguous()
+    xw = torch.nn.functional.normalize(
+        torch.randn(na, WIDE_D, generator=g, device=xa.device), dim=1)
+    rotw = torch.randn(ma, WIDE_D, dr, generator=g, device=xa.device) / WIDE_D ** 0.5
+    xp = {}
+    for tag, x_, r_ in (("main", xa, rot), ("wide", xw, rotw), ("batch", angular["queries"], rot)):
+        n_, d_ = x_.shape
+        err, share = xp_mismatch(x_, r_, hash_xp(x_, r_), hash_xp_ref(x_, r_))
+        r_flat = r_.permute(1, 0, 2).reshape(d_, ma * dr).contiguous()
+        xp[tag] = dict(
+            max_abs_err=err, mismatch_share=share,
+            ms=median_ms(lambda: hash_xp(x_, r_), 10),
+            plain_ms=median_ms(lambda: hash_xp_ref(x_, r_), 3),
+            **bound(4 * (n_ * d_ + ma * d_ * dr + n_ * ma), 2 * n_ * ma * d_ * dr, FP32_FLOPS),
+            library_ms=median_ms(lambda: x_ @ r_flat, 10),
+            device_ms=device_ms(lambda: hash_xp(x_, r_), 10),
+            library_device_ms=device_ms(lambda: x_ @ r_flat, 10),
+            shape=dict(n=n_, d=d_, m=ma, dr=dr))
+        del r_flat
+    del xw, rotw
     kernels.append(dict(
         name="hash_xp", route="cuda", source="src/repro_torch/kernels/csrc/hash_xp.cu",
         replaces="src/repro/kernels/hash_xp/hash_xp.py:27", launches=launches["hash_xp"],
-        max_abs_err=int((k_x - p_x).abs().max()), mismatch_share=share,
-        ms=median_ms(lambda: hash_xp(xa, rot), 10),
-        plain_ms=median_ms(lambda: hash_xp_ref(xa, rot), 3),
-        **bound(x_bytes, x_flops, FP32_FLOPS),
-        library_ms=median_ms(lambda: xa @ rot_flat, 10),
-        library_call="x @ rot as (d, m*dr)", shape=dict(n=na, d=D, m=ma, dr=dr),
-    ))
-    del k_x, p_x, rot_flat
+        **xp["main"], library_call="x @ rot as (d, m*dr)", wide={"d 960": xp["wide"]},
+        batch={"query batch": xp["batch"]}))
 
     # the multiprobe invariant: no alternative equals the base string's
     # symbol, for both hashed families, on one query batch

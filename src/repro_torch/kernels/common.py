@@ -166,10 +166,11 @@ def library() -> ctypes.CDLL:
 
 def launch(kernel: str, entry: str, *args) -> None:
     """Call C entry point `entry` on PyTorch's current stream, count one
-    launch of `kernel`, and raise on a launch error."""
+    launch of `kernel`, and raise on a launch error.  The stream comes from
+    PyTorch's raw getter (Triton's launcher uses it too): well under a
+    microsecond, where building a torch.cuda.Stream takes several."""
     fn = getattr(library(), entry)
-    stream = torch.cuda.current_stream().cuda_stream
-    err = fn(*args, stream)
+    err = fn(*args, torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice()))
     if err != 0:
         raise RuntimeError(f"{kernel}: CUDA launch failed with cudaError {err}")
     LAUNCHES[kernel] += 1

@@ -26,8 +26,6 @@ def hash_xp(x, rot) -> torch.Tensor:
     dev = x.device
     common.check("x", x, device=dev, dtype=torch.float32, shape=(n, d))
     common.check("rot", rot, device=dev, dtype=torch.float32, shape=(m, d, dr))
-    if m > 65535:
-        raise ValueError(f"hash_xp: the kernel takes m <= 65535, got m={m}")
     out = torch.empty((n, m), dtype=torch.int32, device=dev)
     if n == 0:
         return out

@@ -41,7 +41,11 @@ def _carry(fam):
 
 
 @pytest.mark.parametrize("ints", [False, True])
-@pytest.mark.parametrize("n,d,dr,m", [(1, 8, 8, 1), (300, 50, 32, 7), (130, 16, 24, 5)])
+@pytest.mark.parametrize("n,d,dr,m", [(1, 8, 8, 1), (300, 50, 32, 7), (130, 16, 24, 5),
+                                      # the paper's glove, msong and gist widths (the CUDA
+                                      # kernel keeps x in shared memory up to d = 160 and
+                                      # streams it beyond)
+                                      (20, 100, 32, 64), (20, 420, 32, 64), (20, 960, 32, 64)])
 def test_hash_xp_plain_equals_pallas_and_reference(n, d, dr, m, ints):
     rng = np.random.default_rng(n + d)
     if ints:  # exact sums: ties between vertices are common
@@ -70,7 +74,10 @@ def test_hash_xp_plain_chunks_rows(monkeypatch):
     assert torch.equal(hash_xp_ref(x, rot), whole)
 
 
-@pytest.mark.parametrize("n,d,m,w", [(1, 3, 5, 1.0), (300, 50, 33, 4.0), (257, 129, 64, 16.0)])
+@pytest.mark.parametrize("n,d,m,w", [(1, 3, 5, 1.0), (300, 50, 33, 4.0), (257, 129, 64, 16.0),
+                                     # the paper's glove, msong and gist widths
+                                     (20, 100, 64, 16.0), (20, 420, 64, 16.0),
+                                     (20, 960, 64, 16.0)])
 def test_hash_rp_plain_matches_pallas_except_boundaries(n, d, m, w):
     rng = np.random.default_rng(d)
     x = (rng.normal(size=(n, d)) * 3).astype(np.float32)

@@ -157,11 +157,28 @@ def _xp_near_tie(x, rot, k, p):
     return float(diff.float().mean())
 
 
-@pytest.mark.parametrize("n,d,m,w", [(5000, 128, 64, 16.0), (777, 13, 7, 0.5),
-                                     (300, 200, 100, 4.0)])
-def test_hash_rp_kernel_matches_plain(dev, n, d, m, w):
+def _on_card(arr, dev, offset):
+    """`arr` as a contiguous card tensor that starts `offset` floats into its
+    buffer: offset 1 leaves it 4-byte aligned only, so the kernels take
+    their 4-byte copy path."""
+    buf = torch.empty(arr.size + offset, dtype=torch.float32, device=dev)
+    t = buf[offset:].view(arr.shape)
+    t.copy_(torch.from_numpy(arr))
+    return t
+
+
+@pytest.mark.parametrize("n,d,m,w,offset", [
+    (5000, 128, 64, 16.0, 0), (777, 13, 7, 0.5, 0), (300, 200, 100, 4.0, 0),
+    (1, 128, 64, 16.0, 0),                                  # one row
+    (1_000_003, 128, 64, 16.0, 0),                          # a partial last row tile
+    (3000, 100, 64, 16.0, 0), (3000, 256, 64, 16.0, 0),     # the paper's widths
+    (3000, 420, 64, 16.0, 0), (3000, 960, 64, 16.0, 0),
+    (3000, 128, 65, 16.0, 0), (3000, 128, 300, 16.0, 0),    # several column tiles
+    (3000, 128, 64, 16.0, 1),                               # x 4-byte aligned only
+])
+def test_hash_rp_kernel_matches_plain(dev, n, d, m, w, offset):
     rng = np.random.default_rng(d)
-    x = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32) * 5).to(dev)
+    x = _on_card((rng.normal(size=(n, d)) * 5).astype(np.float32), dev, offset)
     a = torch.from_numpy(rng.normal(size=(d, m)).astype(np.float32)).to(dev)
     b = torch.from_numpy(rng.uniform(0, w, size=m).astype(np.float32)).to(dev)
     before = common.launch_counts()["hash_rp"]
@@ -173,14 +190,113 @@ def test_hash_rp_kernel_matches_plain(dev, n, d, m, w):
     assert _rp_boundary(x, a, b, w, k, p) <= MAX_MISMATCH_SHARE
 
 
-@pytest.mark.parametrize("n,d,dr,m", [(4000, 128, 128, 16), (500, 13, 40, 5),
-                                      (300, 64, 200, 3)])
-def test_hash_xp_kernel_matches_plain(dev, n, d, dr, m):
+def _f32(v):
+    return np.float32(v)
+
+
+# w for the division checks: the fast path's range [2^-60, 2^60] and its
+# ends, one float inside and outside each end, far outside, reciprocals that
+# are not exact, and w with an all-ones mantissa (the hardest case for the
+# Newton step), then a few hundred log-uniform over the range
+_W_EDGES = [16.0, 3.0, _f32(0.1), 2.0 ** -70, 2.0 ** 70, 2.0 ** -60, 2.0 ** 60,
+            np.nextafter(_f32(2.0 ** -60), _f32(1)), np.nextafter(_f32(2.0 ** -60), _f32(0)),
+            np.nextafter(_f32(2.0 ** 60), _f32(0)), np.nextafter(_f32(2.0 ** 60), _f32(np.inf)),
+            np.nextafter(_f32(2), _f32(0)), np.nextafter(_f32(2), _f32(0)) * _f32(2.0 ** -45),
+            np.nextafter(_f32(2), _f32(0)) * _f32(2.0 ** 45)]
+_W_SWEEP = [float(w) for w in _W_EDGES] + [
+    float(w) for w in (2.0 ** np.random.default_rng(60).uniform(-60, 60, 300)).astype(np.float32)]
+
+
+def _ieee_buckets(t, b, w):
+    """floor((t + b) / w) in IEEE float32 arithmetic on the host (numpy)."""
+    q = (t[:, None] + b[None, :]) / _f32(w)
+    assert q.dtype == np.float32
+    return np.floor(q).astype(np.int32)
+
+
+@pytest.mark.parametrize("d", [1, 4])
+def test_hash_rp_kernel_buckets_like_ieee_division(dev, d):
+    """With the projection exact (x = [t, 0, ...], a = 1 in its first row),
+    the kernel's buckets equal floor((t + b) / w) in IEEE float32 arithmetic,
+    bit for bit, on and off the division's fast path: t of every magnitude,
+    zero and subnormal t, quotients next to an integer (b = 0 in column 0),
+    and w over [2^-60, 2^60], at its ends and outside it.  m = 64 fills a
+    thread's 8 columns, the fast path's unit.  d = 1 takes the 4-byte copy
+    path, d = 4 the 16-byte one."""
+    rng = np.random.default_rng(d)
+    m = 64
+    a = np.zeros((d, m), np.float32)
+    a[0] = 1.0
+    at = torch.from_numpy(a).to(dev)
+    for w in _W_SWEEP:
+        b = rng.uniform(0, w, m).astype(np.float32)
+        b[0] = 0.0
+        q = rng.uniform(-1e6, 1e6, 1000).astype(np.float32)  # |t / w| < 2^30
+        on_int = (np.round(q) * _f32(w)).astype(np.float32)  # t / w next to an integer
+        t = np.concatenate([
+            q * _f32(w), on_int, np.nextafter(on_int, _f32(np.inf)),
+            np.nextafter(on_int, _f32(-np.inf)),
+            np.float32([0.0, -0.0, 1e-45, -1e-45, 2.0 ** -126, -(2.0 ** -126), 2.0 ** -60,
+                        2.0 ** -61]),
+        ]).astype(np.float32)
+        with np.errstate(over="ignore"):
+            t = t[np.isfinite(t) & (np.abs(t.astype(np.float64) / w) < 2.0 ** 30)]
+        x = np.zeros((t.size, d), np.float32)
+        x[:, 0] = t
+        k = hash_rp(torch.from_numpy(x).to(dev), at, torch.from_numpy(b).to(dev), w=w)
+        assert np.array_equal(k.cpu().numpy(), _ieee_buckets(t, b, w)), f"w={w!r}"
+
+
+@pytest.mark.parametrize("w", [3.0, float(_f32(0.1)), float(np.nextafter(_f32(2), _f32(0))),
+                               float(np.nextafter(_f32(2), _f32(0)) * _f32(2.0 ** -50)),
+                               float(_f32(1.3 * 2.0 ** 40))])
+def test_hash_rp_kernel_divides_every_mantissa_like_ieee(dev, w):
+    """Every float32 t of one binade, both signs, with quotients t / w in
+    [2^10, 2^12) (thousands of integers, each next to many t): the kernel's
+    floor(t / w) equals IEEE float32 division's, bit for bit.  x holds 64 t
+    a row and a is the identity, so each projection is exactly its t."""
+    e = int(np.floor(np.log2(w))) + 11
+    mant = np.arange(2 ** 23, dtype=np.uint32)
+    pos = ((np.uint32(e + 127) << np.uint32(23)) | mant).view(np.float32)
+    t = np.concatenate([pos, -pos])
+    x = torch.from_numpy(t.reshape(-1, 64)).to(dev)
+    a = torch.eye(64, device=dev)
+    b = torch.zeros(64, device=dev)
+    before = common.launch_counts()["hash_rp"]
+    k = hash_rp(x, a, b, w=w)
+    torch.cuda.synchronize()
+    assert common.launch_counts()["hash_rp"] == before + 1
+    ref = np.floor(t / _f32(w)).astype(np.int32)
+    assert np.array_equal(k.cpu().numpy().reshape(-1), ref)
+
+
+@pytest.mark.parametrize("n,d,dr,m,offset", [
+    (4000, 128, 128, 16, 0), (500, 13, 40, 5, 0), (300, 64, 200, 3, 0),
+    (2000, 100, 128, 16, 0), (2000, 420, 128, 16, 0),      # the paper's widths: x
+    (2000, 960, 128, 16, 0),                               # streamed past d = 160
+    (2000, 128, 127, 16, 0), (2000, 128, 129, 16, 0),      # ragged and several
+    (2000, 128, 256, 16, 0),                               # column tiles
+    (2000, 128, 128, 1, 0), (2000, 128, 128, 64, 0),       # one and 64 functions
+    (2000, 128, 128, 16, 1),                               # x 4-byte aligned only
+    (300, 4, 4, 70_000, 0),                                # m past 65,535
+    # each of the launcher's 8 templates (x resident or streamed, 16- or
+    # 4-byte copies, functions split among blocks or not) at least once:
+    (2000, 421, 128, 16, 0), (2000, 960, 128, 16, 1),      # streamed, 4-byte, split
+    (2000, 960, 128, 1, 0),                                # streamed, 16-byte, whole
+    (2000, 421, 129, 1, 0),                                # streamed, 4-byte, whole
+    (2000, 128, 129, 1, 0),                                # resident, 4-byte, whole
+    (40_000, 128, 256, 4, 0),                              # full-size grid, dr > 128
+])
+def test_hash_xp_kernel_matches_plain(dev, n, d, dr, m, offset):
     rng = np.random.default_rng(dr)
-    x = torch.from_numpy(rng.normal(size=(n, d)).astype(np.float32)).to(dev)
-    x[0] = 0.0  # all-zero y: every value ties, index 0 wins
+    x_np = rng.normal(size=(n, d)).astype(np.float32)
+    x_np[0] = 0.0  # all-zero y: every value ties, index 0 wins
+    x = _on_card(x_np, dev, offset)
     rot = torch.from_numpy((rng.normal(size=(m, d, dr)) / np.sqrt(d)).astype(np.float32)).to(dev)
+    before = common.launch_counts()["hash_xp"]
     k = hash_xp(x, rot)
+    torch.cuda.synchronize()
+    assert common.launch_counts()["hash_xp"] == before + 1
     p = hash_xp_ref(x, rot)
     assert k.dtype == torch.int32 and k.shape == (n, m)
     assert bool((k[0] == 0).all()) and bool(((k >= 0) & (k < 2 * dr)).all())
