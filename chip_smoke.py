@@ -29,7 +29,9 @@ their launch counts (reset before each path, read after it) that each path
 went through its kernels, holds each kernel against its plain PyTorch
 version on the card at the paths' shapes (flash_attn and ssm_scan also at
 one long shape each, hash_rp and hash_xp also at the GIST width d = 960
-and over one query batch),
+and over one query batch, pool_topk also at a multiprobe-skip pool of
+several tiles and against the scatter-max dedupe, which no card path may
+call),
 and times both beside each kernel's bound and, where one PyTorch call
 computes the same function, that call (of_bound, vs_library).
 
@@ -62,9 +64,9 @@ INT32_OPS = 132 * 64 * 1.98e9
 # 2^20), then the rest streamed in inserts of 2^14 rows (a 2^16 buffer)
 N_BULK, INSERT_ROWS, N_DELETE = 934_464, 16_384, 10_000
 # the kernels of each path: each must launch at least once in its run
-MAIN_KERNELS = ("csa_probe", "gather_l2", "gather_q", "hash_rp")
-ANGULAR_KERNELS = ("hash_xp", "csa_probe", "gather_l2")
-DYNAMIC_KERNELS = ("hash_rp", "csa_probe", "circrun", "gather_l2")
+MAIN_KERNELS = ("csa_probe", "pool_topk", "gather_l2", "gather_q", "hash_rp")
+ANGULAR_KERNELS = ("hash_xp", "csa_probe", "pool_topk", "gather_l2")
+DYNAMIC_KERNELS = ("hash_rp", "csa_probe", "pool_topk", "circrun", "gather_l2")
 # a hash may differ between kernel and plain version (another summation
 # order) only where the float64 value lies within this relative distance of
 # a bucket boundary (hash_rp) or of a tie between vertices (hash_xp), and in
@@ -151,6 +153,22 @@ def device_ms(fn, reps: int) -> float:
     return sum(e.time_range.elapsed_us() for e in kern) / 1e3 / reps
 
 
+def forbid_scatter() -> None:
+    """Make every card path fail the run if it reaches the scatter-max dedupe
+    (`dedupe_topk_scatter`, a (B, n) buffer a batch): the probe's pool goes
+    through `pool_topk`.  Phases 3b and 6 time and compare the original
+    function through their own reference to it."""
+    import repro_torch.core.sources as sources
+    import repro_torch.kernels.csa_probe as probe_pkg
+    from repro_torch.kernels.csa_probe import ops, ref
+
+    def forbidden(*args, **kw):
+        fail("a card path called dedupe_topk_scatter")
+
+    for module in (probe_pkg, ops, ref, sources):
+        module.dedupe_topk_scatter = forbidden
+
+
 @contextmanager
 def recording(module, name: str, store: list, keep: int | None = None):
     """Record the arguments of every call (or of the first `keep` calls) to
@@ -212,18 +230,27 @@ def main() -> None:
 
 def run(dev: torch.device) -> None:
     from repro_torch.core import LCCSIndex, SearchParams
+    import repro_torch.kernels.csa_probe as probe_pkg
     from repro_torch.core.index import candidates
+    from repro_torch.core.search import dedupe_topk
     from repro_torch.data import clustered_vectors, queries_from
     from repro_torch.exec import stages
     from repro_torch.kernels import common
     from repro_torch.kernels.csa_probe import ops as probe_ops
-    from repro_torch.kernels.csa_probe.ref import csa_probe_plain, dedupe_topk_scatter
+    from repro_torch.kernels.csa_probe.ref import (
+        csa_probe_plain,
+        dedupe_topk_scatter,
+        pool_chunk,
+        pool_levels,
+        pool_topk_plain,
+    )
     from repro_torch.kernels.gather_l2 import ops as l2_ops
     from repro_torch.kernels.gather_l2.ref import gather_dist_ref
     from repro_torch.kernels.gather_q import ops as q_ops
     from repro_torch.kernels.gather_q.ref import gather_dist_q_ref
 
     card = card_line()
+    forbid_scatter()
 
     # -- 1. card + kernel build ---------------------------------------------
     t0 = time.perf_counter()
@@ -269,15 +296,18 @@ def run(dev: torch.device) -> None:
     pl = SearchParams(**LCCS, use_probe_kernel=True, use_gather_kernel=True)
     qh = stages.hash_queries(index.family, qb)
     w_ids, w_lcps = probe_ops.csa_probe_windows(index.csa, qh, width=pl.width)
-    cand, _ = dedupe_topk_scatter(w_ids.reshape(BATCH, -1), w_lcps.reshape(BATCH, -1),
-                                  N, pl.lam)
+    pool_ids, pool_lcps = w_ids.reshape(BATCH, -1), w_lcps.reshape(BATCH, -1)
+    cand, _ = probe_ops.pool_topk(pool_ids, pool_lcps, N, pl.lam)
     stage_ms = {
         "hash_queries": median_ms(lambda: stages.hash_queries(index.family, qb), 5),
         "probe_windows (csa_probe)": median_ms(
             lambda: probe_ops.csa_probe_windows(index.csa, qh, width=pl.width), 5),
-        "dedupe_topk_scatter": median_ms(
-            lambda: dedupe_topk_scatter(w_ids.reshape(BATCH, -1), w_lcps.reshape(BATCH, -1),
-                                        N, pl.lam), 5),
+        "pool_topk": median_ms(lambda: probe_ops.pool_topk(pool_ids, pool_lcps, N, pl.lam), 5),
+        # the dedupes it replaces, for the record
+        "dedupe_topk_scatter (plain torch)": median_ms(
+            lambda: dedupe_topk_scatter(pool_ids, pool_lcps, N, pl.lam), 5),
+        "dedupe_topk (plain torch, two stable sorts)": median_ms(
+            lambda: dedupe_topk(pool_ids, pool_lcps, pl.lam), 5),
         "verify (gather_l2 + top-k)": median_ms(
             lambda: stages.verify(index.store, index.tail, qb, cand, pl, "euclidean"), 5),
         "search (whole batch)": median_ms(lambda: index.search(qb, pl), 5),
@@ -313,8 +343,10 @@ def run(dev: torch.device) -> None:
             fail(f"kernel {k} was never launched on the main path")
 
     # -- 6. each kernel vs its plain version at the main path's shapes ------
-    probe_calls, l2_calls, q_calls = [], [], []
+    probe_calls, l2_calls, q_calls, pool_calls = [], [], [], []
     with recording(probe_ops, "csa_probe", probe_calls), \
+            recording(probe_ops, "pool_topk", pool_calls), \
+            recording(probe_pkg, "pool_topk", pool_calls), \
             recording(l2_ops, "gather_dist_kernel", l2_calls), \
             recording(q_ops, "gather_dist_q_kernel", q_calls):
         index.search(Q[:BATCH], SearchParams(**LCCS))
@@ -352,6 +384,41 @@ def run(dev: torch.device) -> None:
         bound_ms=probe_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes", library_ms=None,
         shape=dict(R=R, n=N, m=M, width=width, rows_checked=probe_rows),
     ))
+
+    # B1's consumer: the lccs pool and the multiprobe-skip pool (several
+    # tiles), bit for bit against its plain version and the scatter-max dedupe
+    # calls: lccs, multiprobe-skip, int8 lccs
+    if len(pool_calls) != 3:
+        fail(f"unexpected pool_topk calls: {len(pool_calls)}")
+    pool_recs = {}
+    for tag, (args, _) in (("lccs", pool_calls[0]), ("multiprobe-skip", pool_calls[1])):
+        p_ids, p_lcps, n_, lam_ = args
+        B_, pool_ = p_ids.shape
+        k_out = probe_ops.pool_topk(*args)
+        for ref_name, ref_fn in (("pool_topk_plain", pool_topk_plain),
+                                 ("dedupe_topk_scatter", dedupe_topk_scatter)):
+            r_out = ref_fn(*args)
+            if not (torch.equal(k_out[0], r_out[0]) and torch.equal(k_out[1], r_out[1])):
+                fail(f"pool_topk kernel != {ref_name} on the {tag} pool")
+        levels = pool_levels(pool_, min(lam_, n_), n_)
+        if tag == "multiprobe-skip" and len(levels) < 2:
+            fail(f"the multiprobe-skip pool ({pool_}) fits one tile: no merge was checked")
+        pool_recs[tag] = dict(
+            max_abs_err=0, ms=median_ms(lambda: probe_ops.pool_topk(*args), 20),
+            plain_ms=median_ms(lambda: pool_topk_plain(*args), 3),
+            # bytes: the pool's ids and lcps read once, (B, lam) ids and lcps written once
+            bound_ms=(B_ * pool_ + B_ * lam_) * 8 / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+            library_ms=None,
+            scatter_ms=median_ms(lambda: dedupe_topk_scatter(*args), 3),
+            two_sorts_ms=median_ms(lambda: dedupe_topk(p_ids, p_lcps, lam_), 3),
+            shape=dict(B=B_, pool=pool_, n=n_, lam=lam_,
+                       tiles=-(-pool_ // pool_chunk(min(lam_, n_), n_)),
+                       launches_per_call=len(levels)))
+    kernels.append(dict(
+        name="pool_topk", route="cuda", source="src/repro_torch/kernels/csrc/pool_topk.cu",
+        replaces="src/repro/kernels/csa_probe/ref.py:114", launches=launches["pool_topk"],
+        **pool_recs["lccs"], pool={"multiprobe-skip": pool_recs["multiprobe-skip"]},
+        checked_bit_identical=["pool_topk_plain", "dedupe_topk_scatter"]))
 
     # B2 / B3: the verify scans, both metrics, a zero row included
     (data, ids, queries), _ = l2_calls[0]
@@ -392,6 +459,7 @@ def run(dev: torch.device) -> None:
             library_ms=None, shape=dict(B=B, L=Lc, n=N, d=D, unique_rows=uniq),
         ))
     emit(phase="kernels_vs_plain", tolerance=dict(csa_probe="bit-identical",
+                                                  pool_topk="bit-identical",
                                                   gather=GATHER_TOL), ok=True)
 
     # -- 7. small input: the kernel path agrees with the plain CPU path ------
@@ -443,7 +511,8 @@ def run(dev: torch.device) -> None:
         fail(f"the kernels line lists {names}, the library has {sorted(common.LAUNCHES)}")
 
     for rec in kernels:
-        subs = [sub for k in ("wide", "batch", "long") for sub in rec.get(k, {}).values()]
+        subs = [sub for k in ("wide", "batch", "long", "pool")
+                for sub in rec.get(k, {}).values()]
         for r in (rec, *subs):
             with_ratios(r)
     print(card, flush=True)
@@ -1016,7 +1085,7 @@ def serve_once(engine, corpus: np.ndarray, n_req: int, dynamic: bool) -> dict:
     if counts[kernel] != cfg.n_layers * embedded:
         fail(f"serve {cfg.name} {state}: {kernel} launched {counts[kernel]} times, expected "
              f"{cfg.n_layers} x {embedded} embedded batches")
-    require(counts, ("csa_probe", "gather_l2") + (("circrun",) if dynamic else ()),
+    require(counts, ("csa_probe", "pool_topk", "gather_l2") + (("circrun",) if dynamic else ()),
             f"{cfg.name} {state} serving")
     return counts
 
@@ -1024,6 +1093,7 @@ def serve_once(engine, corpus: np.ndarray, n_req: int, dynamic: bool) -> dict:
 # kernel-name fragments -> the part of a served batch they belong to
 KERNEL_GROUPS = (("flash_attn_kernel", "flash_attn"), ("ssm_scan_kernel", "ssm_scan"),
                  ("gemm", "matmul (cuBLAS)"), ("csa_probe_kernel", "index kernels"),
+                 ("pool_topk_kernel", "index kernels"),
                  ("gather_dist_kernel", "index kernels"), ("circrun_kernel", "index kernels"))
 
 

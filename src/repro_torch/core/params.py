@@ -64,8 +64,8 @@ use_gather_kernel
 use_probe_kernel
              probe-stage kernel toggle (`kernels.csa_probe`): True = the
              fused CSA probe (binary search + adjacent-LCP window walk +
-             scatter-max dedupe -- the CUDA kernel on a CUDA index, its plain
-             torch version on a CPU index), False = the legacy
+             pool top-lam dedupe -- the CUDA kernels on a CUDA index, their
+             plain torch versions on a CPU index), False = the legacy
              `core.search.klccs_search*` window path, None = the
              REPRO_PROBE_KERNEL env var when set, else on when the index
              lies on CUDA.  Outputs are bit-identical either way; the "lccs" and

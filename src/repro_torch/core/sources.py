@@ -137,15 +137,13 @@ def multiprobe_full_source(index, queries, qh, params):
     strings, _, _ = _probe_batch(index, queries, qh, params)
     B, P, m = strings.shape
     if params.mode == "parallel" and _fused_probe(index, params):
-        # fused: raw windows of every (probe, shift), ONE scatter-max dedupe
+        # fused: raw windows of every (probe, shift), ONE pool top-lam dedupe
         # per query over the whole P*m*2W pool (equal to the legacy two-level
         # dedupe, see the reference)
-        from ..kernels.csa_probe import csa_probe_windows, dedupe_topk_scatter
+        from ..kernels.csa_probe import csa_probe_windows, pool_topk
 
         w_ids, w_lcps = csa_probe_windows(index.csa, strings.reshape(B * P, m), width=width)
-        return dedupe_topk_scatter(
-            w_ids.reshape(B, -1), w_lcps.reshape(B, -1), index.csa.n, params.lam
-        )
+        return pool_topk(w_ids.reshape(B, -1), w_lcps.reshape(B, -1), index.csa.n, params.lam)
     ids, lcps = klccs_search(
         index.csa, strings.reshape(B * P, m), params.lam, width=width, mode=params.mode
     )
@@ -167,9 +165,9 @@ def multiprobe_skip_source(index, queries, qh, params):
     width = params.resolved_width()
     fused = _fused_probe(index, params)
     if fused:
-        from ..kernels.csa_probe import csa_probe_pairs, csa_probe_windows, dedupe_topk_scatter
+        from ..kernels.csa_probe import csa_probe_pairs, csa_probe_windows, pool_topk
 
-        # raw base windows: the scatter-max merge dedupes the whole pool at
+        # raw base windows: the pool top-lam merge dedupes the whole pool at
         # once (and the per-shift max of the window LCPs IS the §4.2 bound)
         w_ids, w_lcps = csa_probe_windows(index.csa, qh, width=width)
         B0 = qh.shape[0]
@@ -215,5 +213,5 @@ def multiprobe_skip_source(index, queries, qh, params):
     ids = torch.cat([base_ids, p_ids.reshape(B, -1)], dim=1)
     lcps = torch.cat([base_lcps, p_lcps.reshape(B, -1)], dim=1)
     if fused:
-        return dedupe_topk_scatter(ids, lcps, index.csa.n, params.lam)
+        return pool_topk(ids, lcps, index.csa.n, params.lam)
     return dedupe_topk(ids, lcps, params.lam)

@@ -40,6 +40,8 @@ _F = ctypes.c_float
 SIGNATURES = {
     # I, L, Hd, qd, shifts, qidx, ids_out, lcps_out, n, m, R, width, stream
     "csa_probe_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # ids, lcps, out_ids, out_vals, B, pool, n, chunk, k, out_cols, stream
+    "pool_topk_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
     # data, ids, queries, out, n, d, B, Lc, angular, stream
     "gather_l2_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # codes, scale, ids, queries, out, n, d, B, Lc, angular, stream
@@ -58,7 +60,7 @@ SIGNATURES = {
 
 # launches per kernel since the last reset: each wrapper adds one where it
 # launches its kernel, and nowhere else
-LAUNCHES: dict[str, int] = {"csa_probe": 0, "gather_l2": 0, "gather_q": 0,
+LAUNCHES: dict[str, int] = {"csa_probe": 0, "pool_topk": 0, "gather_l2": 0, "gather_q": 0,
                             "hash_rp": 0, "hash_xp": 0, "circrun": 0,
                             "flash_attn": 0, "ssm_scan": 0}
 
@@ -190,3 +192,16 @@ def check(name: str, t: torch.Tensor, *, device: torch.device, dtype: torch.dtyp
         raise ValueError(f"{name}: shape {tuple(t.shape)}, expected {shape}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+
+
+def forward_only(kernel: str, *tensors: torch.Tensor) -> None:
+    """Raise when autograd would record through a kernel that has no
+    backward: grad mode is on and an input requires grad.  The kernel writes
+    its output through raw pointers, so the output would carry no grad_fn
+    and the gradient would stop there without an error."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel}: the CUDA kernel has no backward; call it under torch.no_grad() or "
+            "torch.inference_mode(), or on inputs that do not require grad (the plain "
+            "version on CPU tensors is differentiable)"
+        )

@@ -11,8 +11,11 @@ REPRO_PROBE_KERNEL (resolved in `repro_torch.exec.stages`):
 
 Every form reduces to one worklist of (probe string, shift) rows handed to
 `csa_probe`: on CUDA tensors the hand-written kernel (`csrc/csa_probe.cu`),
-on CPU tensors its plain version (`ref.csa_probe_plain`).  Requires a CSA
-built with the adjacent-LCP table (`csa.L`); `supports(csa)` gates that.
+on CPU tensors its plain version (`ref.csa_probe_plain`).  The searches
+dedupe the windows' pool with `pool_topk`: on CUDA tensors the hand-written
+kernel (`csrc/pool_topk.cu`), on CPU tensors `ref.pool_topk_plain`.
+Requires a CSA built with the adjacent-LCP table (`csa.L`); `supports(csa)`
+gates that.
 """
 from __future__ import annotations
 
@@ -20,7 +23,10 @@ import torch
 
 from ...core.search import doubled
 from .. import common
-from .ref import csa_probe_plain, dedupe_topk_scatter
+from .ref import csa_probe_plain, pool_chunk, pool_levels, pool_topk_plain
+
+# the pool top-k kernel keeps at most this many ids a tile
+POOL_MAX_K = 4096
 
 
 def supports(csa) -> bool:
@@ -62,9 +68,48 @@ def csa_probe(I, L, Hd, qd, shifts, qidx, width: int):
     return ids, lcps
 
 
+def pool_topk(ids, lcps, n: int, lam: int):
+    """Max-LCP per id, then the first k = min(lam, n) ids by (lcp
+    descending, id ascending), over a (B, pool) probe pool; entries whose id
+    or lcp is < 0 are dropped.  ids, lcps: (B, pool) int32, ids in [-1, n),
+    lcps <= 256.  Returns (ids, lcps) (B, lam) int32, -1-padded, equal to
+    `ref.dedupe_topk_scatter` and `core.search.dedupe_topk`.
+
+    On CUDA tensors: one launch of the kernel a tile pass of
+    `ref.pool_levels` (one for a pool of up to one tile, two for the lccs
+    pool at m 64, W 100 and the multiprobe pools), k <= POOL_MAX_K; no host
+    sync.  The tiles are `ref.pool_topk_plain`'s."""
+    if ids.device.type == "cpu":
+        return pool_topk_plain(ids, lcps, n, lam)
+    if ids.device.type != "cuda":
+        raise ValueError(f"pool_topk: unsupported device {ids.device}")
+    B, pool = ids.shape
+    dev = ids.device
+    common.check("ids", ids, device=dev, dtype=torch.int32, shape=(B, pool))
+    common.check("lcps", lcps, device=dev, dtype=torch.int32, shape=(B, pool))
+    k = min(lam, n)
+    if k > POOL_MAX_K:
+        raise ValueError(f"pool_topk: the kernel takes k = min(lam, n) <= {POOL_MAX_K}, got {k}")
+    if B == 0 or pool == 0 or k < 1:  # no id to rank: nothing to launch
+        full = torch.full((B, lam), -1, dtype=torch.int32, device=dev)
+        return full, full.clone()
+    chunk = pool_chunk(k, n)
+    levels = pool_levels(pool, k, n)
+    for i, p in enumerate(levels):
+        last = i == len(levels) - 1
+        cols = lam if last else k
+        shape = (B, cols) if last else (B, levels[i + 1])
+        out_ids = torch.empty(shape, dtype=torch.int32, device=dev)
+        out_vals = torch.empty(shape, dtype=torch.int32, device=dev)
+        common.launch("pool_topk", "pool_topk_launch", ids.data_ptr(), lcps.data_ptr(),
+                      out_ids.data_ptr(), out_vals.data_ptr(), B, p, n, chunk, k, cols)
+        ids, lcps = out_ids, out_vals
+    return ids, lcps
+
+
 def csa_probe_windows(csa, q_hash, width: int = 16):
     """Raw fused windows of every (query, shift) pair -- the undeduped pool
-    the multiprobe sources merge in one scatter pass.
+    the multiprobe sources merge in one `pool_topk` pass.
     q_hash: (B, m) int32.  Returns (ids (B, m, 2W), lcps (B, m, 2W))."""
     B, m = q_hash.shape
     dev = q_hash.device
@@ -79,7 +124,7 @@ def csa_probe_search(csa, q_hash, lam: int, width: int = 16):
     q_hash: (B, m) int32.  Returns (ids (B, lam), lcps (B, lam))."""
     B = q_hash.shape[0]
     ids, lcps = csa_probe_windows(csa, q_hash, width)
-    return dedupe_topk_scatter(ids.reshape(B, -1), lcps.reshape(B, -1), csa.n, lam)
+    return pool_topk(ids.reshape(B, -1), lcps.reshape(B, -1), csa.n, lam)
 
 
 def csa_probe_search_with_lens(csa, q_hash, lam: int, width: int = 16):
@@ -88,9 +133,7 @@ def csa_probe_search_with_lens(csa, q_hash, lam: int, width: int = 16):
     B = q_hash.shape[0]
     ids, lcps = csa_probe_windows(csa, q_hash, width)
     maxlen = lcps.amax(dim=2)
-    out_ids, out_lcps = dedupe_topk_scatter(
-        ids.reshape(B, -1), lcps.reshape(B, -1), csa.n, lam
-    )
+    out_ids, out_lcps = pool_topk(ids.reshape(B, -1), lcps.reshape(B, -1), csa.n, lam)
     return out_ids, out_lcps, maxlen
 
 

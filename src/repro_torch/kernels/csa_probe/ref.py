@@ -16,9 +16,13 @@ The output is bit-identical to `_window`.
 outputs); the kernel wrapper calls it for CPU tensors, and the on-card
 checks hold the kernel against it.
 
-Deduplication is a scatter-max into an (n,)-slot buffer per query followed
-by one top-lam that breaks ties toward the smaller id, so ids, values and
-order match `core.search.dedupe_topk` exactly.
+`pool_topk_plain` is the plain version of the pool top-lam kernel
+(`csrc/pool_topk.cu`): max-LCP per id, then the top lam with ties to the
+smaller id, over the probe pool only, tile by tile as the kernel does it.
+`dedupe_topk_scatter` is the counterpart of the reference's function of that
+name: a scatter-max into an (n,)-slot buffer per query, then one top-lam.
+All three forms match `core.search.dedupe_topk` exactly (ids, values and
+order).
 """
 from __future__ import annotations
 
@@ -26,12 +30,18 @@ import torch
 
 from ...core.csa import CSA
 from ...core.lsh import topk_largest_lcp
-from ...core.search import _insertion_pos, _pad_lam, _row_lcp_less
+from ...core.search import _insertion_pos, _pad_lam, _row_lcp_less, dedupe_topk
 
 # worklist rows per chunk of the plain probe (bounds its transients)
 _ROWS = 1 << 16
 # buffer entries per chunk of the scatter-max dedupe
 _BUF = 1 << 27
+# pool entries of one tile of the pool top-lam: the kernel's shared-memory
+# hash table holds twice as many slots of 4-byte keys (64 KB, two blocks an
+# SM), or half as many entries where ids reach 2^23 and take 8-byte keys; a
+# tile is widened to 2k entries where k = min(lam, n) is larger
+POOL_TILE = 8192
+WIDE_IDS = 1 << 23
 
 
 def window_from_adjacent(csa: CSA, qd_r: torch.Tensor, i: torch.Tensor,
@@ -133,4 +143,54 @@ def dedupe_topk_scatter(ids: torch.Tensor, lcps: torch.Tensor, n: int, lam: int)
         del buf
         out_ids[s] = torch.where(v >= 0, idx, torch.full_like(idx, -1))
         vals[s] = v
+    return _pad_lam(out_ids, vals, lam)
+
+
+def pool_chunk(k: int, n: int, tile: int | None = None) -> int:
+    """Pool entries of one tile of the pool top-k over ids in [0, n): `tile`
+    (default POOL_TILE, half that for n > WIDE_IDS), widened to 2k so that
+    each merge at least halves the pool."""
+    if tile is None:
+        tile = POOL_TILE if n <= WIDE_IDS else POOL_TILE // 2
+    return max(tile, 2 * k)
+
+
+def pool_levels(pool: int, k: int, n: int, tile: int | None = None) -> list:
+    """Pool lengths of the successive tile passes of the pool top-k: each
+    pass cuts its pool into tiles of `pool_chunk(k, n, tile)` entries and
+    keeps each tile's top k, until one tile holds the pool.  Its length is
+    the number of kernel launches (for a non-empty batch and pool)."""
+    chunk = pool_chunk(k, n, tile)
+    out = [pool]
+    while pool > chunk:
+        pool = -(-pool // chunk) * k
+        out.append(pool)
+    return out
+
+
+def pool_topk_plain(ids: torch.Tensor, lcps: torch.Tensor, n: int, lam: int,
+                    tile: int | None = None):
+    """The pool top-lam kernel's plain version: max-LCP per id, then the
+    first k = min(lam, n) ids by (lcp descending, id ascending), over the
+    (B, pool) probe pool only.  Entries whose id or lcp is < 0 are dropped.
+    Tile by tile, as the kernel: each tile of `pool_chunk(k, n, tile)` entries
+    keeps its own deduped top k (two stable sorts, `dedupe_topk`), and the
+    tiles' lists are merged the same way until one tile holds them.  Exact,
+    since an id of a row's top k is in the top k of the tile that holds its
+    max lcp.  Returns (ids, lcps) (B, lam) int32, -1-padded."""
+    B = ids.shape[0]
+    k = min(lam, n)
+    if k < 1:
+        full = torch.full((B, lam), -1, dtype=torch.int32, device=ids.device)
+        return full, full.clone()
+    chunk = pool_chunk(k, n, tile)
+    ids, lcps = ids.to(torch.int32), lcps.to(torch.int32)
+    for pool in pool_levels(ids.shape[1], k, n, tile)[1:]:
+        tiles = pool // k
+        pad = (0, tiles * chunk - ids.shape[1])
+        t_ids = torch.nn.functional.pad(ids, pad, value=-1).reshape(B * tiles, chunk)
+        t_lcps = torch.nn.functional.pad(lcps, pad, value=-1).reshape(B * tiles, chunk)
+        t_ids, t_lcps = dedupe_topk(t_ids, t_lcps, k)
+        ids, lcps = t_ids.reshape(B, pool), t_lcps.reshape(B, pool)
+    out_ids, vals = dedupe_topk(ids, lcps, k)
     return _pad_lam(out_ids, vals, lam)

@@ -1,5 +1,5 @@
-// Shared pieces of the two hashing kernels (hash_rp.cu, hash_xp.cu): the
-// cp.async copies that fill their rings of shared-memory stages, the
+// Shared pieces of the two hashing kernels (hash_rp.cu, hash_xp.cu; pool_topk.cu
+// takes DeviceOnce): the cp.async copies that fill their rings of shared-memory stages, the
 // transposition of a streamed x stage, and the register-blocked fp32
 // product of one stage.
 #pragma once

@@ -25,6 +25,7 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
         return flash_attention_ref(q, k, v, causal=causal, window=window, softcap=softcap)
     if q.device.type != "cuda":
         raise ValueError(f"flash_attn: unsupported device {q.device}")
+    common.forward_only("flash_attn", q, k, v)
     B, Sq, Hq, dh = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     dev = q.device

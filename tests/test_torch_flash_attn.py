@@ -102,3 +102,12 @@ def test_mask_aligns_ends_and_empty_rows_are_zero():
     out = attn_ref(q, k, v, causal=True)  # queries 0, 1 sit before every key
     assert torch.equal(out[:2], torch.zeros((2, 8)))
     assert torch.allclose(out[2:], torch.ones((2, 8)))
+
+
+def test_cpu_wrapper_stays_differentiable():
+    """The autograd guard is the kernel's: on CPU tensors the wrapper runs
+    the plain version, and gradients reach q, k and v."""
+    g = torch.Generator().manual_seed(0)
+    q, k, v = (torch.randn((1, 5, 2, 8), generator=g).requires_grad_() for _ in range(3))
+    flash_attention(q, k[:, :, :1], v[:, :, :1], window=3, softcap=20.0).sum().backward()
+    assert all(t.grad is not None and bool(t.grad.abs().sum() > 0) for t in (q, k, v))

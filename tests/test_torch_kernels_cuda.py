@@ -1,5 +1,6 @@
 """On-card checks: each hand-written CUDA kernel against its plain PyTorch
-version on the same CUDA tensors (csa_probe and circrun bit-identical; the
+version on the same CUDA tensors (csa_probe, pool_topk and circrun
+bit-identical, pool_topk also against the scatter-max dedupe; the
 gathers within rtol 1e-5 / atol 1e-5, fp32 summation order; hash_rp and
 hash_xp may differ only at a bucket boundary or a near tie, see
 `_rp_boundary` and `_xp_near_tie`; flash_attn within rtol/atol 1e-4 and
@@ -8,6 +9,7 @@ ssm_scan within rtol/atol 1e-5, fp32 summation order and expf/tanhf ulps).  They
 import numpy as np
 import pytest
 import torch
+from torch_pool_cases import POOL_CASES, make_pool
 
 from repro_torch import LCCSIndex, SearchParams, SegmentedLCCSIndex
 from repro_torch.core import lsh
@@ -16,7 +18,16 @@ from repro_torch.exec import stages
 from repro_torch.kernels import common
 from repro_torch.kernels.circrun import circrun, circrun_ref
 from repro_torch.kernels.flash_attn import flash_attention, flash_attention_ref
-from repro_torch.kernels.csa_probe import csa_probe, csa_probe_plain
+from repro_torch.kernels.csa_probe import (
+    csa_probe,
+    csa_probe_plain,
+    dedupe_topk_scatter,
+    pool_topk,
+    pool_topk_plain,
+)
+from repro_torch.kernels.csa_probe import ref as probe_ref
+from repro_torch.kernels.csa_probe.ops import POOL_MAX_K
+from repro_torch.kernels.csa_probe.ref import pool_levels
 from repro_torch.kernels.gather_l2 import gather_dist_kernel, gather_dist_ref
 from repro_torch.kernels.gather_q import gather_dist_q_kernel, gather_dist_q_ref
 from repro_torch.kernels.hash_rp import hash_rp, hash_rp_ref
@@ -59,6 +70,74 @@ def test_csa_probe_kernel_bit_identical(dev, n, m, width):
     assert common.launch_counts()["csa_probe"] == before + 1
     pi, pl = csa_probe_plain(c.I, c.L, c.Hd, doubled(q), shifts, qidx, width)
     assert torch.equal(ki, pi) and torch.equal(kl, pl)
+
+
+def _pool_check(ids, lcps, n, lam, scatter=True):
+    """pool_topk's kernel equals its plain version (and the scatter-max
+    dedupe) bit for bit, in as many launches as `pool_levels` promises."""
+    before = common.launch_counts()["pool_topk"]
+    ki, kv = pool_topk(ids, lcps, n, lam)
+    torch.cuda.synchronize()
+    B, pool = ids.shape
+    want = len(pool_levels(pool, min(lam, n), n)) if B and pool else 0
+    assert common.launch_counts()["pool_topk"] == before + want
+    assert ki.shape == (B, lam) and ki.dtype == torch.int32
+    pi, pv = pool_topk_plain(ids, lcps, n, lam)
+    assert torch.equal(ki, pi) and torch.equal(kv, pv)
+    if scatter:
+        si, sv = dedupe_topk_scatter(ids, lcps, n, lam)
+        assert torch.equal(ki, si) and torch.equal(kv, sv)
+
+
+@pytest.mark.parametrize("name", list(POOL_CASES))
+def test_pool_topk_kernel_bit_identical(dev, monkeypatch, name):
+    _, _, n, lam, tile, _, _ = POOL_CASES[name]
+    if tile is not None:  # the wrapper's tiles
+        monkeypatch.setattr(probe_ref, "POOL_TILE", tile)
+    ids, lcps = (torch.from_numpy(a).to(dev) for a in make_pool(name))
+    _pool_check(ids, lcps, n, lam)
+
+
+@pytest.mark.parametrize("spread", [1_000_000, 20_000])
+def test_pool_topk_kernel_at_the_lccs_pool(dev, spread):
+    """The lccs pool at n = 10^6, m 64, W 100: 1,000 x 12,800 entries, one
+    tile a row; ids over the whole corpus, then crowded (many repeats)."""
+    rng = np.random.default_rng(spread)
+    ids = torch.from_numpy(rng.integers(0, spread, (1000, 12_800)).astype(np.int32)).to(dev)
+    lcps = torch.from_numpy(rng.integers(0, 65, (1000, 12_800)).astype(np.int32)).to(dev)
+    _pool_check(ids, lcps, 1_000_000, 100)
+
+
+@pytest.mark.parametrize("n,lam", [(1_000_000, 1024), (2**31 - 1, 1024), (1_000_000, 4096)])
+def test_pool_topk_kernel_several_tiles_large_lam(dev, n, lam):
+    """A multiprobe-skip sized pool (139,264 entries: 17 tiles of 8,192 and
+    two merges at lam 1,024); n past 2^23 takes the kernel's 8-byte keys
+    (and tiles of 4,096); lam 4,096 places the chosen ids by a sort."""
+    rng = np.random.default_rng(7)
+    ids = rng.integers(n - 200_000, n, (6, 139_264))
+    ids[:, ::5] = -1
+    lcps = rng.integers(0, 65, (6, 139_264))
+    lcps[ids < 0] = -1
+    ids, lcps = (torch.from_numpy(a.astype(np.int32)).to(dev) for a in (ids, lcps))
+    _pool_check(ids, lcps, n, lam, scatter=n < 2**23)
+
+
+@pytest.mark.parametrize("n", [10**6, 2**24])
+def test_pool_topk_kernel_rejects_what_it_does_not_take(dev, monkeypatch, n):
+    """k up to 4,096; tiles up to 16,384 entries, or 8,192 where ids reach
+    2^23 and take 8-byte keys (POOL_TILE // 2), so that the kernel's hash
+    table stays at most half full."""
+    z = torch.zeros((2, 20_000), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match=str(POOL_MAX_K)):
+        pool_topk(z, z, n, POOL_MAX_K + 1)
+    with pytest.raises(TypeError, match="dtype"):
+        pool_topk(z.long(), z, n, 100)
+    assert pool_topk(z, z, n, POOL_MAX_K)[0].shape == (2, POOL_MAX_K)
+    monkeypatch.setattr(probe_ref, "POOL_TILE", 16_384)  # the largest tiles it takes
+    assert torch.equal(pool_topk(z, z, n, 100)[0], pool_topk_plain(z, z, n, 100)[0])
+    monkeypatch.setattr(probe_ref, "POOL_TILE", 16_386)  # one entry over, either key width
+    with pytest.raises(RuntimeError, match="cudaError"):
+        pool_topk(z, z, n, 100)
 
 
 @pytest.mark.parametrize("metric", ["euclidean", "angular"])
@@ -370,6 +449,7 @@ def test_segmented_on_card_matches_cpu(dev):
         assert torch.equal(ci, gi.cpu()) and torch.equal(cl, gl.cpu())
     after = common.launch_counts()
     assert after["circrun"] > before["circrun"] and after["csa_probe"] > before["csa_probe"]
+    assert after["pool_topk"] > before["pool_topk"]
 
 
 @pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv,dh,causal,window,softcap", [
@@ -405,6 +485,19 @@ def test_flash_attn_kernel_rejects_what_it_does_not_take(dev):
         flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), kv, kv)
 
 
+@pytest.mark.parametrize("grad_input", [0, 1, 2])
+def test_flash_attn_kernel_refuses_grad(dev, grad_input):
+    """The kernel has no backward: with grad mode on and an input that
+    requires grad it raises rather than return an output without grad_fn."""
+    q, k, v = (torch.randn((1, 4, 2, 8), device=dev) for _ in range(3))
+    ins = [q, k[:, :, :1].contiguous(), v[:, :, :1].contiguous()]
+    ins[grad_input].requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        flash_attention(*ins)
+    with torch.no_grad():
+        flash_attention(*ins)
+
+
 @pytest.mark.parametrize("B,L,D,N,seq_chunk", [
     (32, 32, 8192, 16, 2048),   # falcon-mamba-7b's serving shape
     (3, 77, 200, 16, 2048),     # odd L and D
@@ -426,6 +519,19 @@ def test_ssm_scan_kernel_matches_plain(dev, B, L, D, N, seq_chunk):
     y_ref, h_ref = ssm_scan_batched_ref(dt, x, Bc, Cc, A, h0)
     torch.testing.assert_close(y, y_ref, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(h, h_ref, rtol=1e-5, atol=1e-5)
+
+
+def test_ssm_scan_kernel_refuses_grad(dev):
+    B, L, D, N = 2, 5, 8, 4
+    ins = [torch.rand((B, L, D), device=dev), torch.randn((B, L, D), device=dev),
+           torch.randn((B, L, N), device=dev), torch.randn((B, L, N), device=dev),
+           -torch.rand((D, N), device=dev), torch.zeros((B, D, N), device=dev)]
+    for i in range(len(ins)):
+        args = [t.detach().requires_grad_(j == i) for j, t in enumerate(ins)]
+        with pytest.raises(RuntimeError, match="no backward"):
+            ssm_scan(*args)
+        with torch.inference_mode():
+            ssm_scan(*args)
 
 
 @pytest.mark.parametrize("B,D", [(0, 64), (2, 0)])

@@ -65,3 +65,19 @@ def test_wrapper_rejects_a_bad_chunk():
     args = map(torch.from_numpy, _inputs((1,), 4, 8, 2, 0))
     with pytest.raises(ValueError, match="seq_chunk"):
         ssm_scan(*args, seq_chunk=0)
+
+
+def test_cpu_wrapper_stays_differentiable():
+    """The autograd guard is the kernel's: on CPU tensors the wrapper runs
+    the plain version, and gradients reach every input."""
+    g = torch.Generator().manual_seed(0)
+    B, L, D, N = 2, 6, 3, 4
+    dt = torch.nn.functional.softplus(torch.randn((B, L, D), generator=g))
+    ins = [dt, torch.randn((B, L, D), generator=g), torch.randn((B, L, N), generator=g),
+           torch.randn((B, L, N), generator=g), -torch.rand((D, N), generator=g),
+           torch.randn((B, D, N), generator=g)]
+    for t in ins:
+        t.requires_grad_()
+    y, h = ssm_scan(*ins, seq_chunk=4)
+    (y.sum() + h.sum()).backward()
+    assert all(t.grad is not None and bool(t.grad.abs().sum() > 0) for t in ins)
