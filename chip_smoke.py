@@ -14,7 +14,8 @@ Drives the port's paths on one NVIDIA card at the paper's SIFT size
   * the dynamic path (SegmentedLCCSIndex, the main path's family): a bulk
     load into one segment, a stream of inserts into the delta buffer,
     deletes from both, search, a size-tiered compaction, search again;
-  * the "bruteforce" source on the main fp32 index;
+  * the "bruteforce" source on the main fp32 index (it and the dynamic
+    path's delta buffer rank through the circrun_topk kernels);
   * the retrieval serving path (RetrievalEngine, as `repro_torch.launch.serve`
     drives it) with two embedding models at full width and depth, random
     weights from seed 0: gemma-2b (18 attention layers, the flash_attn
@@ -31,7 +32,8 @@ version on the card at the paths' shapes (flash_attn and ssm_scan also at
 one long shape each, hash_rp and hash_xp also at the GIST width d = 960
 and over one query batch, pool_topk also at a multiprobe-skip pool of
 several tiles and against the scatter-max dedupe, which no card path may
-call),
+call; circrun_topk also against the parent's route, circrun + the int64-key
+top-k, which no card path may take),
 and times both beside each kernel's bound and, where one PyTorch call
 computes the same function, that call (of_bound, vs_library).
 
@@ -66,7 +68,10 @@ N_BULK, INSERT_ROWS, N_DELETE = 934_464, 16_384, 10_000
 # the kernels of each path: each must launch at least once in its run
 MAIN_KERNELS = ("csa_probe", "pool_topk", "gather_l2", "gather_q", "hash_rp")
 ANGULAR_KERNELS = ("hash_xp", "csa_probe", "pool_topk", "gather_l2")
-DYNAMIC_KERNELS = ("hash_rp", "csa_probe", "pool_topk", "circrun", "gather_l2")
+DYNAMIC_KERNELS = ("hash_rp", "csa_probe", "pool_topk", "circrun", "circrun_topk", "gather_l2")
+# the bruteforce source and the delta buffer: the circrun scorer and the select
+# kernel behind it
+CIRCRUN_KERNELS = ("circrun", "circrun_topk")
 # a hash may differ between kernel and plain version (another summation
 # order) only where the float64 value lies within this relative distance of
 # a bucket boundary (hash_rp) or of a tie between vertices (hash_xp), and in
@@ -169,6 +174,27 @@ def forbid_scatter() -> None:
         module.dedupe_topk_scatter = forbidden
 
 
+def forbid_circrun_ranking() -> None:
+    """Make every card path fail the run if it ranks circrun lengths with the
+    plain route (`circrun_topk_plain`: the (B, n) int32 lengths, then
+    `topk_largest_lcp` over (B, n) int64 keys): the bruteforce source and the
+    delta buffer go through the circrun_topk kernels.  CPU tensors (phase
+    10's CPU index) keep the plain route; phases 11 and 12 time and compare
+    it through `circrun.ref`."""
+    import repro_torch.kernels.circrun as circrun_pkg
+    from repro_torch.kernels.circrun import ops
+
+    plain = ops.circrun_topk_plain
+
+    def guarded(h, *args, **kw):
+        if h.device.type != "cpu":
+            fail("a card path ranked circrun lengths with circrun_topk_plain")
+        return plain(h, *args, **kw)
+
+    for module in (circrun_pkg, ops):
+        module.circrun_topk_plain = guarded
+
+
 @contextmanager
 def recording(module, name: str, store: list, keep: int | None = None):
     """Record the arguments of every call (or of the first `keep` calls) to
@@ -251,6 +277,7 @@ def run(dev: torch.device) -> None:
 
     card = card_line()
     forbid_scatter()
+    forbid_circrun_ranking()
 
     # -- 1. card + kernel build ---------------------------------------------
     t0 = time.perf_counter()
@@ -714,7 +741,8 @@ def run_dynamic(ctx) -> dict:
     truth = live_rows[exact_knn(X[live_rows], Q, K)]
     src_live = live[ctx["src_rows"]]
     p = SearchParams(**LCCS)
-    buf_h = didx.buf_h.clone()  # the full delta buffer, for phase 12
+    buf_h = didx.buf_h.clone()  # the full delta buffer and its live slots, for phase 12
+    buf_ok = didx._live(didx.buf_gid)
 
     def searched(tag, counts_before):
         didx.search(Q[:BATCH], p)  # warm-up
@@ -754,16 +782,20 @@ def run_dynamic(ctx) -> dict:
     del didx, truth
     torch.cuda.empty_cache()
     small_dynamic_vs_cpu(ctx)
-    return dict(counts=counts, buf_h=buf_h, qh=qh_batch)
+    return dict(counts=counts, buf_h=buf_h, ok=buf_ok, qh=qh_batch)
 
 
 def dynamic_stage_ms(didx, qb: torch.Tensor, p) -> dict:
     """Where one dynamic search batch spends its time (not counted as
     launches): hashing, each segment's inner source, the delta buffer's
-    circrun top-k, and the whole search call."""
+    top-k (the circrun_topk kernels, and as its yardstick the parent's route:
+    circrun's (B, n) lengths, then the int64-key top-k), and the whole
+    search call."""
     from repro_torch.core import LCCSIndex, get_source
+    from repro_torch.core.lsh import topk_largest_lcp
     from repro_torch.core.segments import _buffer_topk
     from repro_torch.exec import resolve_params
+    from repro_torch.kernels.circrun import circrun
 
     pr = resolve_params(didx, p)
     inner = get_source(pr.inner)
@@ -774,8 +806,17 @@ def dynamic_stage_ms(didx, qb: torch.Tensor, p) -> dict:
                          metric=didx.metric, tail=didx.tail)
         ms[f"segment of {seg.cap} rows: {pr.inner}"] = median_ms(
             lambda: inner(view, qb, qh, pr), 5)
-    ms[f"buffer of {didx.buf_h.shape[0]} rows: circrun top-k"] = median_ms(
+    nb = didx.buf_h.shape[0]
+    ok = didx._live(didx.buf_gid)
+
+    def parent_route():
+        lens = circrun(didx.buf_h, qh)
+        return topk_largest_lcp(torch.where(ok, lens, torch.full_like(lens, -1)), min(pr.lam, nb))
+
+    ms[f"buffer of {nb} rows: top-k (_buffer_topk, circrun_topk)"] = median_ms(
         lambda: _buffer_topk(didx, qh, pr.lam), 5)
+    ms[f"buffer of {nb} rows: circrun + topk_largest_lcp (the parent's route)"] = median_ms(
+        parent_route, 5)
     ms["search (whole batch)"] = median_ms(lambda: didx.search(qb, p), 5)
     return ms
 
@@ -825,8 +866,10 @@ def small_dynamic_vs_cpu(ctx) -> None:
 
 
 def run_bruteforce(ctx) -> dict:
-    """Phase 11: the "bruteforce" source (the circrun kernel over all n
-    strings) on the main fp32 index, the first 1,000 queries."""
+    """Phase 11: the "bruteforce" source (the circrun_topk kernels over all n
+    strings) on the main fp32 index, the first 1,000 queries; its stages
+    beside the parent's route (circrun's lengths and the int64-key top-k,
+    chunk by chunk) on the same batch."""
     from repro_torch.core import SearchParams
     from repro_torch.kernels import common
 
@@ -842,41 +885,59 @@ def run_bruteforce(ctx) -> dict:
          seconds=secs, recall_at_10=recall_at_k(ids, ctx["truth"][:BATCH]),
          top1_self=float((ids[:, 0].long() == ctx["src_rows"][:BATCH]).float().mean()))
     emit(phase="launches", run="fp32 bruteforce", counts=counts)
-    require(counts, ("circrun",), "bruteforce")
-    # the batch's time: the circrun kernel over every chunk, against the
-    # whole source (circrun + the top-k of each chunk's ranking keys)
+    require(counts, CIRCRUN_KERNELS, "bruteforce")
+    # the batch's time: the fused route (4 chunks of 256 queries), against
+    # the parent's route (circrun's lengths, then the top-k of each chunk's
+    # int64 ranking keys, 15 chunks of 67 queries), which must agree
     from repro_torch.core.bruteforce import _LENS_ELEMS, bruteforce_topk
-    from repro_torch.kernels.circrun import circrun
-
     from repro_torch.core.lsh import topk_largest, topk_largest_lcp
+    from repro_torch.kernels.circrun import circrun, circrun_topk
+    from repro_torch.kernels.circrun.ops import stored_layout
 
     qh = index.family.hash(Q[:BATCH])
     step = max(1, _LENS_ELEMS // N)
+
+    def parent_route():
+        out = [topk_largest_lcp(circrun(index.h, qh[s:s + step]), 100)
+               for s in range(0, BATCH, step)]
+        return torch.cat([v for v, _ in out]), torch.cat([r for _, r in out])
+
+    fused, parent = circrun_topk(index.h, qh, 100), parent_route()
+    if not (torch.equal(fused[0], parent[0]) and torch.equal(fused[1], parent[1])):
+        fail("bruteforce: circrun_topk differs from circrun + topk_largest_lcp")
     lens = circrun(index.h, qh[:step])
     if not all(torch.equal(a, b.to(torch.int32)) for a, b in
                zip(topk_largest_lcp(lens, 100), topk_largest(lens, 100))):
         fail("the two top-k of one bruteforce chunk differ")
+    kstep = stored_layout(N, M)[2]
     emit(phase="stages", store="fp32", source="bruteforce", batch=BATCH, ms={
-        "circrun (all chunks)": median_ms(
+        f"circrun_topk (the fused route, chunks of {kstep})": median_ms(
+            lambda: circrun_topk(index.h, qh, 100), 3),
+        f"circrun + topk_largest_lcp (the parent's route, chunks of {step})": median_ms(
+            parent_route, 3),
+        f"circrun (chunks of {step})": median_ms(
             lambda: [circrun(index.h, qh[s:s + step]) for s in range(0, BATCH, step)], 3),
         f"top-100 of one ({step}, {N}) chunk: unique int64 keys (topk_largest_lcp)":
             median_ms(lambda: topk_largest_lcp(lens, 100), 3),
         f"top-100 of one ({step}, {N}) chunk: stable sort (topk_largest)":
             median_ms(lambda: topk_largest(lens, 100), 3),
-        "bruteforce_topk (circrun + top-k)": median_ms(
+        "bruteforce_topk (circrun_topk + padding)": median_ms(
             lambda: bruteforce_topk(index.h, qh, 100), 3),
         "search (whole batch)": median_ms(lambda: index.search(Q[:BATCH], p), 3),
-    })
+    }, fused_equals_parent_route=True)
     return counts
 
 
 def new_kernels_vs_plain(ctx, angular, dynamic, launches) -> list:
-    """Phase 12: hash_rp, hash_xp and circrun against their plain versions at
-    the paths' shapes (the hashes also at d = 960 and over a query batch),
-    timed beside their bounds and a library call (the hashes and their
-    library calls also by their device time alone, `device_ms`)."""
+    """Phase 12: hash_rp, hash_xp, circrun and circrun_topk against their
+    plain versions at the paths' shapes (the hashes also at d = 960 and over
+    a query batch), timed beside their bounds and a library call (the hashes
+    and their library calls also by their device time alone, `device_ms`;
+    circrun_topk also beside the parent's route)."""
     from repro_torch.core.bruteforce import _LENS_ELEMS
-    from repro_torch.kernels.circrun import circrun, circrun_ref
+    from repro_torch.core.lsh import topk_largest_lcp
+    from repro_torch.kernels.circrun import circrun, circrun_ref, circrun_topk
+    from repro_torch.kernels.circrun.ref import circrun_topk_plain
     from repro_torch.kernels.hash_rp import hash_rp, hash_rp_ref
     from repro_torch.kernels.hash_xp import hash_xp, hash_xp_ref
 
@@ -895,15 +956,50 @@ def new_kernels_vs_plain(ctx, angular, dynamic, launches) -> list:
         shapes[tag] = dict(B=int(q.shape[0]), n=int(h.shape[0]), m=int(h.shape[1]))
     Bq, nb = qh.shape[0], buf_h.shape[0]
     c_bytes = 4 * (nb * M + Bq * M + Bq * nb)
-    c_ops = Bq * nb * 2 * M
+    c_ops = Bq * nb * M  # one compare a (pair, position): the least an exact scorer does
     kernels.append(dict(
         name="circrun", route="cuda", source="src/repro_torch/kernels/csrc/circrun.cu",
         replaces="src/repro/kernels/circrun/circrun.py:45", launches=launches["circrun"],
         max_abs_err=0, ms=median_ms(lambda: circrun(buf_h, qh), 20),
         plain_ms=median_ms(lambda: circrun_ref(buf_h, qh), 3),
         **bound(c_bytes, c_ops, INT32_OPS), library_ms=None, int32_ops_per_s=INT32_OPS,
-        shape=shapes["buffer"],
-        checked_bit_identical=shapes,
+        # the earlier bound, two operations a (pair, position)
+        bound_ms_two_ops=bound(c_bytes, 2 * c_ops, INT32_OPS)["bound_ms"],
+        shape=shapes["buffer"], checked_bit_identical=shapes,
+        launches_note="the scorer's launches, inside circrun_topk on both paths",
+    ))
+
+    # B6's consumer: the fused top-k at the delta buffer (its live slots,
+    # k 100) and one bruteforce chunk, bit for bit against its plain version
+    buf_ok, k = dynamic["ok"], 100
+    topk_shapes = {}
+    for tag, h, q, ok in (("buffer", buf_h, qh, buf_ok), ("bruteforce chunk", index.h, qh_main,
+                                                          None)):
+        kv, kr = circrun_topk(h, q, k, ok)
+        pv, pr = circrun_topk_plain(h, q, k, ok)
+        if not (torch.equal(kv, pv) and torch.equal(kr, pr)):
+            fail(f"circrun_topk kernels != plain version at the {tag} shape")
+        topk_shapes[tag] = dict(B=int(q.shape[0]), n=int(h.shape[0]), m=int(h.shape[1]), k=k,
+                                masked=ok is not None)
+
+    def parent_route():
+        lens = circrun(buf_h, qh)
+        return topk_largest_lcp(torch.where(buf_ok, lens, torch.full_like(lens, -1)), k)
+
+    # bytes: h, q and ok read once, (B, k) values and rows written once
+    t_bytes = 4 * (nb * M + Bq * M) + nb + Bq * k * 8
+    kernels.append(dict(
+        name="circrun_topk", route="cuda", source="src/repro_torch/kernels/csrc/circrun.cu",
+        replaces="src/repro/kernels/circrun/circrun.py:45",
+        consumer_of=["src/repro/core/bruteforce.py:34", "src/repro/core/segments.py:496"],
+        launches=launches["circrun_topk"], max_abs_err=0,
+        ms=median_ms(lambda: circrun_topk(buf_h, qh, k, buf_ok), 20),
+        plain_ms=median_ms(lambda: circrun_topk_plain(buf_h, qh, k, buf_ok), 3),
+        **bound(t_bytes, c_ops, INT32_OPS),
+        bound_ops_ms=c_ops / INT32_OPS * 1e3, bound_bytes_ms=t_bytes / HBM_BYTES_PER_S * 1e3,
+        library_ms=None,
+        parent_route_ms=median_ms(parent_route, 10),
+        shape=topk_shapes["buffer"], checked_bit_identical=topk_shapes,
     ))
 
     # B4 hash_rp over the full build input of the main path, then at the GIST
@@ -979,8 +1075,8 @@ def new_kernels_vs_plain(ctx, angular, dynamic, launches) -> list:
         vals, _ = family.alternatives(qb, 4)
         if bool((vals == family.hash(qb)[..., None]).any()):
             fail(f"multiprobe: an {tag} alternative equals the base symbol")
-    emit(phase="kernels_vs_plain", kernels=["circrun", "hash_rp", "hash_xp"],
-         tolerance=dict(circrun="bit-identical",
+    emit(phase="kernels_vs_plain", kernels=["circrun", "circrun_topk", "hash_rp", "hash_xp"],
+         tolerance=dict(circrun="bit-identical", circrun_topk="bit-identical",
                         hash=dict(boundary_rtol=HASH_BOUNDARY_RTOL, max_share=HASH_MAX_SHARE)),
          multiprobe_invariant=True, ok=True)
     return kernels
@@ -1085,7 +1181,7 @@ def serve_once(engine, corpus: np.ndarray, n_req: int, dynamic: bool) -> dict:
     if counts[kernel] != cfg.n_layers * embedded:
         fail(f"serve {cfg.name} {state}: {kernel} launched {counts[kernel]} times, expected "
              f"{cfg.n_layers} x {embedded} embedded batches")
-    require(counts, ("csa_probe", "pool_topk", "gather_l2") + (("circrun",) if dynamic else ()),
+    require(counts, ("csa_probe", "pool_topk", "gather_l2") + (CIRCRUN_KERNELS if dynamic else ()),
             f"{cfg.name} {state} serving")
     return counts
 
@@ -1094,7 +1190,8 @@ def serve_once(engine, corpus: np.ndarray, n_req: int, dynamic: bool) -> dict:
 KERNEL_GROUPS = (("flash_attn_kernel", "flash_attn"), ("ssm_scan_kernel", "ssm_scan"),
                  ("gemm", "matmul (cuBLAS)"), ("csa_probe_kernel", "index kernels"),
                  ("pool_topk_kernel", "index kernels"),
-                 ("gather_dist_kernel", "index kernels"), ("circrun_kernel", "index kernels"))
+                 ("gather_dist_kernel", "index kernels"), ("circrun_kernel", "index kernels"),
+                 ("circrun_topk_kernel", "index kernels"))
 
 
 def profile_batch(engine, tokens: np.ndarray) -> None:

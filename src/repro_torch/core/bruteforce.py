@@ -2,21 +2,21 @@
 (PyTorch port of `repro.core.bruteforce`).
 
 |LCCS(T, Q)| equals the longest circular run of 1s in the element-wise match
-vector (T == Q).  Scoring goes through the `circrun` kernel wrapper (the
-hand-written CUDA kernel on a CUDA tensor, its plain version on a CPU
-tensor); queries are scored in chunks that bound the (Bc, n) int32 lengths
-buffer to 256 MB.
+vector (T == Q).  Scoring and ranking go through `circrun_topk`: on a CUDA
+tensor the hand-written scorer and select kernels, which never write the
+(B, n) lengths; on a CPU tensor its plain version (`circrun_ref` +
+`topk_largest_lcp`), in chunks of queries that bound the (Bc, n) int32
+lengths to 256 MB.
 """
 from __future__ import annotations
 
 import torch
 
-from ..kernels.circrun import circrun
-from .lsh import topk_largest_lcp
+from ..kernels.circrun import circrun_topk
 from .search import _pad_lam
 
-# (queries, rows) lengths one chunk may hold: 256 MB of int32, and twice
-# that in the int64 ranking keys of `topk_largest_lcp`
+# (queries, rows) lengths one chunk of the CPU route may hold: 256 MB of
+# int32, and twice that in the int64 ranking keys of `topk_largest_lcp`
 _LENS_ELEMS = 1 << 26
 
 
@@ -24,18 +24,15 @@ def circ_topk(h: torch.Tensor, q_hash: torch.Tensor, k: int, ok: torch.Tensor | 
     """Top-k LCCS lengths of the rows of h per query, ties to the lower row
     (the `lax.top_k` contract).  Rows where `ok` is False score -1.
     Returns (vals, rows): (B, k) int32 each, k <= n."""
+    if h.device.type != "cpu":  # the kernels chunk the queries themselves
+        return circrun_topk(h, q_hash, k, ok)
     n = h.shape[0]
     B = q_hash.shape[0]
-    dev = h.device
-    vals = torch.empty((B, k), dtype=torch.int32, device=dev)
-    rows = torch.empty((B, k), dtype=torch.int32, device=dev)
+    vals = torch.empty((B, k), dtype=torch.int32)
+    rows = torch.empty((B, k), dtype=torch.int32)
     step = max(1, _LENS_ELEMS // max(1, n))
     for lo in range(0, B, step):
-        lens = circrun(h, q_hash[lo:lo + step])  # (Bc, n)
-        if ok is not None:
-            lens = torch.where(ok, lens, torch.full_like(lens, -1))
-        vals[lo:lo + step], rows[lo:lo + step] = topk_largest_lcp(lens, k)
-        del lens
+        vals[lo:lo + step], rows[lo:lo + step] = circrun_topk(h, q_hash[lo:lo + step], k, ok)
     return vals, rows
 
 

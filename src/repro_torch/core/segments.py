@@ -6,7 +6,8 @@ LCCS candidate scoring is pointwise per object, so per-segment top-lambda
 candidate sets merge exactly.  That makes a mutable corpus an LSM problem:
 
   * a small append-only *delta buffer* holds the newest hash strings and is
-    scored brute-force through the `circrun` kernel (exact LCCS lengths),
+    scored brute-force through `circrun_topk` (exact LCCS lengths, ranked
+    by the circrun kernels on the card),
   * a stack of immutable CSA *segments* (each built with `build_csa`)
     answers lambda-LCCS searches through any registered candidate source,
     sharing ONE LSH family so hash strings are comparable everywhere,
@@ -394,8 +395,9 @@ class SegmentedLCCSIndex:
 
 
 def _buffer_topk(index: SegmentedLCCSIndex, qh: torch.Tensor, lam: int):
-    """Exact LCCS scoring of the delta buffer (the `circrun` kernel); dead
-    and free slots score -1 and are dropped."""
+    """Exact LCCS scoring of the delta buffer (`circ_topk`: the circrun
+    scorer and top-k kernels on the card); dead and free slots score -1 and
+    are dropped."""
     ok = index._live(index.buf_gid)
     vals, slot = circ_topk(index.buf_h, qh, min(lam, index.buf_h.shape[0]), ok)
     hit = vals >= 0

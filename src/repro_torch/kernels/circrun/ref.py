@@ -1,8 +1,12 @@
-"""Plain PyTorch version of the circular-run LCCS scorer (port of
-`repro.kernels.circrun.ref`, batched over queries)."""
+"""Plain PyTorch versions of the circular-run LCCS scorer (port of
+`repro.kernels.circrun.ref`, batched over queries) and of the top-k behind
+it (the `lax.top_k` after the scorer in the reference's `bruteforce_topk`
+and `_buffer_topk`)."""
 from __future__ import annotations
 
 import torch
+
+from ...core.lsh import topk_largest_lcp
 
 # (queries, rows, 2m) elements one chunk may hold: the int32 blockers and
 # cummax's int32 values and int64 indices, about 2 GB
@@ -32,3 +36,16 @@ def circrun_ref(h: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
         runs = j - last_block
         out[lo:lo + step] = torch.clamp(runs.amax(dim=2), max=m).to(torch.int32)
     return out
+
+
+def circrun_topk_plain(h: torch.Tensor, q: torch.Tensor, k: int,
+                       ok: torch.Tensor | None = None):
+    """The fused route's plain version: every length (`circrun_ref`), -1
+    where `ok` is False, then the first k rows by (length descending, row
+    ascending) -- the `lax.top_k` contract (`topk_largest_lcp`).
+    h: (n, m), q: (B, m) int32; ok: (n,) bool or None; k <= n.
+    Returns (vals, rows), (B, k) int32 each."""
+    lens = circrun_ref(h, q)
+    if ok is not None:
+        lens = torch.where(ok, lens, torch.full_like(lens, -1))
+    return topk_largest_lcp(lens, k)

@@ -52,6 +52,10 @@ SIGNATURES = {
     "hash_xp_launch": (_P, _P, _P, _I, _I, _I, _I, _P),
     # h, q, out, n, m, B, stream
     "circrun_launch": (_P, _P, _P, _I, _I, _I, _P),
+    # h, q, ok, lens, hist, n, m, B, ld, stream
+    "circrun_score_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # lens, hist, vals, rows, n, m, B, k, ld, stream
+    "circrun_topk_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # q, k, v, o, B, Sq, Skv, Hq, Hkv, dh, causal, window, softcap, stream
     "flash_attn_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
     # dt, x, Bc, Cc, A, h0, y, h_out, B, L, D, N, t0, t1, stream
@@ -61,7 +65,7 @@ SIGNATURES = {
 # launches per kernel since the last reset: each wrapper adds one where it
 # launches its kernel, and nowhere else
 LAUNCHES: dict[str, int] = {"csa_probe": 0, "pool_topk": 0, "gather_l2": 0, "gather_q": 0,
-                            "hash_rp": 0, "hash_xp": 0, "circrun": 0,
+                            "hash_rp": 0, "hash_xp": 0, "circrun": 0, "circrun_topk": 0,
                             "flash_attn": 0, "ssm_scan": 0}
 
 _lock = threading.Lock()

@@ -1,6 +1,6 @@
 """On-card checks: each hand-written CUDA kernel against its plain PyTorch
-version on the same CUDA tensors (csa_probe, pool_topk and circrun
-bit-identical, pool_topk also against the scatter-max dedupe; the
+version on the same CUDA tensors (csa_probe, pool_topk, circrun and
+circrun_topk bit-identical, pool_topk also against the scatter-max dedupe; the
 gathers within rtol 1e-5 / atol 1e-5, fp32 summation order; hash_rp and
 hash_xp may differ only at a bucket boundary or a near tie, see
 `_rp_boundary` and `_xp_near_tie`; flash_attn within rtol/atol 1e-4 and
@@ -16,7 +16,8 @@ from repro_torch.core import lsh
 from repro_torch.core.search import doubled
 from repro_torch.exec import stages
 from repro_torch.kernels import common
-from repro_torch.kernels.circrun import circrun, circrun_ref
+from repro_torch.kernels.circrun import circrun, circrun_ref, circrun_topk, circrun_topk_plain
+from repro_torch.kernels.circrun import ops as circrun_ops
 from repro_torch.kernels.flash_attn import flash_attention, flash_attention_ref
 from repro_torch.kernels.csa_probe import (
     csa_probe,
@@ -400,6 +401,92 @@ def test_circrun_kernel_bit_identical(dev, m):
     assert torch.equal(circrun(h, q[3]), k[3])
 
 
+def _circ_strings(n, m, B, alpha, seed):
+    """Hash strings with negative symbols, an all-match row (length m) and
+    int32-max sentinel rows, as the delta buffer's free slots hold."""
+    rng = np.random.default_rng(seed)
+    h = rng.integers(-alpha, alpha, size=(n, m)).astype(np.int32)
+    q = rng.integers(-alpha, alpha, size=(B, m)).astype(np.int32)
+    h[0] = q[0]
+    h[1::97] = np.iinfo(np.int32).max
+    q[1] = np.iinfo(np.int32).max
+    return h, q
+
+
+def _topk_check(h, q, k, ok):
+    before = common.launch_counts()
+    kv, kr = circrun_topk(h, q, k, ok)
+    after = common.launch_counts()
+    chunks = -(-q.shape[0] // circrun_ops.stored_layout(*h.shape)[2])
+    assert after["circrun_topk"] == before["circrun_topk"] + chunks
+    assert after["circrun"] == before["circrun"] + chunks
+    pv, pr = circrun_topk_plain(h, q, k, ok)
+    assert kv.dtype == torch.int32 and kv.shape == (q.shape[0], k)
+    assert torch.equal(kv, pv) and torch.equal(kr, pr)
+    return kv, kr
+
+
+@pytest.mark.parametrize("k", [1, 100, "n", "limit"])
+@pytest.mark.parametrize("m", [5, 16, 64, 100, 300])
+def test_circrun_topk_kernel_bit_identical(dev, m, k):
+    """The fused route against its plain version (circrun_ref + the unique-key
+    top-k), bit for bit: no mask, a partly dead mask, an all-dead mask; k = 1,
+    100, n and the kernel's limit; B and n off every tile."""
+    n, B = (3000 if k == "n" else 5000) + m, 45
+    h, q = (torch.from_numpy(a).to(dev) for a in _circ_strings(n, m, B, 3, seed=m))
+    k = {"n": n, "limit": circrun_ops.MAX_K}.get(k, k)
+    rng = np.random.default_rng(m + 1)
+    for ok in (None, torch.from_numpy(rng.random(n) < 0.7).to(dev),
+               torch.zeros(n, dtype=torch.bool, device=dev)):
+        kv, kr = _topk_check(h, q, k, ok)
+        if ok is not None and not bool(ok.any()):
+            assert bool((kv == -1).all())
+    kv, kr = _topk_check(h, q, k, None)
+    assert int(kv[0, 0]) == m and int(kr[0, 0]) == 0  # the all-match row
+
+
+@pytest.mark.parametrize("B,n", [(1000, 65_536), (256, 1_000_000)])
+def test_circrun_topk_kernel_at_path_shapes(dev, B, n):
+    """The delta buffer's shape (1,000 queries x 2^16 slots, a dead share)
+    and one card chunk of the bruteforce source (256 queries x 10^6 rows),
+    m = 64, k = 100, alphabet 3 (many tied lengths at the cut)."""
+    h, q = (torch.from_numpy(a).to(dev) for a in _circ_strings(n, 64, B, 3, seed=n))
+    ok = None
+    if n < 1_000_000:
+        ok = torch.from_numpy(np.random.default_rng(1).random(n) < 0.9).to(dev)
+    _topk_check(h, q, 100, ok)
+
+
+def test_circrun_topk_kernel_counts_a_launch_a_chunk(dev, monkeypatch):
+    """Queries go in chunks of stored lengths (NARROW_BYTES, whole groups of
+    32 queries): one scorer and one select launch each."""
+    h, q = (torch.from_numpy(a).to(dev) for a in _circ_strings(3000, 64, 100, 3, seed=2))
+    monkeypatch.setattr(circrun_ops, "NARROW_BYTES", 40 * 3008)  # 40 -> 32 queries a chunk
+    assert circrun_ops.stored_layout(3000, 64) == (torch.uint8, 3008, 32)
+    before = common.launch_counts()["circrun_topk"]
+    _topk_check(h, q, 50, None)
+    assert common.launch_counts()["circrun_topk"] == before + 4
+
+
+def test_circrun_topk_kernel_rejects_what_it_does_not_take(dev):
+    """k up to 4,096 and n; m up to 512; int32 strings, a bool mask."""
+    h = torch.zeros((5000, 64), dtype=torch.int32, device=dev)
+    q = torch.zeros((3, 64), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match=str(circrun_ops.MAX_K)):
+        circrun_topk(h, q, circrun_ops.MAX_K + 1)
+    with pytest.raises(ValueError, match="k must lie"):
+        circrun_topk(h[:10], q, 11)
+    with pytest.raises(ValueError, match="512"):
+        circrun_topk(torch.zeros((10, 513), dtype=torch.int32, device=dev),
+                     torch.zeros((3, 513), dtype=torch.int32, device=dev), 5)
+    with pytest.raises(TypeError, match="dtype"):
+        circrun_topk(h.long(), q, 5)
+    with pytest.raises(TypeError, match="dtype"):
+        circrun_topk(h, q, 5, torch.ones(5000, dtype=torch.int32, device=dev))
+    vals, rows = circrun_topk(h, q, 0)
+    assert vals.shape == (3, 0) and rows.shape == (3, 0)
+
+
 @pytest.mark.parametrize("family,kw", [("euclidean", dict(w=4.0)),
                                        ("angular", dict(rotation="gaussian"))])
 def test_multiprobe_alternatives_never_equal_base(dev, family, kw):
@@ -450,6 +537,7 @@ def test_segmented_on_card_matches_cpu(dev):
     after = common.launch_counts()
     assert after["circrun"] > before["circrun"] and after["csa_probe"] > before["csa_probe"]
     assert after["pool_topk"] > before["pool_topk"]
+    assert after["circrun_topk"] > before["circrun_topk"]
 
 
 @pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv,dh,causal,window,softcap", [
