@@ -28,7 +28,9 @@ Drives the port's paths on one NVIDIA card at the paper's SIFT size
 It builds the CUDA kernels from the sources in the checkout, shows through
 their launch counts (reset before each path, read after it) that each path
 went through its kernels, holds each kernel against its plain PyTorch
-version on the card at the paths' shapes (flash_attn and ssm_scan also at
+version on the card at the paths' shapes (csa_probe also on probes that
+land at pos 0 and pos n, and timed on the multiprobe-skip pairs worklist
+beside the lccs one; flash_attn and ssm_scan also at
 one long shape each, hash_rp and hash_xp also at the GIST width d = 960
 and over one query batch, pool_topk also at a multiprobe-skip pool of
 several tiles and against the scatter-max dedupe, which no card path may
@@ -381,35 +383,43 @@ def run(dev: torch.device) -> None:
         index8.search(Q[:BATCH], p8)
     kernels = []
 
-    # B1: the lccs worklist (all shifts of a batch) and the skip pairs worklist
+    # B1: the lccs worklist (all shifts of a batch), the skip pairs worklist,
+    # and every shift of probes whose symbols are all int32's least (pos 0) or
+    # greatest (pos n) value beside a few real ones
     # calls: lccs all-shift windows; skip base windows, skip pairs; int8 lccs
     if len(probe_calls) != 4 or not l2_calls or not q_calls:
         fail(f"unexpected kernel calls: {len(probe_calls)} {len(l2_calls)} {len(q_calls)}")
-    worklists = {"lccs": probe_calls[0], "multiprobe-skip pairs": probe_calls[2]}
-    probe_err, probe_rows = 0, {}
-    for tag, (args, _) in worklists.items():
+    worklists = {"lccs": probe_calls[0][0], "multiprobe-skip pairs": probe_calls[2][0]}
+    I, L, Hd, qd, shifts, qidx, width = worklists["lccs"]
+    i32 = torch.iinfo(torch.int32)
+    edge_q = torch.cat([torch.full_like(qd[:1], i32.min), torch.full_like(qd[:1], i32.max), qd[:6]])
+    worklists["pos 0 / pos n"] = (
+        I, L, Hd, edge_q, torch.arange(M, dtype=torch.int32, device=dev).repeat(8),
+        torch.arange(8, dtype=torch.int32, device=dev).repeat_interleave(M), width)
+    probe_rows, probe_ids = {}, {}
+    for tag, args in worklists.items():
         k_out = probe_ops.csa_probe(*args)
         p_out = csa_probe_plain(*args)
         if not (torch.equal(k_out[0], p_out[0]) and torch.equal(k_out[1], p_out[1])):
             fail(f"csa_probe kernel != plain version on the {tag} worklist")
-        probe_rows[tag] = int(args[4].shape[0])
-    args = worklists["lccs"][0]
-    I, L, Hd, qd, shifts, qidx, width = args
-    R = shifts.shape[0]
-    steps = max(1, N.bit_length())
-    # least bytes: per row, (steps + 2) I entries and at least the first
-    # compared Hd symbol of each of those rows, 2W I and L window entries,
-    # the (R, 2W) ids and lcps written, the worklist, the probe strings once
-    probe_bytes = (R * ((steps + 2) * 8 + 2 * width * 8 + 2 * width * 8 + 8)
-                   + qd.numel() * 4)
+        probe_rows[tag], probe_ids[tag] = int(args[4].shape[0]), k_out[0]
+    # at pos 0 the window's upper half holds the first W sorted ids, at pos n
+    # its lower half the last W
+    e_ids = probe_ids["pos 0 / pos n"]
+    if not (torch.equal(e_ids[:M, width:], I[:, :width])
+            and torch.equal(e_ids[M:2 * M, :width], I[:, N - width:])):
+        fail("csa_probe: the least / greatest probes did not land at pos 0 / pos n")
+    timed = {tag: dict(max_abs_err=0, ms=median_ms(lambda: probe_ops.csa_probe(*args), 20),
+                       plain_ms=median_ms(lambda: csa_probe_plain(*args), 3),
+                       bound_ms=probe_bound_ms(args, 2 if tag == "lccs" else 0),
+                       bound_by="bytes", library_ms=None)
+             for tag, args in worklists.items() if tag != "pos 0 / pos n"}
     kernels.append(dict(
         name="csa_probe", route="cuda", source="src/repro_torch/kernels/csrc/csa_probe.cu",
         replaces="src/repro/kernels/csa_probe/csa_probe.py:98",
-        launches=launches["csa_probe"], max_abs_err=probe_err,
-        ms=median_ms(lambda: probe_ops.csa_probe(*args), 20),
-        plain_ms=median_ms(lambda: csa_probe_plain(*args), 3),
-        bound_ms=probe_bytes / HBM_BYTES_PER_S * 1e3, bound_by="bytes", library_ms=None,
-        shape=dict(R=R, n=N, m=M, width=width, rows_checked=probe_rows),
+        launches=launches["csa_probe"], **timed["lccs"],
+        shape=dict(R=probe_rows["lccs"], n=N, m=M, width=width, rows_checked=probe_rows),
+        worklists={"multiprobe-skip pairs": timed["multiprobe-skip pairs"]},
     ))
 
     # B1's consumer: the lccs pool and the multiprobe-skip pool (several
@@ -506,7 +516,7 @@ def run(dev: torch.device) -> None:
         _, cd = stages.verify(cpu.store, cpu.tail, Qs, ci, p, "euclidean")
         _, gd = stages.verify(gpu.store, gpu.tail, Qs.to(dev), gi, p, "euclidean")
         if not torch.allclose(cd, gd.cpu(), **GATHER_TOL):
-            explain_verify_mismatch(cpu, gpu, Qs, ci, gi, p, kw["source"])
+            explain_verify_mismatch(cpu, gpu, Qs, ci, gi, p, kw["source"], cd, gd)
         torch.testing.assert_close(cd, gd.cpu(), **GATHER_TOL)
     emit(phase="small_input_vs_cpu", n=4000, ok=True)
 
@@ -538,7 +548,7 @@ def run(dev: torch.device) -> None:
         fail(f"the kernels line lists {names}, the library has {sorted(common.LAUNCHES)}")
 
     for rec in kernels:
-        subs = [sub for k in ("wide", "batch", "long", "pool")
+        subs = [sub for k in ("wide", "batch", "long", "pool", "worklists")
                 for sub in rec.get(k, {}).values()]
         for r in (rec, *subs):
             with_ratios(r)
@@ -550,10 +560,12 @@ def run(dev: torch.device) -> None:
           flush=True)
 
 
-def explain_verify_mismatch(cpu, gpu, Qs, ci, gi, p, source: str) -> None:
-    """Print what differs when the card's and the CPU's verify disagree:
-    the inputs, the gather kernel against its plain version on both
-    devices, and a second run of the card's verify."""
+def explain_verify_mismatch(cpu, gpu, Qs, ci, gi, p, source: str, cd, gd) -> None:
+    """Print what differs when the card's and the CPU's verify disagree
+    (their first results cd and gd): the inputs, the gather kernel against
+    its plain version on both devices, and a second run of each device's
+    verify held to its first (the side whose rerun differs is the one whose
+    first result was wrong)."""
     from repro_torch.exec import stages
     from repro_torch.kernels.gather_l2 import gather_dist_kernel, gather_dist_ref
 
@@ -572,6 +584,9 @@ def explain_verify_mismatch(cpu, gpu, Qs, ci, gi, p, source: str) -> None:
     rows = cpu.store.rows[torch.clamp(ci, min=0).long()].double()
     f64 = ((rows - Qs.double()[:, None, :]) ** 2).sum(-1).sqrt()
     bad = ~torch.isclose(full_c, full_g, **GATHER_TOL) & (ci >= 0)
+    bad_first = ~torch.isclose(cd, gd.cpu(), **GATHER_TOL)
+    g_again = stages.verify(gpu.store, gpu.tail, qd, gi, p, "euclidean")[1]
+    c_again = stages.verify(cpu.store, cpu.tail, Qs, ci, p, "euclidean")[1]
     emit(phase="verify_mismatch", source=source,
          bad_slots=int(bad.sum()), bad_queries=bad.any(dim=1).nonzero()[:, 0].tolist(),
          cpu_vs_float64=rel(full_c, f64), card_vs_float64=rel(full_g, f64),
@@ -581,9 +596,10 @@ def explain_verify_mismatch(cpu, gpu, Qs, ci, gi, p, source: str) -> None:
          ids_equal=torch.equal(ci, gi.cpu()), queries_equal=torch.equal(Qs, qd.cpu()),
          kernel_vs_card_plain=rel(k, gather_dist_ref(gpu.store.rows, gi, qd)),
          kernel_vs_cpu_plain=rel(k, gather_dist_ref(cpu.store.rows, ci, Qs)),
-         verify_again_equal=torch.equal(
-             stages.verify(gpu.store, gpu.tail, qd, gi, p, "euclidean")[1],
-             stages.verify(gpu.store, gpu.tail, qd, gi, p, "euclidean")[1]))
+         queries_first_results_differ=bad_first.any(dim=1).nonzero()[:, 0].tolist(),
+         card_first_equals_rerun=torch.equal(gd, g_again),
+         cpu_first_equals_rerun=torch.equal(cd, c_again),
+         reruns_close=torch.allclose(c_again, g_again.cpu(), **GATHER_TOL))
 
 
 def exact_top_cos(X: torch.Tensor, Q: torch.Tensor, k: int) -> torch.Tensor:
@@ -593,6 +609,24 @@ def exact_top_cos(X: torch.Tensor, Q: torch.Tensor, k: int) -> torch.Tensor:
     for s in range(0, Q.shape[0], BATCH):
         out.append(torch.topk(Q[s:s + BATCH] @ X.T, k, dim=1).indices)
     return torch.cat(out)
+
+
+def probe_bound_ms(args, boundary: int) -> float:
+    """csa_probe's least time on a worklist (bytes): per row, the search's
+    steps and `boundary` boundary compares, each an I entry and at least the
+    first compared Hd symbol of its row; 2W I and L window entries; the
+    (R, 2W) ids and lcps written; the worklist; and the probe symbols the
+    rows read, once (every shift of an lccs probe reads its doubled string,
+    a pairs row its own probe's m symbols).  The lccs worklist keeps the
+    two boundary compares of the earlier slices' formula, so its of_bound
+    compares with theirs; the kernel takes the boundary LCPs from the rows
+    its search compared, so the pairs worklist counts none."""
+    I, _, _, qd, shifts, _, width = args
+    (m, n), R = I.shape, shifts.shape[0]
+    steps = max(1, n.bit_length())
+    probe_bytes = min(qd.numel(), R * m) * 4
+    nbytes = R * ((steps + boundary) * 8 + 2 * width * 8 + 2 * width * 8 + 8) + probe_bytes
+    return nbytes / HBM_BYTES_PER_S * 1e3
 
 
 def bound(nbytes: float, ops: float, rate: float) -> dict:

@@ -15,7 +15,10 @@ on CPU tensors its plain version (`ref.csa_probe_plain`).  The searches
 dedupe the windows' pool with `pool_topk`: on CUDA tensors the hand-written
 kernel (`csrc/pool_topk.cu`), on CPU tensors `ref.pool_topk_plain`.
 Requires a CSA built with the adjacent-LCP table (`csa.L`); `supports(csa)`
-gates that.
+gates that.  The kernel's contract is a CSA from `core.csa.build_csa`: its
+search skips the prefix the rows around a step share with the probe, which
+holds only because each I[i] is sorted by the shift-i strings of Hd (the
+plain version needs no such order).
 """
 from __future__ import annotations
 
@@ -39,7 +42,8 @@ def csa_probe(I, L, Hd, qd, shifts, qidx, width: int):
     """Fused probe over an (R,) worklist: row r searches shift `shifts[r]`
     for probe string `qd[qidx[r]]`.  I, L: (m, n) int32; Hd: (n, 2m) int32;
     qd: (B, 2m) int32; shifts, qidx: (R,) int32.
-    Returns (ids (R, 2W), lcps (R, 2W)) int32."""
+    Returns (ids (R, 2W), lcps (R, 2W)) int32.  On CUDA the tables must be
+    a CSA's (`core.csa.build_csa`; see the module docstring)."""
     if qd.device.type == "cpu":
         return csa_probe_plain(I, L, Hd, qd, shifts, qidx, width)
     if qd.device.type != "cuda":

@@ -1,18 +1,21 @@
 """On-card checks: each hand-written CUDA kernel against its plain PyTorch
 version on the same CUDA tensors (csa_probe, pool_topk, circrun and
-circrun_topk bit-identical, pool_topk also against the scatter-max dedupe; the
-gathers within rtol 1e-5 / atol 1e-5, fp32 summation order; hash_rp and
-hash_xp may differ only at a bucket boundary or a near tie, see
-`_rp_boundary` and `_xp_near_tie`; flash_attn within rtol/atol 1e-4 and
-ssm_scan within rtol/atol 1e-5, fp32 summation order and expf/tanhf ulps).  They need a card and skip without one;
-`python3 chip_smoke.py` is the authoritative on-card run."""
+circrun_topk bit-identical, csa_probe also on tests/torch_probe_cases.py,
+pool_topk also against the scatter-max dedupe; the gathers within rtol 1e-5
+/ atol 1e-5, fp32 summation order; hash_rp and hash_xp may differ only at a
+bucket boundary or a near tie, see `_rp_boundary` and `_xp_near_tie`;
+flash_attn within rtol/atol 1e-4 and ssm_scan within rtol/atol 1e-5, fp32
+summation order and expf/tanhf ulps).  They need a card and skip without
+one; `python3 chip_smoke.py` is the authoritative on-card run."""
 import numpy as np
 import pytest
 import torch
 from torch_pool_cases import POOL_CASES, make_pool
+from torch_probe_cases import PROBE_CASES, make_case
 
 from repro_torch import LCCSIndex, SearchParams, SegmentedLCCSIndex
 from repro_torch.core import lsh
+from repro_torch.core.csa import build_csa
 from repro_torch.core.search import doubled
 from repro_torch.exec import stages
 from repro_torch.kernels import common
@@ -70,6 +73,21 @@ def test_csa_probe_kernel_bit_identical(dev, n, m, width):
     torch.cuda.synchronize()
     assert common.launch_counts()["csa_probe"] == before + 1
     pi, pl = csa_probe_plain(c.I, c.L, c.Hd, doubled(q), shifts, qidx, width)
+    assert torch.equal(ki, pi) and torch.equal(kl, pl)
+
+
+@pytest.mark.parametrize("case", list(PROBE_CASES))
+def test_csa_probe_kernel_on_the_probe_cases(dev, case):
+    """The shared probe cases (tests/torch_probe_cases.py): every group
+    width, unaligned shifts, equal rows, pos 0 and pos n, W > n."""
+    h, qd, shifts, qidx, width = make_case(case)
+    c = build_csa(torch.from_numpy(h).to(dev))
+    args = (c.I, c.L, c.Hd, *(torch.from_numpy(a).to(dev) for a in (qd, shifts, qidx)), width)
+    before = common.launch_counts()["csa_probe"]
+    ki, kl = csa_probe(*args)
+    torch.cuda.synchronize()
+    assert common.launch_counts()["csa_probe"] == before + 1
+    pi, pl = csa_probe_plain(*args)
     assert torch.equal(ki, pi) and torch.equal(kl, pl)
 
 

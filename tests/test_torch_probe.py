@@ -6,6 +6,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_probe_cases import PROBE_CASES, make_case
 
 from repro.core.csa import build_csa as ref_build_csa
 from repro.core.search import dedupe_topk as ref_dedupe
@@ -38,22 +39,11 @@ def _eq(a, b):
     return np.array_equal(np.asarray(a), b.numpy())
 
 
-@pytest.mark.parametrize("n,m,width,alphabet", [
-    (97, 8, 4, 1),     # odd n, heavy ties
-    (200, 7, 6, 2),    # non-pow2 m
-    (64, 5, 40, 1),    # 2W > n: clipped windows, insertion at 0 / n
-    (300, 16, 16, 3),
-])
-def test_plain_probe_equals_pallas_interpret_and_oracle(n, m, width, alphabet):
-    rng, ref, ours = _tables(n, m, alphabet, seed=n + m)
-    B, R = 6, 40
-    q = rng.integers(-alphabet - 1, alphabet + 2, size=(B, m)).astype(np.int32)
-    q[0] = -alphabet - 5  # sorts before every string: pos == 0
-    q[1] = alphabet + 5   # after every string: pos == n
-    qd = np.concatenate([q, q], axis=1)
-    shifts = rng.integers(0, m, R).astype(np.int32)
-    qidx = rng.integers(0, B, R).astype(np.int32)
-    qidx[:2] = [0, 1]
+@pytest.mark.parametrize("case", list(PROBE_CASES))
+def test_plain_probe_equals_pallas_interpret_and_oracle(case):
+    h, qd, shifts, qidx, width = make_case(case)
+    ref, ours = ref_build_csa(jnp.asarray(h)), build_csa(torch.from_numpy(h))
+    R = shifts.shape[0]
     pi, pl = csa_probe_pallas(ref.I, ref.L, ref.Hd, jnp.asarray(qd), jnp.asarray(shifts),
                               jnp.asarray(qidx), width=width, interpret=True)
     oi, ol = ref_probe_pairs(ref, jnp.asarray(qd[qidx]), jnp.asarray(shifts), width)
@@ -64,6 +54,13 @@ def test_plain_probe_equals_pallas_interpret_and_oracle(n, m, width, alphabet):
     assert ti.dtype == torch.int32 and ti.shape == (R, 2 * width)
     assert _eq(pi, ti) and _eq(pl, tl)
     assert _eq(oi, ti) and _eq(ol, tl)
+    # probe 0 sorts before every string (pos 0), probe 1 after (pos n): the
+    # window holds the first / last W sorted ids, clipped to n
+    I, n, jj = ours.I.numpy(), h.shape[0], np.arange(width)
+    for r in np.flatnonzero(qidx == 0):
+        assert np.array_equal(ti[r, width:].numpy(), I[shifts[r], np.minimum(jj, n - 1)])
+    for r in np.flatnonzero(qidx == 1):
+        assert np.array_equal(ti[r, :width].numpy(), I[shifts[r], np.maximum(n - width + jj, 0)])
 
 
 @pytest.mark.parametrize("B,pool,n,lam", [(5, 300, 60, 20), (3, 50, 400, 100),
@@ -119,6 +116,55 @@ def test_pairs_bit_identical():
     fi, fl = probe_mod.csa_probe_pairs(ours, *args, width=width)
     assert _eq(ri, ti) and _eq(rl, tl)
     assert torch.equal(fi, ti) and torch.equal(fl, tl)
+
+
+def _sorted_by_shift(I, Hd):
+    """True when each I[i] lists the rows in the order of their shift-i
+    strings Hd[:, i:i+m] (equal strings in any order)."""
+    m = I.shape[0]
+    for i in range(m):
+        s = Hd[I[i].long(), i:i + m].long()
+        d = s[1:] - s[:-1]
+        first = torch.gather(d, 1, (d != 0).int().argmax(dim=1, keepdim=True))[:, 0]
+        if bool((first < 0).any()):
+            return False
+    return True
+
+
+@pytest.mark.parametrize("source", ["lccs", "multiprobe-full", "multiprobe-skip", "dynamic"])
+def test_index_path_hands_the_probe_sorted_tables(monkeypatch, source):
+    """The kernel's search skips the prefix the rows around a step share with
+    the probe, which holds only for tables sorted by their shift-i strings:
+    every table the index path hands to `csa_probe` is (a CSA from
+    `build_csa`, also after inserts and a compaction)."""
+    from repro_torch import LCCSIndex, SearchParams, SegmentedLCCSIndex
+
+    seen, real = [], probe_mod.ops.csa_probe
+
+    def spy(I, L, Hd, *rest):
+        seen.append((I, Hd))
+        return real(I, L, Hd, *rest)
+
+    monkeypatch.setattr(probe_mod.ops, "csa_probe", spy)
+    rng = np.random.default_rng(7)
+    X = rng.normal(size=(600, 16)).astype(np.float32)
+    Q = X[:5] + 0.01
+    kw = dict(m=12, family="euclidean", w=4.0, device="cpu")
+    params = SearchParams(k=5, lam=40, width=8, use_probe_kernel=True,
+                          source="lccs" if source == "dynamic" else source,
+                          probes=1 if source in ("lccs", "dynamic") else 5)
+    if source == "dynamic":
+        idx = SegmentedLCCSIndex.build(X[:400], **kw)
+        idx.insert(X[400:])
+        idx.compact(full=True)
+    else:
+        idx = LCCSIndex.build(X, **kw)
+    ids, _ = idx.search(Q, params)
+    assert ids[:, 0].tolist() == list(range(5))
+    assert seen and all(_sorted_by_shift(I, Hd) for I, Hd in seen)
+    # the check itself tells an unsorted table apart
+    I, Hd = seen[0]
+    assert not _sorted_by_shift(I.flip(1), Hd)
 
 
 def test_probe_rejects_other_devices():
