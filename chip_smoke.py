@@ -35,9 +35,14 @@ one long shape each, hash_rp and hash_xp also at the GIST width d = 960
 and over one query batch, pool_topk also at a multiprobe-skip pool of
 several tiles and against the scatter-max dedupe, which no card path may
 call; circrun_topk also against the parent's route, circrun + the int64-key
-top-k, which no card path may take),
+top-k, which no card path may take; the fused verify, gather_l2_topk and
+gather_q_topk, bit for bit against the parent's route, the scan kernel +
+the plain epilogue and stable sort, which no card path's exact_topk or
+survivors may take either),
 and times both beside each kernel's bound and, where one PyTorch call
-computes the same function, that call (of_bound, vs_library).
+computes the same function, that call (of_bound, vs_library).  Phase 7
+also reruns each device's verify of its small input 20 times
+(`verify_repeats`): the card's reruns must all equal its first.
 
 Each phase prints one JSON line; any failure exits non-zero.  The last line
 is {"ok": true, "device": {...}}.  Without CUDA, or without the rest of the
@@ -68,9 +73,10 @@ INT32_OPS = 132 * 64 * 1.98e9
 # 2^20), then the rest streamed in inserts of 2^14 rows (a 2^16 buffer)
 N_BULK, INSERT_ROWS, N_DELETE = 934_464, 16_384, 10_000
 # the kernels of each path: each must launch at least once in its run
-MAIN_KERNELS = ("csa_probe", "pool_topk", "gather_l2", "gather_q", "hash_rp")
-ANGULAR_KERNELS = ("hash_xp", "csa_probe", "pool_topk", "gather_l2")
-DYNAMIC_KERNELS = ("hash_rp", "csa_probe", "pool_topk", "circrun", "circrun_topk", "gather_l2")
+MAIN_KERNELS = ("csa_probe", "pool_topk", "gather_l2_topk", "gather_q_topk", "hash_rp")
+ANGULAR_KERNELS = ("hash_xp", "csa_probe", "pool_topk", "gather_l2_topk")
+DYNAMIC_KERNELS = ("hash_rp", "csa_probe", "pool_topk", "circrun", "circrun_topk",
+                   "gather_l2_topk")
 # the bruteforce source and the delta buffer: the circrun scorer and the select
 # kernel behind it
 CIRCRUN_KERNELS = ("circrun", "circrun_topk")
@@ -150,14 +156,15 @@ def device_ms(fn, reps: int) -> float:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    if not kern:
-        fail("device_ms: the profiler saw no kernel on the card")
-    return sum(e.time_range.elapsed_us() for e in kern) / 1e3 / reps
+    for _ in range(3):  # a profiler session now and then records no device event
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if kern:
+            return sum(e.time_range.elapsed_us() for e in kern) / 1e3 / reps
+    fail("device_ms: three profiler sessions saw no kernel on the card")
 
 
 def forbid_scatter() -> None:
@@ -195,6 +202,42 @@ def forbid_circrun_ranking() -> None:
 
     for module in (circrun_pkg, ops):
         module.circrun_topk_plain = guarded
+
+
+def forbid_sorted_verify() -> None:
+    """Make every card path fail the run if `exact_topk` or `survivors`
+    ranks a gather kernel's output through torch.sort (the unfused route:
+    the scan kernel, then `topk_ids` or `_smallest`): the verify goes
+    through the fused kernels (`gather_l2_topk`, `gather_q_topk`).
+    `rerank_rows` keeps its sort; phases 3b, 6 and 7 call the scan kernels
+    outside these stages, to compare and time them."""
+    from repro_torch.exec import stages
+    from repro_torch.kernels.gather_l2 import ops as l2_ops
+    from repro_torch.kernels.gather_q import ops as q_ops
+
+    inside = []
+
+    def staged(fn):
+        def run(*args, **kw):
+            inside.append(fn.__name__)
+            try:
+                return fn(*args, **kw)
+            finally:
+                inside.pop()
+        return run
+
+    def scan(fn):
+        def run(rows, *args, **kw):
+            if inside and rows.device.type != "cpu":
+                fail(f"a card path's {inside[-1]} ranked a gather kernel's output through "
+                     "torch.sort")
+            return fn(rows, *args, **kw)
+        return run
+
+    stages.exact_topk = staged(stages.exact_topk)
+    stages.survivors = staged(stages.survivors)
+    l2_ops.gather_dist_kernel = scan(l2_ops.gather_dist_kernel)
+    q_ops.gather_dist_q_kernel = scan(q_ops.gather_dist_q_kernel)
 
 
 @contextmanager
@@ -273,13 +316,12 @@ def run(dev: torch.device) -> None:
         pool_topk_plain,
     )
     from repro_torch.kernels.gather_l2 import ops as l2_ops
-    from repro_torch.kernels.gather_l2.ref import gather_dist_ref
     from repro_torch.kernels.gather_q import ops as q_ops
-    from repro_torch.kernels.gather_q.ref import gather_dist_q_ref
 
     card = card_line()
     forbid_scatter()
     forbid_circrun_ranking()
+    forbid_sorted_verify()
 
     # -- 1. card + kernel build ---------------------------------------------
     t0 = time.perf_counter()
@@ -339,6 +381,11 @@ def run(dev: torch.device) -> None:
             lambda: dedupe_topk(pool_ids, pool_lcps, pl.lam), 5),
         "verify (gather_l2 + top-k)": median_ms(
             lambda: stages.verify(index.store, index.tail, qb, cand, pl, "euclidean"), 5),
+        # the verify's parent route: the scan kernel, its mask and epilogue,
+        # then the stable sort of topk_ids
+        "verify, the parent's route (gather_l2 scan + topk_ids)": median_ms(
+            lambda: stages.topk_ids(index.store.gather_dist(
+                cand, qb, metric="euclidean", use_kernel=True), cand, K), 5),
         "search (whole batch)": median_ms(lambda: index.search(qb, pl), 5),
     }
     emit(phase="stages", store="fp32", source="lccs", batch=BATCH, ms=stage_ms)
@@ -366,6 +413,8 @@ def run(dev: torch.device) -> None:
     emit(phase="search", store="int8", source="lccs", params=dict(LCCS, rerank_mult=4),
          qps=N_QUERIES / secs, seconds=secs, recall_at_10=recall_at_k(ids8, truth))
     emit(phase="launches", run="int8 lccs", counts=int8_counts)
+    emit(phase="stages", store="int8", source="lccs", batch=BATCH,
+         ms=int8_stage_ms(index8, qb, p8))
     launches = {k: fp32_counts[k] + int8_counts[k] for k in fp32_counts}
     for k in MAIN_KERNELS:
         if launches[k] == 0:
@@ -376,8 +425,8 @@ def run(dev: torch.device) -> None:
     with recording(probe_ops, "csa_probe", probe_calls), \
             recording(probe_ops, "pool_topk", pool_calls), \
             recording(probe_pkg, "pool_topk", pool_calls), \
-            recording(l2_ops, "gather_dist_kernel", l2_calls), \
-            recording(q_ops, "gather_dist_q_kernel", q_calls):
+            recording(l2_ops, "gather_topk", l2_calls), \
+            recording(q_ops, "gather_topk_q", q_calls):
         index.search(Q[:BATCH], SearchParams(**LCCS))
         index.search(Q[:BATCH], SearchParams(**SKIP))
         index8.search(Q[:BATCH], p8)
@@ -457,47 +506,13 @@ def run(dev: torch.device) -> None:
         **pool_recs["lccs"], pool={"multiprobe-skip": pool_recs["multiprobe-skip"]},
         checked_bit_identical=["pool_topk_plain", "dedupe_topk_scatter"]))
 
-    # B2 / B3: the verify scans, both metrics, a zero row included
-    (data, ids, queries), _ = l2_calls[0]
-    (codes, scale, ids_q, queries_q), _ = q_calls[0]
-    for name, kernel, plain, k_args, row_bytes, src, repl in (
-        ("gather_l2", l2_ops.gather_dist_kernel, gather_dist_ref, (data, ids, queries),
-         4 * D, "src/repro_torch/kernels/csrc/gather.cu",
-         "src/repro/kernels/gather_l2/gather_l2.py:38"),
-        ("gather_q", q_ops.gather_dist_q_kernel, gather_dist_q_ref,
-         (codes, scale, ids_q, queries_q), D + 4, "src/repro_torch/kernels/csrc/gather.cu",
-         "src/repro/kernels/gather_q/gather_q.py:41"),
-    ):
-        err = 0.0
-        for metric in ("euclidean", "angular"):
-            z_args = list(k_args)
-            zero_id = max(0, int(k_args[-2][0, 0]))
-            z_args[0] = k_args[0].clone()
-            z_args[0][zero_id] = 0  # a zero row: NaN from the unclamped norms
-            kd = kernel(*z_args, metric=metric)
-            pd = plain(*z_args, metric=metric)
-            if not torch.equal(torch.isnan(kd), torch.isnan(pd)):
-                fail(f"{name} {metric}: NaN pattern differs from the plain version")
-            torch.testing.assert_close(kd.nan_to_num(), pd.nan_to_num(), **GATHER_TOL)
-            if metric == "angular" and not bool(torch.isnan(kd[0, 0])):
-                fail(f"{name}: zero row did not give NaN")
-            err = max(err, float((kd.nan_to_num() - pd.nan_to_num()).abs().max()))
-        b_ids = k_args[-2]
-        uniq = int(torch.unique(torch.clamp(b_ids, min=0)).numel())
-        B, Lc = b_ids.shape
-        nbytes = uniq * row_bytes + b_ids.numel() * 4 * 2 + B * D * 4
-        flops = 3 * B * Lc * D
-        kernels.append(dict(
-            name=name, route="cuda", source=src, replaces=repl,
-            launches=launches[name], max_abs_err=err,
-            ms=median_ms(lambda: kernel(*k_args, metric="euclidean"), 50),
-            plain_ms=median_ms(lambda: plain(*k_args, metric="euclidean"), 5),
-            **bound(nbytes, flops, FP32_FLOPS),
-            library_ms=None, shape=dict(B=B, L=Lc, n=N, d=D, unique_rows=uniq),
-        ))
-    emit(phase="kernels_vs_plain", tolerance=dict(csa_probe="bit-identical",
-                                                  pool_topk="bit-identical",
-                                                  gather=GATHER_TOL), ok=True)
+    # B2 / B3: the verify scans and the fused verify behind them
+    if len(l2_calls) != 2 or len(q_calls) != 1:
+        fail(f"unexpected fused verify calls: {len(l2_calls)} {len(q_calls)}")
+    kernels += verify_kernels_vs_plain(l2_calls[0], q_calls[0], launches)
+    emit(phase="kernels_vs_plain", tolerance=dict(
+        csa_probe="bit-identical", pool_topk="bit-identical", gather=GATHER_TOL,
+        gather_topk="bit-identical to the scan kernel + the plain epilogue"), ok=True)
 
     # -- 7. small input: the kernel path agrees with the plain CPU path ------
     Xs = X_np[:4000]
@@ -507,17 +522,26 @@ def run(dev: torch.device) -> None:
         gpu = LCCSIndex.load(Path(tmp) / "small.pkl", device=dev)
     Qs = torch.from_numpy(Xs[:64] + 0.05)
     qh = stages.hash_queries(cpu.family, Qs)
+    cand, mismatch = {}, []
     for kw in (LCCS, SKIP):
         p = SearchParams(**kw, use_probe_kernel=True, use_gather_kernel=True)
         ci, cl = stages.probe(cpu, Qs, qh, p)
         gi, gl = stages.probe(gpu, Qs.to(dev), qh.to(dev), p)
         if not (torch.equal(ci, gi.cpu()) and torch.equal(cl, gl.cpu())):
             fail(f"small input: {kw['source']} candidates differ between card and CPU")
+        cand[kw["source"]] = (p, ci, gi)
         _, cd = stages.verify(cpu.store, cpu.tail, Qs, ci, p, "euclidean")
         _, gd = stages.verify(gpu.store, gpu.tail, Qs.to(dev), gi, p, "euclidean")
         if not torch.allclose(cd, gd.cpu(), **GATHER_TOL):
             explain_verify_mismatch(cpu, gpu, Qs, ci, gi, p, kw["source"], cd, gd)
-        torch.testing.assert_close(cd, gd.cpu(), **GATHER_TOL)
+            mismatch.append(kw["source"])
+    # C8: each device's verify again, 20 times, each rerun held to the first
+    repeats = verify_repeats(cpu, gpu, Qs, cand)
+    emit(phase="verify_repeats", reps=20, differing_reruns=repeats)
+    if mismatch:
+        fail(f"small input: the {mismatch} verify differs between card and CPU")
+    if any(c["card"] for c in repeats.values()):
+        fail(f"the card's verify differs from its first run on a rerun: {repeats}")
     emit(phase="small_input_vs_cpu", n=4000, ok=True)
 
     # -- 8.-12. the paths of the second slice ---------------------------------
@@ -558,6 +582,188 @@ def run(dev: torch.device) -> None:
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}),
           flush=True)
+
+
+def int8_stage_ms(index8, qb: torch.Tensor, p8) -> dict:
+    """Where one int8 `lccs` batch spends its time (not counted as
+    launches): the probe, the survivors (the fused gather_q_topk, and as its
+    yardstick the parent's route: the gather_q scan, its epilogue and the
+    stable sort), the fp32 rows of the survivors, the plain-torch rerank, and
+    the whole search call."""
+    from repro_torch.exec import resolve_params, stages
+
+    pr = resolve_params(index8, p8)
+    qh = stages.hash_queries(index8.family, qb)
+    cand, _ = stages.probe(index8, qb, qh, pr)
+    surv, _ = stages.survivors(index8.store, qb, cand, pr, "euclidean")
+    rows = stages.gather_fp32(index8.store, index8.tail, surv)
+    r = stages.survivor_budget(pr, cand.shape[1])
+    return {
+        "hash_queries (hash_rp)": median_ms(lambda: stages.hash_queries(index8.family, qb), 5),
+        "probe (csa_probe + pool_topk)": median_ms(
+            lambda: stages.probe(index8, qb, qh, pr), 5),
+        f"survivors, R {r} (gather_q_topk)": median_ms(
+            lambda: stages.survivors(index8.store, qb, cand, pr, "euclidean"), 5),
+        "survivors, the parent's route (gather_q scan + _smallest)": median_ms(
+            lambda: stages._smallest(index8.store.gather_dist(
+                cand, qb, metric="euclidean", use_kernel=True), r), 5),
+        "gather_fp32 (the resident tail's rows)": median_ms(
+            lambda: stages.gather_fp32(index8.store, index8.tail, surv), 5),
+        "rerank_rows (plain torch, stable sort)": median_ms(
+            lambda: stages.rerank_rows(rows, qb, surv, K, "euclidean"), 5),
+        "search (whole batch)": median_ms(lambda: index8.search(qb, p8), 5),
+    }
+
+
+def verify_kernels_vs_plain(l2_call, q_call, launches) -> list:
+    """Phase 6, B2 / B3 at the main path's verify batches (the fp32 `lccs`
+    verify, k 10; the int8 `lccs` survivors, R 40): each scan (gather_l2,
+    gather_q) against its plain version within GATHER_TOL, and each fused
+    verify (gather_l2_topk, gather_q_topk) against the parent's route, the
+    scan kernel + the store's epilogue + `topk_ids` / `_smallest`, bit for
+    bit; both metrics, a zero row (NaN under angular) included.  Each timed
+    (CUDA events, and its kernels' device time under torch.profiler) beside
+    its bound, its plain version and (fused) the parent's route."""
+    from repro_torch.exec import stages
+    from repro_torch.kernels.gather_l2 import ops as l2_ops
+    from repro_torch.kernels.gather_l2.ref import gather_dist_ref, gather_topk_ref
+    from repro_torch.kernels.gather_q import ops as q_ops
+    from repro_torch.kernels.gather_q.ref import gather_dist_q_ref, gather_topk_q_ref
+    from repro_torch.store.stores import Fp32Store, Int8Store
+
+    (data, ids, queries, k), l2_kw = l2_call
+    (codes, scale, ids_q, queries_q, r), q_kw = q_call
+    if l2_kw.get("survivors") or not q_kw.get("survivors"):
+        fail("the recorded fused calls are not the fp32 verify and the int8 survivors")
+    src = "src/repro_torch/kernels/csrc/gather.cu"
+    l2_src, q_src = ("src/repro/kernels/gather_l2/gather_l2.py:38",
+                     "src/repro/kernels/gather_q/gather_q.py:41")
+    out = []
+    for name, kernel, plain, k_args, row_bytes, repl in (
+        ("gather_l2", l2_ops.gather_dist_kernel, gather_dist_ref, (data, ids, queries),
+         4 * D, l2_src),
+        ("gather_q", q_ops.gather_dist_q_kernel, gather_dist_q_ref,
+         (codes, scale, ids_q, queries_q), D + 4, q_src),
+    ):
+        err = 0.0
+        for metric in ("euclidean", "angular"):
+            z_args = list(k_args)
+            z_args[0] = k_args[0].clone()
+            z_args[0][max(0, int(k_args[-2][0, 0]))] = 0  # a zero row: NaN from the norms
+            kd = kernel(*z_args, metric=metric)
+            pd = plain(*z_args, metric=metric)
+            if not torch.equal(torch.isnan(kd), torch.isnan(pd)):
+                fail(f"{name} {metric}: NaN pattern differs from the plain version")
+            torch.testing.assert_close(kd.nan_to_num(), pd.nan_to_num(), **GATHER_TOL)
+            if metric == "angular" and not bool(torch.isnan(kd[0, 0])):
+                fail(f"{name}: zero row did not give NaN")
+            err = max(err, float((kd.nan_to_num() - pd.nan_to_num()).abs().max()))
+        b_ids = k_args[-2]
+        uniq = int(torch.unique(torch.clamp(b_ids, min=0)).numel())
+        B, Lc = b_ids.shape
+        nbytes = uniq * row_bytes + b_ids.numel() * 4 * 2 + B * D * 4
+        flops = 3 * B * Lc * D
+        out.append(dict(
+            name=name, route="cuda", source=src, replaces=repl,
+            launches=launches[name], max_abs_err=err,
+            ms=median_ms(lambda: kernel(*k_args, metric="euclidean"), 50),
+            device_ms=device_ms(lambda: kernel(*k_args, metric="euclidean"), 20),
+            plain_ms=median_ms(lambda: plain(*k_args, metric="euclidean"), 5),
+            **bound(nbytes, flops, FP32_FLOPS),
+            library_ms=None, shape=dict(B=B, L=Lc, n=N, d=D, unique_rows=uniq),
+        ))
+
+    # the fused verify: the kernel, its plain version and the parent's route
+    # over one store of the recorded rows (a zero row swapped in where named)
+    def fp32(rows, metric):
+        st = Fp32Store(rows=rows)
+        fused = lambda: l2_ops.gather_topk(rows, ids, queries, k, metric=metric,
+                                           report_ids=l2_kw["report_ids"])
+        parent = lambda: stages.topk_ids(st.gather_dist(ids, queries, metric=metric,
+                                                        use_kernel=True),
+                                         l2_kw["report_ids"], k)
+        plain = lambda: gather_topk_ref(rows, ids, queries, k, metric=metric,
+                                        report_ids=l2_kw["report_ids"])
+        return fused, parent, plain
+
+    def int8(rows, metric):
+        st = Int8Store(q=rows, scale=scale)
+        fused = lambda: q_ops.gather_topk_q(rows, scale, ids_q, queries_q, r, metric=metric,
+                                            survivors=True)
+
+        def parent():
+            vals, idx = stages._smallest(st.gather_dist(ids_q, queries_q, metric=metric,
+                                                        use_kernel=True), r)
+            return torch.gather(ids_q, 1, idx), vals
+
+        plain = lambda: gather_topk_q_ref(rows, scale, ids_q, queries_q, r, metric=metric,
+                                          survivors=True)
+        return fused, parent, plain
+
+    for name, make, rows, b_ids, cols, row_bytes, repl, consumer in (
+        ("gather_l2_topk", fp32, data, ids, k, 4 * D, l2_src, "src/repro/exec/stages.py:150"),
+        ("gather_q_topk", int8, codes, ids_q, r, D + 4, q_src, "src/repro/exec/stages.py:187"),
+    ):
+        err = 0.0
+        for metric in ("euclidean", "angular"):
+            for zero in (False, True):
+                z_rows = rows
+                if zero:  # the first candidate's row zero: NaN -> 1 under angular
+                    z_rows = rows.clone()
+                    z_rows[max(0, int(b_ids[0, 0]))] = 0
+                fused, parent, plain = make(z_rows, metric)
+                f_out, p_out, q_out = fused(), parent(), plain()
+                if not (torch.equal(f_out[0], p_out[0])
+                        and torch.equal(f_out[1].view(torch.int32),
+                                        p_out[1].view(torch.int32))):
+                    fail(f"{name} {metric} (zero row {zero}): the fused kernel differs from "
+                         "the scan kernel + the plain epilogue")
+                torch.testing.assert_close(f_out[1], q_out[1], **GATHER_TOL)
+                fin = torch.isfinite(q_out[1])
+                err = max(err, float((f_out[1][fin] - q_out[1][fin]).abs().max()))
+        fused, parent, plain = make(rows, "euclidean")
+        B, Lc = b_ids.shape
+        live = b_ids >= 0
+        uniq = int(torch.unique(b_ids[live]).numel())
+        # bytes: the live rows read once, the ids (and the report ids of the
+        # exact mode, here the same tensor) and the queries read once, the
+        # (B, cols) ids and values written once; 3d flops a live candidate
+        nbytes = uniq * row_bytes + b_ids.numel() * 4 + B * D * 4 + B * cols * 8
+        flops = 3 * int(live.sum()) * D
+        out.append(dict(
+            name=name, route="cuda", source=src, replaces=repl, consumer=consumer,
+            launches=launches[name], max_abs_err=err,
+            ms=median_ms(fused, 50), device_ms=device_ms(fused, 20),
+            plain_ms=median_ms(plain, 5), parent_route_ms=median_ms(parent, 50),
+            parent_route_device_ms=device_ms(parent, 20),
+            **bound(nbytes, flops, FP32_FLOPS), library_ms=None,
+            shape=dict(B=B, L=Lc, n=N, d=D, k=cols, unique_rows=uniq,
+                       mode="survivors" if name == "gather_q_topk" else "exact_topk"),
+            checked_bit_identical=["scan kernel + store epilogue + "
+                                   + ("_smallest" if name == "gather_q_topk" else "topk_ids")],
+        ))
+    return out
+
+
+def verify_repeats(cpu, gpu, Qs, cand: dict, reps: int = 20) -> dict:
+    """C8: each device's verify on phase 7's inputs (`cand`: source ->
+    (params, CPU candidates, card candidates)) run `reps` times; per source
+    and device, how many reruns differ from the first run (ids or
+    distances, bit for bit)."""
+    from repro_torch.exec import stages
+
+    out = {}
+    for source, (p, ci, gi) in cand.items():
+        counts = {}
+        for tag, idx, q, ids in (("card", gpu, Qs.to(gi.device), gi), ("cpu", cpu, Qs, ci)):
+            first = stages.verify(idx.store, idx.tail, q, ids, p, "euclidean")
+            counts[tag] = sum(
+                not (torch.equal(a[0], first[0])
+                     and torch.equal(a[1].view(torch.int32), first[1].view(torch.int32)))
+                for a in (stages.verify(idx.store, idx.tail, q, ids, p, "euclidean")
+                          for _ in range(reps)))
+        out[source] = counts
+    return out
 
 
 def explain_verify_mismatch(cpu, gpu, Qs, ci, gi, p, source: str, cd, gd) -> None:
@@ -1215,7 +1421,8 @@ def serve_once(engine, corpus: np.ndarray, n_req: int, dynamic: bool) -> dict:
     if counts[kernel] != cfg.n_layers * embedded:
         fail(f"serve {cfg.name} {state}: {kernel} launched {counts[kernel]} times, expected "
              f"{cfg.n_layers} x {embedded} embedded batches")
-    require(counts, ("csa_probe", "pool_topk", "gather_l2") + (CIRCRUN_KERNELS if dynamic else ()),
+    require(counts, ("csa_probe", "pool_topk", "gather_l2_topk")
+            + (CIRCRUN_KERNELS if dynamic else ()),
             f"{cfg.name} {state} serving")
     return counts
 
@@ -1224,7 +1431,9 @@ def serve_once(engine, corpus: np.ndarray, n_req: int, dynamic: bool) -> dict:
 KERNEL_GROUPS = (("flash_attn_kernel", "flash_attn"), ("ssm_scan_kernel", "ssm_scan"),
                  ("gemm", "matmul (cuBLAS)"), ("csa_probe_kernel", "index kernels"),
                  ("pool_topk_kernel", "index kernels"),
-                 ("gather_dist_kernel", "index kernels"), ("circrun_kernel", "index kernels"),
+                 ("gather_scan_kernel", "index kernels"), ("gather_topk_kernel", "index kernels"),
+                 ("gather_merge", "index kernels"), ("gather_emit_kernel", "index kernels"),
+                 ("circrun_kernel", "index kernels"),
                  ("circrun_topk_kernel", "index kernels"))
 
 

@@ -18,7 +18,11 @@ of `repro.exec.stages`, the stages the monolithic topology runs).
                                       the id algebra around it
 
 Every top-k here breaks ties toward the lower index, as `lax.top_k` does in
-the reference (a stable sort, never a raw `torch.topk`).
+the reference, never through a raw `torch.topk`: with the gather kernels on
+and a store that has the fused entry (fp32, int8), `exact_topk` and
+`survivors` rank inside the gather kernel (`store.gather_topk`: each
+candidate's (value, slot) key ranked, ties to the lower slot); every other
+top-k here, and those two on any other route, is a stable sort.
 """
 from __future__ import annotations
 
@@ -104,10 +108,21 @@ def topk_ids(dist: torch.Tensor, ids: torch.Tensor, k: int):
     return out_ids, out_d
 
 
+def fused_verify(store, metric: str, use_kernel: bool) -> bool:
+    """True when the verify's scan and top-k run as one gather kernel pass
+    (`store.gather_topk`): the gather kernels are on, the store has the
+    fused entry and the metric is one the kernels take."""
+    from ..store.stores import KERNEL_METRICS
+
+    return use_kernel and metric in KERNEL_METRICS and hasattr(store, "gather_topk")
+
+
 def exact_topk(store, queries, cand_ids, report_ids, k: int, metric: str,
                use_kernel: bool):
     """Single-stage exact verification: scan `cand_ids` against `store` and
     return the nearest k of `report_ids`."""
+    if fused_verify(store, metric, use_kernel):
+        return store.gather_topk(cand_ids, queries, k, metric=metric, report_ids=report_ids)
     dist = store.gather_dist(cand_ids, queries, metric=metric, use_kernel=use_kernel)
     return topk_ids(dist, report_ids, k)
 
@@ -122,8 +137,10 @@ def survivors(store, queries, cand_ids, params, metric: str):
     Returns (ids (B, R), approx dists (B, R)) with R = `survivor_budget`."""
     check_store_kind(store, params)
     use_kernel = resolve_use_kernel(params.use_gather_kernel, cand_ids.device)
-    dist = store.gather_dist(cand_ids, queries, metric=metric, use_kernel=use_kernel)
     r = survivor_budget(params, cand_ids.shape[1])
+    if fused_verify(store, metric, use_kernel):
+        return store.gather_topk(cand_ids, queries, r, metric=metric, survivors=True)
+    dist = store.gather_dist(cand_ids, queries, metric=metric, use_kernel=use_kernel)
     vals, idx = _smallest(dist, r)
     return torch.gather(cand_ids, 1, idx), vals
 

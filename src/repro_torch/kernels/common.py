@@ -46,6 +46,14 @@ SIGNATURES = {
     "gather_l2_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # codes, scale, ids, queries, out, n, d, B, Lc, angular, stream
     "gather_q_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
+    # data, ids, report, queries, out_ids, out_vals, keys, n, d, B, L, k, tile,
+    # angular, exact, stream
+    "gather_l2_topk_launch": (_P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I,
+                              _P),
+    # codes, scale, ids, report, queries, out_ids, out_vals, keys, n, d, B, L, k,
+    # tile, angular, exact, stream
+    "gather_q_topk_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I,
+                             _I, _P),
     # x, a, b, out, n, d, m, w, stream
     "hash_rp_launch": (_P, _P, _P, _P, _I, _I, _I, _F, _P),
     # x, rot, out, n, d, m, dr, stream
@@ -65,8 +73,9 @@ SIGNATURES = {
 # launches per kernel since the last reset: each wrapper adds one where it
 # launches its kernel, and nowhere else
 LAUNCHES: dict[str, int] = {"csa_probe": 0, "pool_topk": 0, "gather_l2": 0, "gather_q": 0,
-                            "hash_rp": 0, "hash_xp": 0, "circrun": 0, "circrun_topk": 0,
-                            "flash_attn": 0, "ssm_scan": 0}
+                            "gather_l2_topk": 0, "gather_q_topk": 0, "hash_rp": 0,
+                            "hash_xp": 0, "circrun": 0, "circrun_topk": 0, "flash_attn": 0,
+                            "ssm_scan": 0}
 
 _lock = threading.Lock()
 _lib: ctypes.CDLL | None = None

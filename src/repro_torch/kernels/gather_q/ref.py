@@ -4,7 +4,7 @@ from __future__ import annotations
 
 import torch
 
-from ..gather_l2.ref import _dist
+from ..gather_l2.ref import _dist, rank_ref
 
 
 def gather_dist_q_ref(codes: torch.Tensor, scale: torch.Tensor, ids: torch.Tensor,
@@ -14,3 +14,11 @@ def gather_dist_q_ref(codes: torch.Tensor, scale: torch.Tensor, ids: torch.Tenso
     safe = torch.clamp(ids, min=0).long()
     cand = codes[safe].to(torch.float32) * scale[safe][..., None]  # (B, L, d)
     return _dist(cand, queries, metric)
+
+
+def gather_topk_q_ref(codes, scale, ids, queries, k: int, *, metric: str = "euclidean",
+                      report_ids=None, survivors: bool = False):
+    """Plain version of the fused int8 verify: `gather_dist_q_ref`, then
+    `rank_ref`."""
+    return rank_ref(gather_dist_q_ref(codes, scale, ids, queries, metric=metric), ids, k,
+                    metric=metric, report_ids=report_ids, survivors=survivors)

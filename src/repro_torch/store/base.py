@@ -10,6 +10,9 @@ them.  Protocol:
   gather(ids)                    (B, L, d) float32 rows for id matrix `ids`
   gather_dist(ids, queries, metric=..., use_kernel=...)
                                  (B, L) distances of gathered rows to queries
+  gather_topk(ids, queries, k, metric=..., report_ids=..., survivors=...)
+                                 optional (fp32, int8): the verify's scan and
+                                 its k nearest in one kernel pass
   set_rows(rows, x)              write rows `rows` from float rows (quantize
                                  on ingest); in place, returns the store
   padded_to(cap)                 grow to `cap` rows (zero padding), a new store

@@ -21,6 +21,11 @@ Distance scanning (`gather_dist`) dispatches per store:
 With use_kernel=True the kernel wrappers launch the CUDA kernel for CUDA
 tensors and run its plain version for CPU tensors.
 
+`gather_topk` (fp32 and int8 only, metrics in KERNEL_METRICS) is the verify
+in one kernel pass: the scan, the same epilogue as `gather_dist`'s, and the
+k nearest per query (`kernels.gather_l2.ref.rank_ref`); `exec.stages` takes
+it for `exact_topk` and `survivors` when the gather kernels are on.
+
 `set_rows` writes the new rows IN PLACE and returns the store itself (the
 reference's functional update copies the whole array); `padded_to` returns a
 new, larger store.  The dynamic index owns its store, so nothing else sees
@@ -50,7 +55,7 @@ def _mask_pad(ids: torch.Tensor, dist: torch.Tensor) -> torch.Tensor:
 
 # the gather kernels implement exactly these; any other metric must take the
 # reference path, not be mis-scored
-_KERNEL_METRICS = ("euclidean", "angular")
+KERNEL_METRICS = ("euclidean", "angular")
 
 
 def _fix_kernel_dist(d: torch.Tensor, metric: str) -> torch.Tensor:
@@ -87,12 +92,19 @@ class Fp32Store:
         return self.rows[_safe(ids)]
 
     def gather_dist(self, ids, queries, *, metric: str, use_kernel: bool = False):
-        if use_kernel and metric in _KERNEL_METRICS:
+        if use_kernel and metric in KERNEL_METRICS:
             from ..kernels.gather_l2.ops import gather_dist
 
             d = gather_dist(self.rows, ids, queries, metric=metric)
             return _mask_pad(ids, _fix_kernel_dist(d, metric))
         return _mask_pad(ids, _dist_rows(self.gather(ids), queries, metric))
+
+    def gather_topk(self, ids, queries, k: int, *, metric: str, report_ids=None,
+                    survivors: bool = False):
+        from ..kernels.gather_l2.ops import gather_topk
+
+        return gather_topk(self.rows, ids, queries, k, metric=metric, report_ids=report_ids,
+                           survivors=survivors)
 
     def set_rows(self, rows: torch.Tensor, x) -> "Fp32Store":
         """Write rows `rows` (in place) from (len(rows), d) float rows."""
@@ -207,12 +219,19 @@ class Int8Store:
         return self.q[safe].to(torch.float32) * self.scale[safe][..., None]
 
     def gather_dist(self, ids, queries, *, metric: str, use_kernel: bool = False):
-        if use_kernel and metric in _KERNEL_METRICS:
+        if use_kernel and metric in KERNEL_METRICS:
             from ..kernels.gather_q.ops import gather_dist_q
 
             d = gather_dist_q(self.q, self.scale, ids, queries, metric=metric)
             return _mask_pad(ids, _fix_kernel_dist(d, metric))
         return _mask_pad(ids, _dist_rows(self.gather(ids), queries, metric))
+
+    def gather_topk(self, ids, queries, k: int, *, metric: str, report_ids=None,
+                    survivors: bool = False):
+        from ..kernels.gather_q.ops import gather_topk_q
+
+        return gather_topk_q(self.q, self.scale, ids, queries, k, metric=metric,
+                             report_ids=report_ids, survivors=survivors)
 
     def set_rows(self, rows: torch.Tensor, x) -> "Int8Store":
         """Write rows `rows` (in place), quantized on ingest exactly as

@@ -1,8 +1,10 @@
 """On-card checks: each hand-written CUDA kernel against its plain PyTorch
 version on the same CUDA tensors (csa_probe, pool_topk, circrun and
 circrun_topk bit-identical, csa_probe also on tests/torch_probe_cases.py,
-pool_topk also against the scatter-max dedupe; the gathers within rtol 1e-5
-/ atol 1e-5, fp32 summation order; hash_rp and hash_xp may differ only at a
+pool_topk also against the scatter-max dedupe; the gather scans within
+rtol 1e-5 / atol 1e-5, fp32 summation order, and the fused verify bit for
+bit against the scan + its plain epilogue, also on
+tests/torch_verify_cases.py; hash_rp and hash_xp may differ only at a
 bucket boundary or a near tie, see `_rp_boundary` and `_xp_near_tie`;
 flash_attn within rtol/atol 1e-4 and ssm_scan within rtol/atol 1e-5, fp32
 summation order and expf/tanhf ulps).  They need a card and skip without
@@ -12,6 +14,8 @@ import pytest
 import torch
 from torch_pool_cases import POOL_CASES, make_pool
 from torch_probe_cases import PROBE_CASES, make_case
+from torch_verify_cases import VERIFY_CASES, survivor_budget
+from torch_verify_cases import make_case as make_verify_case
 
 from repro_torch import LCCSIndex, SearchParams, SegmentedLCCSIndex
 from repro_torch.core import lsh
@@ -33,11 +37,12 @@ from repro_torch.kernels.csa_probe import ref as probe_ref
 from repro_torch.kernels.csa_probe.ops import POOL_MAX_K
 from repro_torch.kernels.csa_probe.ref import pool_levels
 from repro_torch.kernels.gather_l2 import gather_dist_kernel, gather_dist_ref
+from repro_torch.kernels.gather_l2 import ops as l2_ops
 from repro_torch.kernels.gather_q import gather_dist_q_kernel, gather_dist_q_ref
 from repro_torch.kernels.hash_rp import hash_rp, hash_rp_ref
 from repro_torch.kernels.hash_xp import hash_xp, hash_xp_ref
 from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_batched_ref
-from repro_torch.store.stores import _quantize_rows
+from repro_torch.store.stores import Fp32Store, Int8Store, _quantize_rows
 
 # a hash may differ between kernel and plain version only where the float64
 # value lies this close (relative) to a bucket boundary or a tie, and in at
@@ -159,15 +164,27 @@ def test_pool_topk_kernel_rejects_what_it_does_not_take(dev, monkeypatch, n):
         pool_topk(z, z, n, 100)
 
 
+def _scan_inputs(case, dev):
+    """(data, ids, queries) on the card: a verify case of
+    tests/torch_verify_cases.py, or "d <d>", 33 x 70 candidates of 2,000 rows
+    (row 7 zero, the first candidate)."""
+    if case in VERIFY_CASES:
+        data, ids, _, queries, _ = make_verify_case(case)
+    else:
+        d = int(case.split()[1])
+        rng = np.random.default_rng(d)
+        data = rng.normal(size=(2000, d)).astype(np.float32)
+        data[7] = 0.0
+        ids = rng.integers(-1, 2000, size=(33, 70)).astype(np.int32)
+        ids[0, 0] = 7
+        queries = rng.normal(size=(33, d)).astype(np.float32)
+    return tuple(torch.from_numpy(a).to(dev) for a in (data, ids, queries))
+
+
 @pytest.mark.parametrize("metric", ["euclidean", "angular"])
-@pytest.mark.parametrize("d", [128, 13, 48])
-def test_gather_kernels_match_plain(dev, metric, d):
-    rng = np.random.default_rng(d)
-    data = torch.from_numpy(rng.normal(size=(2000, d)).astype(np.float32)).to(dev)
-    data[7] = 0.0
-    ids = torch.from_numpy(rng.integers(-1, 2000, size=(33, 70)).astype(np.int32)).to(dev)
-    ids[0, 0] = 7
-    queries = torch.from_numpy(rng.normal(size=(33, d)).astype(np.float32)).to(dev)
+@pytest.mark.parametrize("case", ["d 128", "d 13", "d 48", *VERIFY_CASES])
+def test_gather_kernels_match_plain(dev, metric, case):
+    data, ids, queries = _scan_inputs(case, dev)
     k = gather_dist_kernel(data, ids, queries, metric=metric)
     p = gather_dist_ref(data, ids, queries, metric=metric)
     assert torch.equal(torch.isnan(k), torch.isnan(p))
@@ -177,6 +194,104 @@ def test_gather_kernels_match_plain(dev, metric, d):
     p = gather_dist_q_ref(codes, scale, ids, queries, metric=metric)
     assert torch.equal(torch.isnan(k), torch.isnan(p))
     torch.testing.assert_close(k.nan_to_num(), p.nan_to_num(), rtol=1e-5, atol=1e-5)
+
+
+def _verify_store(case, kind, dev):
+    data, ids, report, queries, k = make_verify_case(case)
+    cls = Fp32Store if kind == "fp32" else Int8Store
+    st = cls.from_dense(torch.from_numpy(data).to(dev))
+    return st, *(torch.from_numpy(a).to(dev) for a in (ids, report, queries)), k
+
+
+def _same_bits(a, b):
+    """Equal dtype, shape and bits (floats compared as their int32 words)."""
+    if a.dtype == torch.float32:
+        a, b = a.view(torch.int32), b.view(torch.int32)
+    return a.dtype == b.dtype and torch.equal(a, b)
+
+
+@pytest.mark.parametrize("tile", [None, 64, 2])
+@pytest.mark.parametrize("kind", ["fp32", "int8"])
+@pytest.mark.parametrize("metric", ["euclidean", "angular"])
+@pytest.mark.parametrize("case", list(VERIFY_CASES))
+def test_fused_verify_kernel_equals_unfused_route(dev, monkeypatch, case, metric, kind, tile):
+    """gather_topk / gather_topk_q (exact and survivors modes) against the
+    scan kernel + the store's epilogue + `topk_ids` / `_smallest`, bit for
+    bit; tile 64 and 2 (the wrapper's TOPK_TILE) take the tiled sort and its
+    merge stages at every L above them."""
+    if tile is not None:
+        monkeypatch.setattr(l2_ops, "TOPK_TILE", tile)
+    st, ids, report, queries, k = _verify_store(case, kind, dev)
+    name = "gather_l2_topk" if kind == "fp32" else "gather_q_topk"
+    dist = st.gather_dist(ids, queries, metric=metric, use_kernel=True)
+    before = common.launch_counts()[name]
+    got = st.gather_topk(ids, queries, k, metric=metric, report_ids=report)
+    assert common.launch_counts()[name] == before + 1
+    want = stages.topk_ids(dist, report, k)
+    assert _same_bits(got[0], want[0]) and _same_bits(got[1], want[1])
+    r = survivor_budget(case)
+    vals, idx = stages._smallest(dist, r)
+    got = st.gather_topk(ids, queries, r, metric=metric, survivors=True)
+    assert _same_bits(got[0], torch.gather(ids, 1, idx)) and _same_bits(got[1], vals)
+
+
+def _same_with_nan(a, b):
+    """Equal bits, where a NaN matches any NaN (the kernel writes the
+    canonical one)."""
+    nan = torch.isnan(a)
+    return torch.equal(nan, torch.isnan(b)) and _same_bits(a[~nan], b[~nan])
+
+
+@pytest.mark.parametrize("metric", ["euclidean", "angular"])
+def test_fused_verify_kernel_orders_nan_and_inf_as_the_sort(dev, metric):
+    """Rows of NaN and +inf: Euclidean distances NaN (after +inf, ties to the
+    lower slot) and +inf (id -1 in exact mode), angular ones mapped to 1; the
+    fused fp32 verify against the scan + the plain epilogue + the stable
+    sort, all columns (k = L) and past them (k > L)."""
+    rng = np.random.default_rng(5)
+    data = rng.normal(size=(50, 16)).astype(np.float32)
+    data[1], data[2] = np.nan, np.inf
+    ids = rng.integers(-1, 50, size=(4, 12)).astype(np.int32)
+    ids[:, :5] = [1, 2, 1, 2, 3]
+    st = Fp32Store(rows=torch.from_numpy(data).to(dev))
+    ids, queries = (torch.from_numpy(a).to(dev) for a in
+                    (ids, rng.normal(size=(4, 16)).astype(np.float32)))
+    dist = st.gather_dist(ids, queries, metric=metric, use_kernel=True)
+    for k in (12, 15):
+        got = st.gather_topk(ids, queries, k, metric=metric)
+        want = stages.topk_ids(dist, ids, k)
+        assert torch.equal(got[0], want[0]) and _same_with_nan(got[1], want[1])
+    got = st.gather_topk(ids, queries, 12, metric=metric, survivors=True)
+    vals, idx = stages._smallest(dist, 12)
+    assert torch.equal(got[0], torch.gather(ids, 1, idx)) and _same_with_nan(got[1], vals)
+    if metric == "euclidean":
+        assert bool(torch.isnan(got[1][:, -1]).all())  # NaN ranks last
+
+
+@pytest.mark.parametrize("kind", ["fp32", "int8"])
+@pytest.mark.parametrize("case", ["d 128, L 100, k 10", "d 16, L 10000 (several tiles)"])
+def test_fused_verify_kernel_repeats(dev, case, kind):
+    """100 runs of the fused verify on one input give the first run's bits
+    (one kernel, no atomics), both modes, both metrics."""
+    st, ids, report, queries, k = _verify_store(case, kind, dev)
+    for metric in ("euclidean", "angular"):
+        for kw in (dict(report_ids=report), dict(survivors=True)):
+            first = st.gather_topk(ids, queries, k, metric=metric, **kw)
+            for _ in range(100):
+                again = st.gather_topk(ids, queries, k, metric=metric, **kw)
+                assert _same_bits(again[0], first[0]) and _same_bits(again[1], first[1])
+
+
+def test_fused_verify_kernel_rejects_what_it_does_not_take(dev):
+    st, ids, report, queries, k = _verify_store("d 16, L 7, k > L", "fp32", dev)
+    with pytest.raises(ValueError, match="metric"):
+        st.gather_topk(ids, queries, k, metric="hamming")
+    with pytest.raises(TypeError, match="dtype"):
+        st.gather_topk(ids.long(), queries, k, metric="euclidean")
+    with pytest.raises(ValueError, match="shape"):
+        st.gather_topk(ids, queries, k, metric="euclidean", report_ids=report[:, :3])
+    empty = st.gather_topk(ids[:, :0].contiguous(), queries, k, metric="euclidean")
+    assert bool((empty[0] == -1).all()) and bool(torch.isinf(empty[1]).all())
 
 
 @pytest.mark.parametrize("store", ["fp32", "int8"])
