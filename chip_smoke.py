@@ -30,9 +30,9 @@ their launch counts (reset before each path, read after it) that each path
 went through its kernels, holds each kernel against its plain PyTorch
 version on the card at the paths' shapes (csa_probe also on probes that
 land at pos 0 and pos n, and timed on the multiprobe-skip pairs worklist
-beside the lccs one; flash_attn and ssm_scan also at
-one long shape each, hash_rp and hash_xp also at the GIST width d = 960
-and over one query batch, pool_topk also at a multiprobe-skip pool of
+beside the lccs one; flash_attn and ssm_scan also at long shapes (ssm_scan
+at B 4, L 2048 and B 1, L 4096), hash_rp and hash_xp also at the GIST width
+d = 960 and over one query batch, pool_topk also at a multiprobe-skip pool of
 several tiles and against the scatter-max dedupe, which no card path may
 call; circrun_topk also against the parent's route, circrun + the int64-key
 top-k, which no card path may take; the fused verify, gather_l2_topk and
@@ -69,6 +69,10 @@ FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores (published)
 # H100 SXM int32 outside the tensor cores: 132 SMs x 64 INT32 lanes (Hopper
 # architecture white paper) x 1.98 GHz boost clock, one operation a lane
 INT32_OPS = 132 * 64 * 1.98e9
+# H100 SXM exps: 16 exp2 results a clock an SM on the special-function units
+# (CUDA C++ Programming Guide, arithmetic instruction throughput table,
+# compute capability 9.0) x 132 SMs x 1.98 GHz boost clock
+SFU_EXP_PER_S = 132 * 16 * 1.98e9
 # the dynamic path: a bulk load of the first rows into one segment (padded to
 # 2^20), then the rest streamed in inserts of 2^14 rows (a 2^16 buffer)
 N_BULK, INSERT_ROWS, N_DELETE = 934_464, 16_384, 10_000
@@ -147,10 +151,9 @@ def median_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def device_ms(fn, reps: int) -> float:
-    """Mean device time of fn() over `reps` runs after one warm-up run: the
-    time of its kernels on the card under torch.profiler, summed, without
-    the host's launch cost that the CUDA events of median_ms include."""
+def device_events(fn, reps: int) -> list:
+    """The device time (ms) of each kernel that `reps` runs of fn() launch
+    on the card under torch.profiler, after one warm-up run."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -163,8 +166,15 @@ def device_ms(fn, reps: int) -> float:
             torch.cuda.synchronize()
         kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
         if kern:
-            return sum(e.time_range.elapsed_us() for e in kern) / 1e3 / reps
+            return [e.time_range.elapsed_us() / 1e3 for e in kern]
     fail("device_ms: three profiler sessions saw no kernel on the card")
+
+
+def device_ms(fn, reps: int) -> float:
+    """Mean device time of fn() over `reps` runs after one warm-up run: the
+    time of its kernels on the card under torch.profiler, summed, without
+    the host's launch cost that the CUDA events of median_ms include."""
+    return sum(device_events(fn, reps)) / reps
 
 
 def forbid_scatter() -> None:
@@ -1534,9 +1544,13 @@ def flash_record(q, k, v, kw: dict) -> dict:
 
 
 def scan_record(dt, x, Bc, Cc, A, h0) -> dict:
-    """ssm_scan (the chunked wrapper) against its plain version on one
-    input: error, times, and the bound (bytes: dt, x, B, C, A, h0 read once,
-    y and h written once; operations: 7 a state element and step)."""
+    """ssm_scan (the wrapper) against its plain version on one input: error,
+    times (CUDA events around one call, and the mean device time of a launch
+    under torch.profiler, with the number of launches it recorded of 20), and
+    the bound: the largest of the bytes (dt, x, B, C, A, h0 read once, y and
+    h written once), the float32 operations (7 a state element and step) and
+    the exps (one a state element and step, on the special-function units);
+    `bound_term` names the largest."""
     from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_batched_ref
 
     B, L, D = dt.shape
@@ -1546,17 +1560,27 @@ def scan_record(dt, x, Bc, Cc, A, h0) -> dict:
     torch.testing.assert_close(y, y_ref, **SCAN_TOL)
     torch.testing.assert_close(h, h_ref, **SCAN_TOL)
     nbytes = 4 * (3 * B * L * D + 2 * B * L * N + D * N + 2 * B * D * N)
+    elems = B * L * D * N
+    terms = dict(bytes=nbytes / HBM_BYTES_PER_S * 1e3, fp32=7 * elems / FP32_FLOPS * 1e3,
+                 exp=elems / SFU_EXP_PER_S * 1e3)
+    term = max(terms, key=terms.get)
+    # one launch a call: the mean over the launches the profiler recorded
+    # (it may miss some of a session's first ones)
+    events = device_events(lambda: ssm_scan(dt, x, Bc, Cc, A, h0), 20)
     return dict(max_abs_err=max(float((y - y_ref).abs().max()), float((h - h_ref).abs().max())),
                 ms=median_ms(lambda: ssm_scan(dt, x, Bc, Cc, A, h0), 20),
+                device_ms=statistics.mean(events), device_launches_seen=len(events),
                 plain_ms=median_ms(lambda: ssm_scan_batched_ref(dt, x, Bc, Cc, A, h0), 3),
-                **bound(nbytes, 7 * B * L * D * N, FP32_FLOPS), library_ms=None,
+                bound_ms=terms[term], bound_by="bytes" if term == "bytes" else "operations",
+                bound_term=term, bound_terms_ms=terms, library_ms=None,
                 shape=dict(B=B, L=L, D=D, N=N))
 
 
 def serve_kernels_vs_plain(serve: dict, launches: dict) -> list:
     """Phase 16: flash_attn and ssm_scan against their plain versions at the
-    serving shape (the arguments recorded from one embedded batch) and at one
-    long shape each, timed beside their bounds (and SDPA for flash_attn)."""
+    serving shape (the arguments recorded from one embedded batch) and at
+    long shapes (two for flash_attn, two for ssm_scan), timed beside their
+    bounds (and SDPA for flash_attn)."""
     dev = torch.device("cuda", torch.cuda.current_device())
     g = torch.Generator(device=dev)
     g.manual_seed(0)
@@ -1582,15 +1606,18 @@ def serve_kernels_vs_plain(serve: dict, launches: dict) -> list:
 
     args, _ = serve["recorded"]["ssm_scan"]
     serving = scan_record(*args)
-    B, L, D, N = 4, 2048, 8192, 16
-    dt = torch.nn.functional.softplus(randn(B, L, D))
-    A = -torch.exp(0.5 * randn(D, N))
-    long = scan_record(dt, randn(B, L, D), randn(B, L, N), randn(B, L, N), A,
-                       torch.zeros((B, D, N), device=dev))
+    long = {}
+    D, N = 8192, 16
+    for tag, B, L in (("L 2048", 4, 2048), ("B 1, L 4096", 1, 4096)):
+        dt = torch.nn.functional.softplus(randn(B, L, D))
+        A = -torch.exp(0.5 * randn(D, N))
+        long[tag] = scan_record(dt, randn(B, L, D), randn(B, L, N), randn(B, L, N), A,
+                                torch.zeros((B, D, N), device=dev))
+        del dt, A
     kernels.append(dict(
         name="ssm_scan", route="cuda", source="src/repro_torch/kernels/csrc/ssm_scan.cu",
         replaces="src/repro/kernels/ssm_scan/ssm_scan.py:48",
-        launches=launches["ssm_scan"], **serving, long={"L 2048": long}))
+        launches=launches["ssm_scan"], **serving, long=long))
     emit(phase="kernels_vs_plain", kernels=["flash_attn", "ssm_scan"],
          tolerance=dict(flash_attn=FLASH_TOL, ssm_scan=SCAN_TOL), ok=True)
     return kernels

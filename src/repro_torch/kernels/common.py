@@ -66,8 +66,8 @@ SIGNATURES = {
     "circrun_topk_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
     # q, k, v, o, B, Sq, Skv, Hq, Hkv, dh, causal, window, softcap, stream
     "flash_attn_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
-    # dt, x, Bc, Cc, A, h0, y, h_out, B, L, D, N, t0, t1, stream
-    "ssm_scan_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P),
+    # dt, x, Bc, Cc, A, h0, y, h_out, B, L, D, N, stream
+    "ssm_scan_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
 
 # launches per kernel since the last reset: each wrapper adds one where it

@@ -1,9 +1,9 @@
-"""Public wrapper for the batched, sequence-chunked selective scan (port of
-`repro.kernels.ssm_scan.ops.ssm_scan`): each chunk of at most `seq_chunk`
-steps runs through the hand-written kernel (`csrc/ssm_scan.cu`,
-`ssm_scan_launch`) on CUDA tensors, or its plain version
-(`ref.ssm_scan_batched_ref`) on CPU tensors, carrying the state h from one
-chunk to the next."""
+"""Public wrapper for the batched selective scan (port of
+`repro.kernels.ssm_scan.ops.ssm_scan`): on CUDA tensors one launch of the
+hand-written kernel (`csrc/ssm_scan.cu`, `ssm_scan_launch`) scans the whole
+sequence, its state in registers for any L; on CPU tensors the plain version
+(`ref.ssm_scan_batched_ref`) runs in chunks of at most `seq_chunk` steps,
+carrying h from one chunk to the next, as the reference's wrapper does."""
 from __future__ import annotations
 
 import torch
@@ -19,7 +19,8 @@ SEQ_CHUNK = 2048  # the reference wrapper's default
 
 def ssm_scan(dt, x, Bc, Cc, A, h0, *, seq_chunk: int = SEQ_CHUNK):
     """dt, x (B, L, D); Bc, Cc (B, L, N); A (D, N); h0 (B, D, N), float32.
-    Returns (y (B, L, D), h_fin (B, D, N))."""
+    Returns (y (B, L, D), h_fin (B, D, N)).  `seq_chunk` splits the CPU
+    path only; the card scans [0, L) in one launch whatever it is."""
     if seq_chunk < 1:
         raise ValueError(f"ssm_scan: seq_chunk must be >= 1, got {seq_chunk}")
     B, L, D = dt.shape
@@ -41,15 +42,11 @@ def ssm_scan(dt, x, Bc, Cc, A, h0, *, seq_chunk: int = SEQ_CHUNK):
         common.check(name, t, device=dev, dtype=torch.float32, shape=shape)
     if not 1 <= N <= MAX_N:
         raise ValueError(f"ssm_scan: the kernel takes 1 <= N <= {MAX_N}, got N={N}")
-    if B == 0 or D == 0:  # nothing to scan: no kernel is launched
+    if B == 0 or D == 0 or L == 0:  # nothing to scan: no kernel is launched
         return dt.new_zeros((B, L, D)), h0
     y = torch.empty((B, L, D), dtype=torch.float32, device=dev)
-    h = h0
-    for lo in range(0, L, seq_chunk):
-        hi = min(L, lo + seq_chunk)
-        h_next = torch.empty((B, D, N), dtype=torch.float32, device=dev)
-        common.launch("ssm_scan", "ssm_scan_launch", dt.data_ptr(), x.data_ptr(), Bc.data_ptr(),
-                      Cc.data_ptr(), A.data_ptr(), h.data_ptr(), y.data_ptr(), h_next.data_ptr(),
-                      B, L, D, N, lo, hi)
-        h = h_next
+    h = torch.empty((B, D, N), dtype=torch.float32, device=dev)
+    common.launch("ssm_scan", "ssm_scan_launch", dt.data_ptr(), x.data_ptr(), Bc.data_ptr(),
+                  Cc.data_ptr(), A.data_ptr(), h0.data_ptr(), y.data_ptr(), h.data_ptr(),
+                  B, L, D, N)
     return y, h

@@ -7,13 +7,17 @@ bit against the scan + its plain epilogue, also on
 tests/torch_verify_cases.py; hash_rp and hash_xp may differ only at a
 bucket boundary or a near tie, see `_rp_boundary` and `_xp_near_tie`;
 flash_attn within rtol/atol 1e-4 and ssm_scan within rtol/atol 1e-5, fp32
-summation order and expf/tanhf ulps).  They need a card and skip without
-one; `python3 chip_smoke.py` is the authoritative on-card run."""
+summation order and expf/tanhf/ex2 ulps; ssm_scan also on
+tests/torch_scan_cases.py and against the plain mirror of its lanes).  They
+need a card and skip without one; `python3 chip_smoke.py` is the
+authoritative on-card run."""
 import numpy as np
 import pytest
 import torch
 from torch_pool_cases import POOL_CASES, make_pool
 from torch_probe_cases import PROBE_CASES, make_case
+from torch_scan_cases import SCAN_CASES, lanes_mirror
+from torch_scan_cases import make_case as make_scan_case
 from torch_verify_cases import VERIFY_CASES, survivor_budget
 from torch_verify_cases import make_case as make_verify_case
 
@@ -722,8 +726,12 @@ def test_flash_attn_kernel_refuses_grad(dev, grad_input):
 @pytest.mark.parametrize("B,L,D,N,seq_chunk", [
     (32, 32, 8192, 16, 2048),   # falcon-mamba-7b's serving shape
     (3, 77, 200, 16, 2048),     # odd L and D
-    (2, 100, 130, 5, 33),       # chunked: h carried across 4 chunks
+    (2, 100, 130, 5, 33),       # seq_chunk < L: still one launch
     (1, 1, 1, 1, 1),
+    *[(2, 33, 200, N, 2048) for N in (1, 3, 4, 5, 13, 16)],  # 1, 2 and 4 lanes a channel
+    *[(3, L, 200, 16, 2048) for L in (1, 31, 32, 33)],  # around the 32-step tile
+    (1, 4096, 8192, 16, 2048),  # one batch row, 128 tiles
+    (4, 2048, 520, 16, 33),     # the long shape's L, D not a multiple of 64
 ])
 def test_ssm_scan_kernel_matches_plain(dev, B, L, D, N, seq_chunk):
     rng = np.random.default_rng(L * D + N)
@@ -736,10 +744,40 @@ def test_ssm_scan_kernel_matches_plain(dev, B, L, D, N, seq_chunk):
     before = common.launch_counts()["ssm_scan"]
     y, h = ssm_scan(dt, x, Bc, Cc, A, h0, seq_chunk=seq_chunk)
     torch.cuda.synchronize()
-    assert common.launch_counts()["ssm_scan"] == before + -(-L // seq_chunk)
+    assert common.launch_counts()["ssm_scan"] == before + 1  # [0, L) in one launch
     y_ref, h_ref = ssm_scan_batched_ref(dt, x, Bc, Cc, A, h0)
     torch.testing.assert_close(y, y_ref, rtol=1e-5, atol=1e-5)
     torch.testing.assert_close(h, h_ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("name", list(SCAN_CASES))
+def test_ssm_scan_kernel_on_the_scan_cases(dev, name):
+    """The shared scan cases (tests/torch_scan_cases.py: N 1 to 16, L around
+    the tile, exp(dt A) underflowing, h0 zero): the kernel against its plain
+    version and against the plain mirror of its lanes and exp2."""
+    args = [torch.from_numpy(a).to(dev) for a in make_scan_case(name)]
+    y, h = ssm_scan(*args)
+    for y_ref, h_ref in (ssm_scan_batched_ref(*args), lanes_mirror(*args)):
+        torch.testing.assert_close(y, y_ref, rtol=1e-5, atol=1e-5)
+        torch.testing.assert_close(h, h_ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("B,L,D,N", [(2, 100, 130, 16), (1, 4096, 256, 5), (32, 40, 8192, 16)])
+def test_ssm_scan_kernel_ignores_seq_chunk(dev, B, L, D, N):
+    """On the card seq_chunk does not split the scan: each call is one
+    launch, and chunks of 33 steps give the bits of one chunk of L."""
+    rng = np.random.default_rng(L + N)
+    f = lambda *shape, s=1.0: torch.from_numpy(  # noqa: E731
+        (rng.normal(size=shape) * s).astype(np.float32)).to(dev)
+    args = (torch.nn.functional.softplus(f(B, L, D)), f(B, L, D), f(B, L, N), f(B, L, N),
+            -torch.exp(f(D, N, s=0.5)), f(B, D, N))
+    out = {}
+    for chunk in (33, L):
+        before = common.launch_counts()["ssm_scan"]
+        out[chunk] = ssm_scan(*args, seq_chunk=chunk)
+        torch.cuda.synchronize()
+        assert common.launch_counts()["ssm_scan"] == before + 1
+    assert torch.equal(out[33][0], out[L][0]) and torch.equal(out[33][1], out[L][1])
 
 
 def test_ssm_scan_kernel_refuses_grad(dev):

@@ -3,17 +3,20 @@ the plain version (the CPU path; the CUDA kernel is held against it on the
 card) against the reference's oracle `ssm_scan_ref` and its Pallas kernel
 in interpret mode, and the batched, sequence-chunked wrapper against the
 reference's `ops.ssm_scan`, at rtol = atol = 1e-5 (float32, the same
-recurrence; only the order of the C contraction differs)."""
+recurrence; only the order of the C contraction differs); also at the
+kernel's edge cases (tests/torch_scan_cases.py), where a plain-torch mirror
+of the card kernel's lanes and exp2 is held to the reference too."""
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from torch_scan_cases import SCAN_CASES, lanes_mirror, make_case
 
 from repro.kernels.ssm_scan.ops import ssm_scan as ref_ssm_scan
 from repro.kernels.ssm_scan.ref import ssm_scan_ref as ref_scan_ref
 from repro.kernels.ssm_scan.ssm_scan import ssm_scan_pallas
 from repro_torch.kernels import common
-from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_ref
+from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_batched_ref, ssm_scan_ref
 
 torch.set_num_threads(2)
 
@@ -81,3 +84,39 @@ def test_cpu_wrapper_stays_differentiable():
     y, h = ssm_scan(*ins, seq_chunk=4)
     (y.sum() + h.sum()).backward()
     assert all(t.grad is not None and bool(t.grad.abs().sum() > 0) for t in ins)
+
+
+@pytest.mark.parametrize("name", list(SCAN_CASES))
+def test_edge_cases_match_reference(name):
+    """The plain version and the wrapper (chunks of 33 steps and of the
+    default 2048) against the reference's oracle and Pallas kernel
+    (interpret mode) on each sequence, and against its wrapper."""
+    args = make_case(name)
+    B, L, D = args[0].shape
+    bd = 8 if D % 8 == 0 else D
+    y_r, h_r = ref_ssm_scan(*map(jnp.asarray, args), seq_chunk=33, block_d=bd)
+    got = [ssm_scan_batched_ref(*map(torch.from_numpy, args))]
+    for chunk in (33, 2048):
+        got.append(ssm_scan(*map(torch.from_numpy, args), seq_chunk=chunk))
+    for y, h in got:
+        np.testing.assert_allclose(y.numpy(), np.asarray(y_r), **TOL)
+        np.testing.assert_allclose(h.numpy(), np.asarray(h_r), **TOL)
+    for b in range(B):
+        one = [a[b] for a in args[:4]] + [args[4], args[5][b]]
+        y1, h1 = ref_scan_ref(*map(jnp.asarray, one))
+        y_p, h_p = ssm_scan_pallas(*map(jnp.asarray, one), block_d=bd, interpret=True)
+        for want_y, want_h in ((y1, h1), (y_p, h_p)):
+            np.testing.assert_allclose(got[0][0][b].numpy(), np.asarray(want_y), **TOL)
+            np.testing.assert_allclose(got[0][1][b].numpy(), np.asarray(want_h), **TOL)
+
+
+@pytest.mark.parametrize("name", list(SCAN_CASES))
+def test_lane_mirror_matches_reference(name):
+    """The card kernel's decomposition (states padded to 4 a lane, exp2 of
+    dt * A log2 e with subnormals flushed, each lane's dot, the lanes summed
+    in the kernel's order), in plain torch, against the reference."""
+    args = make_case(name)
+    y, h = lanes_mirror(*map(torch.from_numpy, args))
+    y_r, h_r = ref_ssm_scan(*map(jnp.asarray, args), use_pallas=False)
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_r), **TOL)
+    np.testing.assert_allclose(h.numpy(), np.asarray(h_r), **TOL)
