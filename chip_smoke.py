@@ -30,8 +30,10 @@ their launch counts (reset before each path, read after it) that each path
 went through its kernels, holds each kernel against its plain PyTorch
 version on the card at the paths' shapes (csa_probe also on probes that
 land at pos 0 and pos n, and timed on the multiprobe-skip pairs worklist
-beside the lccs one; flash_attn and ssm_scan also at long shapes (ssm_scan
-at B 4, L 2048 and B 1, L 4096), hash_rp and hash_xp also at the GIST width
+beside the lccs one; flash_attn and ssm_scan also at long shapes (flash_attn
+at B 4, S 2048 with gemma2-9b's heads, causal and with window 1024 + softcap
+50, and at B 1, S 4096 with gemma-2b's; ssm_scan at B 4, L 2048 and B 1,
+L 4096), hash_rp and hash_xp also at the GIST width
 d = 960 and over one query batch, pool_topk also at a multiprobe-skip pool of
 several tiles and against the scatter-max dedupe, which no card path may
 call; circrun_topk also against the parent's route, circrun + the int64-key
@@ -40,7 +42,10 @@ gather_q_topk, bit for bit against the parent's route, the scan kernel +
 the plain epilogue and stable sort, which no card path's exact_topk or
 survivors may take either),
 and times both beside each kernel's bound and, where one PyTorch call
-computes the same function, that call (of_bound, vs_library).  Phase 7
+computes the same function, that call (of_bound, vs_library).  Device times
+(`device_ms`, torch.profiler) count only profiler sessions that saw every
+kernel they expected (`device_launches_seen`); three short sessions fail the
+run.  Phase 7
 also reruns each device's verify of its small input 20 times
 (`verify_repeats`): the card's reruns must all equal its first.
 
@@ -66,6 +71,7 @@ N, D, M, W_BUCKET = 1_000_000, 128, 64, 16.0
 N_QUERIES, BATCH, K = 10_000, 1_000, 10
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (published)
 FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores (published)
+TF32_FLOPS = 495e12  # H100 SXM TF32 on the tensor cores, dense (NVIDIA H100 data sheet)
 # H100 SXM int32 outside the tensor cores: 132 SMs x 64 INT32 lanes (Hopper
 # architecture white paper) x 1.98 GHz boost clock, one operation a lane
 INT32_OPS = 132 * 64 * 1.98e9
@@ -108,6 +114,11 @@ EMB_TOL = dict(rtol=1e-4, atol=1e-5)
 # order of the online softmax (flash_attn) or of the C contraction (ssm_scan)
 FLASH_TOL = dict(rtol=1e-4, atol=1e-4)
 SCAN_TOL = dict(rtol=1e-5, atol=1e-5)
+# untimed runs of a profiled function in each torch.profiler session, before
+# its marker kernel: late in a run a session misses its first few kernels
+# (6 of 20 in phase 16 of one run; with 5 runs of one kernel before it, the
+# marker itself was missed)
+PROFILE_PAD = 32
 
 
 def emit(**rec) -> None:
@@ -151,30 +162,80 @@ def median_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def device_events(fn, reps: int) -> list:
-    """The device time (ms) of each kernel that `reps` runs of fn() launch
-    on the card under torch.profiler, after one warm-up run."""
+def after_marker(pad, timed, pad_runs: int = PROFILE_PAD) -> list | None:
+    """Under one torch.profiler session: pad() `pad_runs` times, a marker
+    kernel (torch.cuda._sleep's spin_kernel), then timed().  Returns the
+    card's kernels that ran after the marker, in order of start; None when
+    the session recorded no marker.  A session late in a run may miss its
+    first kernels: the pad absorbs them."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(pad_runs):
+            pad()
+        torch.cuda.synchronize()
+        torch.cuda._sleep(1)
+        timed()
+        torch.cuda.synchronize()
+    kern = sorted((e for e in prof.events() if e.device_type == DeviceType.CUDA),
+                  key=lambda e: e.time_range.start)
+    marks = [i for i, e in enumerate(kern) if "spin_kernel" in e.name]
+    return kern[marks[-1] + 1:] if marks else None
+
+
+def device_events(fn, reps: int, launches: int, match: str | None = None) -> list:
+    """The device time (ms) of each kernel that `reps` runs of fn() launch on
+    the card under torch.profiler (after_marker, fn() as the pad), after
+    one warm-up run; fn() launches `launches` kernels a run (of those whose
+    name holds `match`, where given).  A session that saw fewer than reps x
+    launches kernels is run again; after three such sessions the run fails,
+    as it does at once on a session that saw more."""
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):  # a profiler session now and then records no device event
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-        if kern:
-            return [e.time_range.elapsed_us() / 1e3 for e in kern]
-    fail("device_ms: three profiler sessions saw no kernel on the card")
+    want, seen = reps * launches, []
+
+    def runs():
+        for _ in range(reps):
+            fn()
+
+    for _ in range(3):
+        timed = after_marker(fn, runs)
+        if timed is not None:
+            timed = [e for e in timed if match is None or match in e.name]
+            if len(timed) == want:
+                return [e.time_range.elapsed_us() / 1e3 for e in timed]
+            if len(timed) > want:
+                fail(f"device_ms: a profiler session saw {len(timed)} kernels, {want} expected "
+                     f"({reps} runs of {launches})")
+        seen.append(None if timed is None else len(timed))
+    fail(f"device_ms: three profiler sessions saw {seen} of the {want} kernels expected "
+         f"({reps} runs of {launches}; None: the marker itself unseen)")
 
 
-def device_ms(fn, reps: int) -> float:
-    """Mean device time of fn() over `reps` runs after one warm-up run: the
-    time of its kernels on the card under torch.profiler, summed, without
-    the host's launch cost that the CUDA events of median_ms include."""
-    return sum(device_events(fn, reps)) / reps
+def kernels_per_call(fn) -> int:
+    """The number of kernels one run of fn() launches on the card, counted by
+    torch.profiler after a marker (the most of two sessions: a session can
+    only miss kernels)."""
+    counts = [len(after_marker(fn, fn) or []) for _ in range(2)]
+    if max(counts) == 0:
+        fail("device_ms: two profiler sessions saw no kernel of one call on the card")
+    return max(counts)
+
+
+def device_ms(fn, reps: int, launches: int | None = None, match: str | None = None,
+              key: str = "device") -> dict:
+    """{key}_ms: the mean device time of fn() over `reps` runs (its kernels'
+    time on the card under torch.profiler, summed, without the host's launch
+    cost that the CUDA events of median_ms include), beside
+    {key}_launches_seen and {key}_launches_expected.  `launches` (kernels a
+    run, of those named `match`) is counted with kernels_per_call where not
+    given."""
+    if launches is None:
+        launches = kernels_per_call(fn)
+    events = device_events(fn, reps, launches, match)
+    return {f"{key}_ms": sum(events) / reps, f"{key}_launches_seen": len(events),
+            f"{key}_launches_expected": reps * launches}
 
 
 def forbid_scatter() -> None:
@@ -677,7 +738,7 @@ def verify_kernels_vs_plain(l2_call, q_call, launches) -> list:
             name=name, route="cuda", source=src, replaces=repl,
             launches=launches[name], max_abs_err=err,
             ms=median_ms(lambda: kernel(*k_args, metric="euclidean"), 50),
-            device_ms=device_ms(lambda: kernel(*k_args, metric="euclidean"), 20),
+            **device_ms(lambda: kernel(*k_args, metric="euclidean"), 20),
             plain_ms=median_ms(lambda: plain(*k_args, metric="euclidean"), 5),
             **bound(nbytes, flops, FP32_FLOPS),
             library_ms=None, shape=dict(B=B, L=Lc, n=N, d=D, unique_rows=uniq),
@@ -743,9 +804,9 @@ def verify_kernels_vs_plain(l2_call, q_call, launches) -> list:
         out.append(dict(
             name=name, route="cuda", source=src, replaces=repl, consumer=consumer,
             launches=launches[name], max_abs_err=err,
-            ms=median_ms(fused, 50), device_ms=device_ms(fused, 20),
+            ms=median_ms(fused, 50), **device_ms(fused, 20),
             plain_ms=median_ms(plain, 5), parent_route_ms=median_ms(parent, 50),
-            parent_route_device_ms=device_ms(parent, 20),
+            **device_ms(parent, 20, key="parent_route_device"),
             **bound(nbytes, flops, FP32_FLOPS), library_ms=None,
             shape=dict(B=B, L=Lc, n=N, d=D, k=cols, unique_rows=uniq,
                        mode="survivors" if name == "gather_q_topk" else "exact_topk"),
@@ -1272,8 +1333,8 @@ def new_kernels_vs_plain(ctx, angular, dynamic, launches) -> list:
             plain_ms=median_ms(lambda: hash_rp_ref(x_, a_, b_, w=w), 5),
             **bound(4 * (n_ * d_ + d_ * M + M + n_ * M), 2 * n_ * d_ * M, FP32_FLOPS),
             library_ms=median_ms(lambda: torch.addmm(b_, x_, a_), 20),
-            device_ms=device_ms(lambda: hash_rp(x_, a_, b_, w=w), 20),
-            library_device_ms=device_ms(lambda: torch.addmm(b_, x_, a_), 20),
+            **device_ms(lambda: hash_rp(x_, a_, b_, w=w), 20),
+            **device_ms(lambda: torch.addmm(b_, x_, a_), 20, key="library_device"),
             shape=dict(n=n_, d=d_, m=M))
     del xw, aw
     # a small call's device time against its row count (d 128, m 64): one
@@ -1281,8 +1342,8 @@ def new_kernels_vs_plain(ctx, angular, dynamic, launches) -> list:
     by_rows = {}
     for n_ in (1, 1000, 8000, 33_000):
         x_ = X[:n_]
-        by_rows[n_] = dict(device_ms=device_ms(lambda: hash_rp(x_, a, b, w=w), 20),
-                           library_device_ms=device_ms(lambda: torch.addmm(b, x_, a), 20))
+        by_rows[n_] = dict(**device_ms(lambda: hash_rp(x_, a, b, w=w), 20),
+                           **device_ms(lambda: torch.addmm(b, x_, a), 20, key="library_device"))
     kernels.append(dict(
         name="hash_rp", route="cuda", source="src/repro_torch/kernels/csrc/hash_rp.cu",
         replaces="src/repro/kernels/hash_rp/hash_rp.py:41", launches=launches["hash_rp"],
@@ -1307,8 +1368,8 @@ def new_kernels_vs_plain(ctx, angular, dynamic, launches) -> list:
             plain_ms=median_ms(lambda: hash_xp_ref(x_, r_), 3),
             **bound(4 * (n_ * d_ + ma * d_ * dr + n_ * ma), 2 * n_ * ma * d_ * dr, FP32_FLOPS),
             library_ms=median_ms(lambda: x_ @ r_flat, 10),
-            device_ms=device_ms(lambda: hash_xp(x_, r_), 10),
-            library_device_ms=device_ms(lambda: x_ @ r_flat, 10),
+            **device_ms(lambda: hash_xp(x_, r_), 10),
+            **device_ms(lambda: x_ @ r_flat, 10, key="library_device"),
             shape=dict(n=n_, d=d_, m=ma, dr=dr))
         del r_flat
     del xw, rotw
@@ -1449,20 +1510,41 @@ KERNEL_GROUPS = (("flash_attn_kernel", "flash_attn"), ("ssm_scan_kernel", "ssm_s
 
 def profile_batch(engine, tokens: np.ndarray) -> None:
     """Where one served batch spends the card's time: torch.profiler over one
-    `serve_batch` (embed + search) on the static index, device time summed
-    by kernel group, and the share of the batch's wall time in which no
-    kernel ran (measured under the profiler, which adds host time)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    `serve_batch` (embed + search) on the static index, after an untimed
+    batch and a marker kernel in the same session; device time and kernels
+    summed by kernel group, and the share of the batch's wall time in which
+    no kernel ran (measured under the profiler, which adds host time).  The
+    flash_attn and ssm_scan kernels seen must equal their launches
+    (`common.LAUNCHES`) over the batch: a session that saw fewer is run
+    again, and after three the run fails."""
+    from repro_torch.kernels import common
+
+    out: dict = {}
+
+    def timed():
+        common.reset_launch_counts()
+        _, out["wall"] = sync_time(lambda: engine.serve_batch(tokens))
+        out["counts"] = common.launch_counts()
 
     engine.serve_batch(tokens)  # warm-up
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        _, wall = sync_time(lambda: engine.serve_batch(tokens))
-    kern = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    groups: dict = {}
-    for e in kern:
-        g = next((grp for frag, grp in KERNEL_GROUPS if frag in e.name.lower()), "other")
-        groups[g] = groups.get(g, 0.0) + e.time_range.elapsed_us() / 1e3
+    short = []
+    for _ in range(3):
+        kern = after_marker(lambda: engine.serve_batch(tokens), timed, pad_runs=1) or []
+        groups: dict = {}
+        seen: dict = {}
+        for e in kern:
+            g = next((grp for frag, grp in KERNEL_GROUPS if frag in e.name.lower()), "other")
+            groups[g] = groups.get(g, 0.0) + e.time_range.elapsed_us() / 1e3
+            seen[g] = seen.get(g, 0) + 1
+        expected = {k: out["counts"][k] for k in ("flash_attn", "ssm_scan")}
+        if any(seen.get(k, 0) > n for k, n in expected.items()):
+            fail(f"profile_batch: the profiler saw {seen}, more than the launches {expected}")
+        if all(seen.get(k, 0) == n for k, n in expected.items()):
+            break
+        short.append({k: seen.get(k, 0) for k in expected})
+    else:
+        fail(f"profile_batch: three profiler sessions saw {short} of the launches {expected}")
+    wall = out["wall"]
     spans = sorted((e.time_range.start, e.time_range.end) for e in kern)
     busy, end = 0.0, float("-inf")
     for a, b in spans:  # the union of the kernels' intervals
@@ -1472,7 +1554,8 @@ def profile_batch(engine, tokens: np.ndarray) -> None:
     emit(phase="profile_batch", arch=engine.cfg.name, batch=len(tokens), wall_ms=wall * 1e3,
          kernels=len(kern), device_busy_ms=busy_ms,
          idle_share=(1.0 - busy_ms / (wall * 1e3)) if kern else "not measured",
-         device_ms_by_group=groups)
+         device_ms_by_group=groups, launches_seen_by_group=seen, launches=expected,
+         short_sessions=short)
 
 
 def small_serve_vs_cpu(dev) -> None:
@@ -1513,19 +1596,34 @@ def small_serve_vs_cpu(dev) -> None:
 
 
 def flash_record(q, k, v, kw: dict) -> dict:
-    """flash_attn against its plain version on one input: error, times, the
-    bound counting only the unmasked (query, key) pairs, and the time of
-    scaled_dot_product_attention with the same mask (it has no softcap)."""
+    """flash_attn against its plain version on one input: error, times
+    (CUDA events around one call, and the mean device time of a launch under
+    torch.profiler with the launches it saw), the time of
+    scaled_dot_product_attention with the same mask (it has no softcap),
+    and the bound: the largest of the bytes (q, k, v read once, o written
+    once), the 3xTF32 tensor-core products (three MMAs of 4 dh operations
+    for every unmasked (query, key) pair) and the exps (one a pair, on the
+    special-function units); `bound_term` names it.  The float32 pipe's
+    time for the same products (`fp32` in bound_terms_ms, the bound of a
+    design without tensor cores) is reported beside them."""
+    from repro_torch.kernels import common
     from repro_torch.kernels.flash_attn import attn_mask, flash_attention, flash_attention_ref
 
     B, Sq, Hq, dh = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
+    before = common.launch_counts()["flash_attn"]
     out = flash_attention(q, k, v, **kw)
+    if common.launch_counts()["flash_attn"] != before + 1:
+        fail("flash_attn: a call did not launch its kernel once")
     ref = flash_attention_ref(q, k, v, **kw)
     torch.testing.assert_close(out, ref, **FLASH_TOL)
     mask = attn_mask(Sq, Skv, causal=kw["causal"], window=kw["window"], device=q.device)
     pairs = int(mask.sum()) * B * Hq
     nbytes = 4 * (2 * B * Sq * Hq * dh + 2 * B * Skv * Hkv * dh)
+    flops = 4 * dh * pairs
+    terms = dict(bytes=nbytes / HBM_BYTES_PER_S * 1e3, tf32x3=3 * flops / TF32_FLOPS * 1e3,
+                 exp=pairs / SFU_EXP_PER_S * 1e3)
+    term = max(terms, key=terms.get)
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     sdpa_mask = None if kw["window"] == 0 and Sq == Skv else mask
     sdpa_causal = kw["causal"] and sdpa_mask is None
@@ -1536,9 +1634,11 @@ def flash_record(q, k, v, kw: dict) -> dict:
 
     return dict(max_abs_err=float((out - ref).abs().max()),
                 ms=median_ms(lambda: flash_attention(q, k, v, **kw), 20),
+                **device_ms(lambda: flash_attention(q, k, v, **kw), 20, 1, "flash_attn_kernel"),
                 plain_ms=median_ms(lambda: flash_attention_ref(q, k, v, **kw), 5),
-                **bound(nbytes, 4 * dh * pairs, FP32_FLOPS),
-                library_ms=median_ms(sdpa, 20),
+                bound_ms=terms[term], bound_by="bytes" if term == "bytes" else "operations",
+                bound_term=term, bound_terms_ms=dict(terms, fp32=flops / FP32_FLOPS * 1e3),
+                library_ms=median_ms(sdpa, 20), **device_ms(sdpa, 20, key="library_device"),
                 shape=dict(B=B, Sq=Sq, Skv=Skv, Hq=Hq, Hkv=Hkv, dh=dh, **kw,
                            unmasked_pairs=pairs))
 
@@ -1546,7 +1646,7 @@ def flash_record(q, k, v, kw: dict) -> dict:
 def scan_record(dt, x, Bc, Cc, A, h0) -> dict:
     """ssm_scan (the wrapper) against its plain version on one input: error,
     times (CUDA events around one call, and the mean device time of a launch
-    under torch.profiler, with the number of launches it recorded of 20), and
+    under torch.profiler, with the launches it saw of 20), and
     the bound: the largest of the bytes (dt, x, B, C, A, h0 read once, y and
     h written once), the float32 operations (7 a state element and step) and
     the exps (one a state element and step, on the special-function units);
@@ -1564,12 +1664,9 @@ def scan_record(dt, x, Bc, Cc, A, h0) -> dict:
     terms = dict(bytes=nbytes / HBM_BYTES_PER_S * 1e3, fp32=7 * elems / FP32_FLOPS * 1e3,
                  exp=elems / SFU_EXP_PER_S * 1e3)
     term = max(terms, key=terms.get)
-    # one launch a call: the mean over the launches the profiler recorded
-    # (it may miss some of a session's first ones)
-    events = device_events(lambda: ssm_scan(dt, x, Bc, Cc, A, h0), 20)
     return dict(max_abs_err=max(float((y - y_ref).abs().max()), float((h - h_ref).abs().max())),
                 ms=median_ms(lambda: ssm_scan(dt, x, Bc, Cc, A, h0), 20),
-                device_ms=statistics.mean(events), device_launches_seen=len(events),
+                **device_ms(lambda: ssm_scan(dt, x, Bc, Cc, A, h0), 20, 1, "ssm_scan_kernel"),
                 plain_ms=median_ms(lambda: ssm_scan_batched_ref(dt, x, Bc, Cc, A, h0), 3),
                 bound_ms=terms[term], bound_by="bytes" if term == "bytes" else "operations",
                 bound_term=term, bound_terms_ms=terms, library_ms=None,
@@ -1579,7 +1676,7 @@ def scan_record(dt, x, Bc, Cc, A, h0) -> dict:
 def serve_kernels_vs_plain(serve: dict, launches: dict) -> list:
     """Phase 16: flash_attn and ssm_scan against their plain versions at the
     serving shape (the arguments recorded from one embedded batch) and at
-    long shapes (two for flash_attn, two for ssm_scan), timed beside their
+    long shapes (three for flash_attn, two for ssm_scan), timed beside their
     bounds (and SDPA for flash_attn)."""
     dev = torch.device("cuda", torch.cuda.current_device())
     g = torch.Generator(device=dev)
@@ -1591,12 +1688,18 @@ def serve_kernels_vs_plain(serve: dict, launches: dict) -> list:
     (q, k, v), kw = serve["recorded"]["flash_attn"]
     serving = flash_record(q, k, v, dict(kw))
     long = {}
-    B, S, Hq, Hkv, dh = 4, 2048, 16, 8, 256
-    q, k, v = randn(B, S, Hq, dh), randn(B, S, Hkv, dh), randn(B, S, Hkv, dh)
-    for tag, kw in (("window 1024, softcap 50", dict(causal=True, window=1024, softcap=50.0)),
-                    ("causal", dict(causal=True, window=0, softcap=0.0))):
+    causal = dict(causal=True, window=0, softcap=0.0)
+    # gemma2-9b's heads at a 2,048-token prompt, causal and with gemma2's
+    # window and softcap; gemma-2b's heads at a 4,096-token prompt
+    for tag, (B, S, Hq, Hkv, dh), kw in (
+            ("window 1024, softcap 50", (4, 2048, 16, 8, 256),
+             dict(causal=True, window=1024, softcap=50.0)),
+            ("causal", (4, 2048, 16, 8, 256), causal),
+            ("gemma-2b heads, B 1, S 4096, causal", (1, 4096, 8, 1, 256), causal)):
+        q, k, v = randn(B, S, Hq, dh), randn(B, S, Hkv, dh), randn(B, S, Hkv, dh)
         long[tag] = flash_record(q, k, v, kw)
-    del q, k, v
+        del q, k, v
+        torch.cuda.empty_cache()
     kernels = [dict(
         name="flash_attn", route="cuda", source="src/repro_torch/kernels/csrc/flash_attn.cu",
         replaces="src/repro/kernels/flash_attn/flash_attn.py:88",

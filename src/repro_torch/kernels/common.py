@@ -28,8 +28,9 @@ CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 DEFAULT_NVCC = Path("/usr/local/cuda/bin/nvcc")
 # no --use_fast_math: hash_rp's division and floor must stay IEEE, or a
-# projection moves across a bucket boundary; flash_attn and ssm_scan keep the
-# accurate expf and tanhf
+# projection moves across a bucket boundary; flash_attn and ssm_scan call
+# their approximate ex2 (and flash_attn's rcp) by name, where the error is
+# bounded in their sources
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 

@@ -6,14 +6,18 @@ rtol 1e-5 / atol 1e-5, fp32 summation order, and the fused verify bit for
 bit against the scan + its plain epilogue, also on
 tests/torch_verify_cases.py; hash_rp and hash_xp may differ only at a
 bucket boundary or a near tie, see `_rp_boundary` and `_xp_near_tie`;
-flash_attn within rtol/atol 1e-4 and ssm_scan within rtol/atol 1e-5, fp32
-summation order and expf/tanhf/ex2 ulps; ssm_scan also on
+flash_attn within rtol/atol 1e-4 (its 3xTF32 products and the float32
+summation order, ex2 and rcp ulps; also on tests/torch_flash_cases.py, and
+bit for bit from one launch to the next) and ssm_scan within rtol/atol 1e-5,
+fp32 summation order and ex2 ulps; ssm_scan also on
 tests/torch_scan_cases.py and against the plain mirror of its lanes).  They
 need a card and skip without one; `python3 chip_smoke.py` is the
 authoritative on-card run."""
 import numpy as np
 import pytest
 import torch
+from torch_flash_cases import FLASH_CASES
+from torch_flash_cases import make_case as make_flash_case
 from torch_pool_cases import POOL_CASES, make_pool
 from torch_probe_cases import PROBE_CASES, make_case
 from torch_scan_cases import SCAN_CASES, lanes_mirror
@@ -677,26 +681,37 @@ def test_segmented_on_card_matches_cpu(dev):
     assert after["circrun_topk"] > before["circrun_topk"]
 
 
-@pytest.mark.parametrize("B,Sq,Skv,Hq,Hkv,dh,causal,window,softcap", [
-    (32, 32, 32, 8, 1, 256, True, 0, 0.0),      # gemma-2b's serving shape
-    (2, 77, 77, 4, 2, 16, True, 0, 0.0),        # odd length, several tiles
-    (2, 40, 40, 4, 4, 64, False, 0, 0.0),       # non-causal, padded tail
-    (1, 8, 40, 2, 1, 40, True, 0, 0.0),         # Sq < Skv: the ends aligned
-    (2, 100, 100, 6, 3, 256, True, 33, 50.0),   # window + softcap (gemma2)
-    (1, 130, 130, 2, 2, 100, False, 17, 0.0),   # non-causal window
-    (1, 1, 1, 1, 1, 1, True, 0, 0.0),
-])
-def test_flash_attn_kernel_matches_plain(dev, B, Sq, Skv, Hq, Hkv, dh, causal, window, softcap):
-    rng = np.random.default_rng(Sq * dh + Hq)
-    q, k, v = (torch.from_numpy(rng.normal(size=(B, S, H, dh)).astype(np.float32)).to(dev)
-               for S, H in ((Sq, Hq), (Skv, Hkv), (Skv, Hkv)))
+@pytest.mark.parametrize("name", list(FLASH_CASES))
+def test_flash_attn_kernel_matches_plain(dev, name):
+    """tests/torch_flash_cases.py: gemma-2b's serving shape, head widths
+    padded to the kernel's 64-column steps (100 and 200 not a multiple of
+    the MMA's k), lengths off its tiles, Sq > Skv (leading rows 0), GQA
+    groups of 1, 2 and 8, a window narrower than a key tile, the softcap at
+    scores ~100, q or v scaled by 30."""
+    q, k, v, kw = make_flash_case(name)
+    q, k, v = (torch.from_numpy(t).to(dev) for t in (q, k, v))
+    B, Sq, Hq, dh = q.shape
     before = common.launch_counts()["flash_attn"]
-    out = flash_attention(q, k, v, causal=causal, window=window, softcap=softcap)
+    out = flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     assert common.launch_counts()["flash_attn"] == before + 1
-    ref = flash_attention_ref(q, k, v, causal=causal, window=window, softcap=softcap)
+    ref = flash_attention_ref(q, k, v, **kw)
     assert out.shape == (B, Sq, Hq, dh) and bool(torch.isfinite(out).all())
     torch.testing.assert_close(out, ref, rtol=1e-4, atol=1e-4)
+    empty = max(0, Sq - k.shape[1]) if kw["causal"] else 0
+    assert torch.equal(out[:, :empty], torch.zeros_like(out[:, :empty]))
+
+
+@pytest.mark.parametrize("name", ["gemma-2b serving", "window + softcap", "dh 100"])
+def test_flash_attn_kernel_is_deterministic(dev, name):
+    """Two launches on the same input give the same bits (no atomics, a
+    fixed order of every sum)."""
+    q, k, v, kw = make_flash_case(name)
+    q, k, v = (torch.from_numpy(t).to(dev) for t in (q, k, v))
+    a = flash_attention(q, k, v, **kw)
+    b = flash_attention(q, k, v, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(a.view(torch.int32), b.view(torch.int32))
 
 
 def test_flash_attn_kernel_rejects_what_it_does_not_take(dev):
