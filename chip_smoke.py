@@ -11,6 +11,15 @@ Drives the port's paths on one NVIDIA card at the paper's SIFT size
     store;
   * the angular path (the paper's sift-angular: normalised rows, the
     gaussian cross-polytope family): build + "lccs" search;
+  * the paper's comparison set (phase 8b, `repro_torch.baselines`) beside
+    LCCS on the first 1,000 queries of both paths, reusing their corpora
+    (checked equal to `paper_dataset_analogue`), exact kNN and indexes:
+    benchmarks/fig4_5_recall.py's grid (LCCS at lam 20-400, MP-LCCS at
+    probes 9 and 33, E2LSH, MultiProbeLSH, C2LSH, FALCONN-like on the
+    angular path, LinearScan), one line a point (QPS, recall@10, overall
+    ratio, build seconds, index bytes, candidates, launches), a summary
+    line, a theory line, and each baseline on the card against its CPU
+    build at n 20,000;
   * the dynamic path (SegmentedLCCSIndex, the main path's family): a bulk
     load into one segment, a stream of inserts into the delta buffer,
     deletes from both, search, a size-tiered compaction, search again;
@@ -61,6 +70,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from contextlib import contextmanager
 from pathlib import Path
 
@@ -114,11 +124,27 @@ EMB_TOL = dict(rtol=1e-4, atol=1e-5)
 # order of the online softmax (flash_attn) or of the C contraction (ssm_scan)
 FLASH_TOL = dict(rtol=1e-4, atol=1e-4)
 SCAN_TOL = dict(rtol=1e-5, atol=1e-5)
+# the baselines phase (8b): benchmarks/fig4_5_recall.py's grid over the first
+# 1,000 queries of the main and angular paths, and the card-vs-CPU check's size
+BASE_QUERIES, BASE_SMALL_N, BASE_SMALL_Q = 1_000, 20_000, 50
+BASE_LAMS, BASE_PROBES = (20, 50, 100, 200, 400), (9, 33)
+BASE_QUERY = dict(k=K, lam=400, cap_per_table=128)
+EUCLID_BASELINES = (("E2LSH", dict(K=2, L=16, w=W_BUCKET)), ("E2LSH", dict(K=4, L=32, w=W_BUCKET)),
+                    ("MultiProbeLSH", dict(K=4, L=8, w=W_BUCKET, n_probes=8)),
+                    ("C2LSH", dict(m=64, w=W_BUCKET, l_threshold=2)))
+ANGULAR_BASELINES = (("E2LSH", dict(K=1, L=16)), ("E2LSH", dict(K=2, L=32)),
+                     ("MultiProbeLSH", dict(K=2, L=8, n_probes=8)),
+                     ("C2LSH", dict(m=64, l_threshold=2)),
+                     ("FALCONNLike", dict(K=2, L=32, n_probes=8)))
 # untimed runs of a profiled function in each torch.profiler session, before
-# its marker kernel: late in a run a session misses its first few kernels
-# (6 of 20 in phase 16 of one run; with 5 runs of one kernel before it, the
-# marker itself was missed)
+# its marker kernel
 PROFILE_PAD = 32
+# tiny kernels launched first in each torch.profiler session, one entry a
+# try: the profiler drops the first kernels of a session, the more of them
+# the older the process, and late in a run that can be every kernel of a
+# short call with its pad and marker; a wait on the host does not reliably
+# help (tools/profiler_clock.py shows both)
+PROFILE_LEAD_KERNELS = (512, 4096, 32768)
 
 
 def emit(**rec) -> None:
@@ -162,16 +188,21 @@ def median_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
-def after_marker(pad, timed, pad_runs: int = PROFILE_PAD) -> list | None:
-    """Under one torch.profiler session: pad() `pad_runs` times, a marker
-    kernel (torch.cuda._sleep's spin_kernel), then timed().  Returns the
-    card's kernels that ran after the marker, in order of start; None when
-    the session recorded no marker.  A session late in a run may miss its
-    first kernels: the pad absorbs them."""
+def after_marker(pad, timed, pad_runs: int = PROFILE_PAD,
+                 lead: int = PROFILE_LEAD_KERNELS[0]) -> list | None:
+    """Under one torch.profiler session: `lead` tiny kernels, pad()
+    `pad_runs` times, a marker kernel (torch.cuda._sleep's spin_kernel), then
+    timed().  Returns the card's kernels that ran after the marker, in order
+    of start; None when the session recorded no marker.  The lead kernels
+    absorb the session's first kernels, which the profiler may drop
+    (PROFILE_LEAD_KERNELS)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    lead_buf = torch.zeros(1, device="cuda")
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(lead):
+            lead_buf.add_(1.0)
         for _ in range(pad_runs):
             pad()
         torch.cuda.synchronize()
@@ -189,8 +220,9 @@ def device_events(fn, reps: int, launches: int, match: str | None = None) -> lis
     the card under torch.profiler (after_marker, fn() as the pad), after
     one warm-up run; fn() launches `launches` kernels a run (of those whose
     name holds `match`, where given).  A session that saw fewer than reps x
-    launches kernels is run again; after three such sessions the run fails,
-    as it does at once on a session that saw more."""
+    launches kernels is run again with more lead kernels (PROFILE_LEAD_KERNELS);
+    after three such sessions the run fails, as it does at once on a session
+    that saw more."""
     fn()
     torch.cuda.synchronize()
     want, seen = reps * launches, []
@@ -199,8 +231,8 @@ def device_events(fn, reps: int, launches: int, match: str | None = None) -> lis
         for _ in range(reps):
             fn()
 
-    for _ in range(3):
-        timed = after_marker(fn, runs)
+    for lead in PROFILE_LEAD_KERNELS:
+        timed = after_marker(fn, runs, lead=lead)
         if timed is not None:
             timed = [e for e in timed if match is None or match in e.name]
             if len(timed) == want:
@@ -216,11 +248,14 @@ def device_events(fn, reps: int, launches: int, match: str | None = None) -> lis
 def kernels_per_call(fn) -> int:
     """The number of kernels one run of fn() launches on the card, counted by
     torch.profiler after a marker (the most of two sessions: a session can
-    only miss kernels)."""
-    counts = [len(after_marker(fn, fn) or []) for _ in range(2)]
-    if max(counts) == 0:
-        fail("device_ms: two profiler sessions saw no kernel of one call on the card")
-    return max(counts)
+    only miss kernels; a third, with the most lead kernels of
+    PROFILE_LEAD_KERNELS, where both saw none)."""
+    counts = []
+    for lead in PROFILE_LEAD_KERNELS:
+        counts.append(len(after_marker(fn, fn, lead=lead) or []))
+        if len(counts) >= 2 and max(counts) > 0:
+            return max(counts)
+    fail("device_ms: three profiler sessions saw no kernel of one call on the card")
 
 
 def device_ms(fn, reps: int, launches: int | None = None, match: str | None = None,
@@ -618,11 +653,16 @@ def run(dev: torch.device) -> None:
     # -- 8.-12. the paths of the second slice ---------------------------------
     del index8
     torch.cuda.empty_cache()
-    ctx = dict(dev=dev, X=X, Q=Q, X_np=X_np, truth=truth, src_rows=src_rows, index=index)
+    ctx = dict(dev=dev, X=X, Q=Q, X_np=X_np, truth=truth, src_rows=src_rows, index=index,
+               build_s=build_s)
     angular = run_angular(ctx)
+    base_counts = run_baselines(ctx, angular)
+    for key in ("index", "X", "Q", "truth"):
+        del angular[key]
+    torch.cuda.empty_cache()
     dynamic = run_dynamic(ctx)
     brute_counts = run_bruteforce(ctx)
-    for part in (angular["counts"], dynamic["counts"], brute_counts):
+    for part in (angular["counts"], base_counts, dynamic["counts"], brute_counts):
         for k in launches:
             launches[k] += part[k]
     for rec in kernels:  # every path's launches, not only the main path's
@@ -1014,11 +1054,252 @@ def run_angular(ctx) -> dict:
     require(counts, ANGULAR_KERNELS, "angular")
     if top1 < 0.90:
         fail(f"angular lccs top-1 self-retrieval {top1} < 0.90")
-    out = dict(counts=counts, family=aidx.family, x_rows=Xa[:65_536].clone(),
-               queries=Qa[:BATCH].clone())
-    del aidx, Xa, Qa
-    torch.cuda.empty_cache()
-    return out
+    # the index, corpus, queries and exact kNN stay for the baselines phase
+    return dict(counts=counts, family=aidx.family, x_rows=Xa[:65_536].clone(),
+                queries=Qa[:BATCH].clone(), index=aidx, X=Xa, Q=Qa, truth=truth,
+                build_s=build_s)
+
+
+def timed_call(call):
+    """The paper's timing (`benchmarks/common.py:timed`): one warm-up call,
+    whose kernel launches are counted, then the median of 2 calls on the
+    host clock fenced by synchronize.  Returns (result, counts, seconds)."""
+    from repro_torch.kernels import common
+
+    common.reset_launch_counts()
+    out, _ = sync_time(call)
+    counts = common.launch_counts()
+    secs = []
+    for _ in range(2):
+        out, s = sync_time(call)
+        secs.append(s)
+    return out, counts, statistics.median(secs)
+
+
+def overall_ratio(dists: torch.Tensor, gt_d: torch.Tensor) -> float:
+    """`benchmarks/common.py:overall_ratio`: the mean over the k ranks of
+    Dist(o_i, q) / Dist(o_i*, q), 1 where a rank is missing or the true
+    distance is 0."""
+    d, g = dists.double(), gt_d.double()
+    ok = torch.isfinite(d) & (g > 1e-12)
+    return float(torch.where(ok, d / g.clamp(min=1e-12), torch.ones_like(d)).mean())
+
+
+def run_baselines(ctx, angular) -> dict:
+    """Phase 8b: the paper's comparison set (§6.3) beside LCCS at the SIFT
+    shape, on the main and angular paths' corpora, exact kNN and LCCS
+    indexes: benchmarks/fig4_5_recall.py's grid over the first 1,000
+    queries, one JSON line a point, a summary line (the lower-envelope
+    reading of Figs. 4/5), the theory line, and each baseline on the card
+    against its CPU build at n 20,000.  Returns the counted launches."""
+    from repro_torch.data import paper_dataset_analogue
+    from repro_torch.kernels import common
+
+    t0 = time.perf_counter()
+    # the two corpora are the paper's dataset analogues, bit for bit
+    for name, corpus in (("sift", ctx["X_np"]), ("sift-angular", angular["X"].cpu().numpy())):
+        analogue, _ = paper_dataset_analogue(name)
+        if not np.array_equal(corpus, analogue):
+            fail(f"the {name} corpus is not paper_dataset_analogue({name!r})")
+        del analogue
+    emit(phase="baselines_data", sift="paper_dataset_analogue('sift')",
+         sift_angular="paper_dataset_analogue('sift-angular')", n_clusters=100,
+         query_jitter=dict(sift=0.05, sift_angular=0.001), queries=BASE_QUERIES, ok=True)
+    counts = dict.fromkeys(common.LAUNCHES, 0)
+    keys = ("index", "X", "Q", "truth", "build_s")
+    for tag, path in (("euclidean", ctx), ("angular", angular)):
+        part = compare_methods(tag, **{k: path[k] for k in keys})
+        counts = {k: counts[k] + part.get(k, 0) for k in counts}
+    common.reset_launch_counts()
+    theory_line(ctx)
+    counts = {k: counts[k] + v for k, v in common.launch_counts().items()}
+    baselines_vs_cpu(ctx, angular)
+    emit(phase="baselines_done", seconds=time.perf_counter() - t0,
+         launches={k: v for k, v in counts.items() if v})
+    return counts
+
+
+def compare_methods(metric: str, index, X, Q, truth, build_s) -> dict:
+    """One metric's points: LCCS at each lam (and MP-LCCS at each probes x
+    lam on the Euclidean path) through the path's index, each baseline
+    built on the card, LinearScan; then the summary line."""
+    from repro_torch import baselines
+    from repro_torch.core import SearchParams, candidates, lsh
+
+    angular = metric == "angular"
+    Qb, truth = Q[:BASE_QUERIES], truth[:BASE_QUERIES].long()
+    gt_d = lsh.distance(X[truth], Qb[:, None, :], metric).sort(dim=1).values
+    hash_kernel = "hash_xp" if angular else "hash_rp"
+    points, total = [], {}
+
+    def point(method, params, call, build_seconds, index_bytes, cands=None, obj=None):
+        (ids, dists), counts, secs = timed_call(call)
+        if ids.shape != (BASE_QUERIES, K) or dists.shape != ids.shape or ids.dtype != torch.int32:
+            fail(f"{metric} {method}: bad output shapes {tuple(ids.shape)} {tuple(dists.shape)}")
+        if not torch.isfinite(dists[ids >= 0]).all():
+            fail(f"{metric} {method}: non-finite distances")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        rec = dict(phase="baselines", metric=metric, method=method, params=params,
+                   queries=BASE_QUERIES, build_s=build_seconds, qps=BASE_QUERIES / secs,
+                   seconds=secs, recall_at_10=recall_at_k(ids, truth),
+                   ratio=overall_ratio(dists, gt_d), index_bytes=index_bytes,
+                   last_cands=obj.last_cands if obj is not None else cands,
+                   empty_queries=int((ids[:, 0] < 0).sum()),
+                   launches={k: v for k, v in counts.items() if v})
+        emit(**rec)
+        points.append(rec)
+        return rec, counts
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore")  # from_legacy's width < lam warning, as the grid takes it
+        for probes in ((1,) + BASE_PROBES if not angular else (1,)):
+            for lam in BASE_LAMS:
+                p = SearchParams.from_legacy(k=K, lam=lam, probes=probes)
+                cand = int((candidates(index, Qb, p)[0] >= 0).sum())
+                point("LCCS" if probes == 1 else "MP-LCCS",
+                      dict(lam=lam, probes=probes, source=p.source, width=p.resolved_width()),
+                      lambda: index.search(Qb, p), build_s, index.index_bytes(), cands=cand)
+    grid = ANGULAR_BASELINES if angular else EUCLID_BASELINES
+    for method, kw in grid:
+        kw = dict(kw, family="angular", rotation="gaussian") if angular else kw
+        obj, b_s = sync_time(lambda: getattr(baselines, method).build(X, seed=0, device=X.device,
+                                                                      **kw))
+        _, counts = point(method, kw, lambda: obj.query(Qb, **BASE_QUERY), b_s,
+                             obj.stats()["index_bytes"], obj=obj)
+        require(counts, (hash_kernel, "gather_l2_topk"), f"{metric} {method} {kw}")
+        del obj
+    scan = baselines.LinearScan.build(X, metric=metric, device=X.device)
+    rec, _ = point("LinearScan", dict(metric=metric), lambda: scan.query(Qb, k=K), 0.0, 0)
+    if rec["recall_at_10"] < 0.999:
+        fail(f"{metric} LinearScan recall@10 {rec['recall_at_10']} < 0.999")
+    emit(phase="baselines_summary", metric=metric, **envelope(points))
+    return total
+
+
+def envelope(points: list) -> dict:
+    """The lower-envelope reading of Figs. 4/5: each method's best recall and
+    its QPS there, beside LCCS's QPS at the smallest lam that reaches that
+    recall (None where no lam does)."""
+    lccs = sorted((p for p in points if p["method"] == "LCCS"), key=lambda p: p["params"]["lam"])
+    methods = {}
+    for name in dict.fromkeys(p["method"] for p in points if p["method"] != "LCCS"):
+        best = max((p for p in points if p["method"] == name),
+                   key=lambda p: (p["recall_at_10"], p["qps"]))
+        reach = next((p for p in lccs if p["recall_at_10"] >= best["recall_at_10"]), None)
+        methods[name] = dict(best_recall=best["recall_at_10"], qps=best["qps"],
+                             params=best["params"],
+                             lccs_lam=None if reach is None else reach["params"]["lam"],
+                             lccs_qps=None if reach is None else reach["qps"])
+    return dict(methods=methods, lccs=[dict(lam=p["params"]["lam"], recall=p["recall_at_10"],
+                                            qps=p["qps"]) for p in lccs])
+
+
+def theory_line(ctx) -> None:
+    """The paper's closed forms beside what cell 1's family does on the
+    first 1,000 queries and their exact nearest neighbours: the
+    per-function collision rate, the mean of Eq. 2 at those pairs'
+    distances, the pairs' |LCCS| (the circrun kernel, one launch over the
+    batch, its diagonal) beside Lemma 5.2's median, and Theorem 5.1's lambda
+    for p1 at the median distance and p2 at twice it."""
+    from repro_torch.core import lsh, theory
+    from repro_torch.kernels.circrun import circrun
+
+    X, fam = ctx["X"], ctx["index"].family
+    Qb = ctx["Q"][:BASE_QUERIES]
+    nn = X[ctx["truth"][:BASE_QUERIES, 0]]
+    hq, hn = fam.hash(Qb), fam.hash(nn)
+    tau = lsh.distance(nn, Qb, "euclidean").double().cpu().numpy()
+    lens = circrun(hn, hq).diagonal()
+    tau_med = float(np.median(tau))
+    p1, p2 = fam.collision_prob(tau_med), fam.collision_prob(2 * tau_med)
+    rec = dict(phase="baselines_theory", family=dict(kind="euclidean", m=M, w=W_BUCKET),
+               pairs=BASE_QUERIES, tau_median=tau_med,
+               collision_rate=float((hq == hn).double().mean()),
+               rp_collision_prob_mean=float(np.mean([theory.rp_collision_prob(t, W_BUCKET)
+                                                     for t in tau])),
+               p1=p1, p2=p2, rho=theory.rho(p1, p2),
+               lccs_mean=float(lens.double().mean()), lccs_median_lemma52=theory.lccs_median(M, p1),
+               theorem51_lambda=theory.theorem51_lambda(M, N, p1, p2))
+    emit(**rec)
+    bad = [k for k, v in rec.items() if isinstance(v, float) and not np.isfinite(v)]
+    if bad:
+        fail(f"the theory line has non-finite values: {bad}")
+
+
+def baselines_vs_cpu(ctx, angular) -> None:
+    """Each baseline of the grid built on the card and on the CPU over one
+    family, at n 20,000 and 50 queries: ids and last_cands equal, distances
+    within GATHER_TOL.  Rows, queries and families are dyadic (exact
+    projections on both devices, as phase 10), so the hashes agree bit for
+    bit and any difference is a fault."""
+    from repro_torch import baselines
+    from repro_torch.kernels import common
+
+    dev = ctx["dev"]
+    rows = {"euclidean": dyadic(ctx["X_np"][:BASE_SMALL_N]),
+            "angular": dyadic(angular["x_rows"][:BASE_SMALL_N].cpu(), bits=10)}
+    queries = {"euclidean": rows["euclidean"][:BASE_SMALL_Q] + 0.0625,
+               "angular": rows["angular"][:BASE_SMALL_Q] + 2.0 ** -8}
+    checked = []
+    for metric in ("euclidean", "angular"):
+        grid = ANGULAR_BASELINES if metric == "angular" else EUCLID_BASELINES
+        for method, kw in grid + (("LinearScan", dict(metric=metric)),):
+            fam = None
+            if method != "LinearScan":
+                fam = small_family(metric, kw["m"] if method == "C2LSH" else kw["K"] * kw["L"])
+            out = {}
+            for device in ("cpu", dev):
+                dkw = dict(kw) if fam is None else dict(kw, family=family_on(fam, device))
+                obj = getattr(baselines, method).build(rows[metric], seed=0, device=device,
+                                                       **dkw)
+                common.reset_launch_counts()
+                ids, dists = obj.query(queries[metric], **BASE_QUERY)
+                out["card" if device == dev else "cpu"] = (
+                    ids.cpu(), dists.cpu(), getattr(obj, "last_cands", None),
+                    common.launch_counts())
+            (ci, cd, cc, _), (gi, gd, gc, counts) = out["cpu"], out["card"]
+            if fam is not None:
+                require(counts, ("hash_xp" if metric == "angular" else "hash_rp",
+                                 "gather_l2_topk"), f"small {metric} {method}")
+            bad = ~((ci == gi).all(dim=1) & torch.isclose(cd, gd, **GATHER_TOL).all(dim=1))
+            if bool(bad.any()) or cc != gc:
+                b = int(bad.nonzero()[0, 0]) if bool(bad.any()) else 0
+                emit(phase="baselines_mismatch", metric=metric, method=method, params=kw,
+                     first_query=b, cpu_ids=ci[b].tolist(), card_ids=gi[b].tolist(),
+                     cpu_dists=cd[b].tolist(), card_dists=gd[b].tolist(),
+                     differing_queries=int(bad.sum()), cpu_last_cands=cc, card_last_cands=gc)
+                fail(f"small input: {metric} {method} {kw} differs between card and CPU")
+            checked.append(f"{metric} {method} {kw}")
+    emit(phase="baselines_vs_cpu", n=BASE_SMALL_N, queries=BASE_SMALL_Q, checked=checked,
+         tolerance=dict(ids="equal", dists=GATHER_TOL), ok=True)
+
+
+def family_on(fam, device):
+    """A copy of family `fam` on `device`, through its arrays."""
+    import dataclasses
+
+    from repro_torch.core import lsh
+
+    fields = {f.name: getattr(fam, f.name) for f in dataclasses.fields(fam)}
+    return lsh.family_from_arrays(type(fam).__name__, {
+        k: v.cpu().numpy() if isinstance(v, torch.Tensor) else v for k, v in fields.items()},
+        device)
+
+
+def small_family(metric: str, m: int):
+    """A CPU family of m functions with dyadic parameters: the Euclidean
+    phase 10 way (a and b to 2^-4), or a gaussian rotation to 2^-12, whose
+    products with rows to 2^-10 sum exactly in float32."""
+    from repro_torch.core import lsh
+
+    if metric == "euclidean":
+        fam = lsh.make_family("euclidean", 0, D, m, w=W_BUCKET)
+        fam.a, fam.b = (torch.from_numpy(dyadic(t)) for t in (fam.a, fam.b))
+        return fam
+    fam = lsh.make_family("angular", 0, D, m, rotation="gaussian")
+    fam.rot = torch.from_numpy(dyadic(fam.rot, bits=12))
+    return fam
 
 
 def run_dynamic(ctx) -> dict:
@@ -1516,7 +1797,8 @@ def profile_batch(engine, tokens: np.ndarray) -> None:
     no kernel ran (measured under the profiler, which adds host time).  The
     flash_attn and ssm_scan kernels seen must equal their launches
     (`common.LAUNCHES`) over the batch: a session that saw fewer is run
-    again, and after three the run fails."""
+    again with more lead kernels (PROFILE_LEAD_KERNELS), and after three
+    the run fails."""
     from repro_torch.kernels import common
 
     out: dict = {}
@@ -1528,8 +1810,9 @@ def profile_batch(engine, tokens: np.ndarray) -> None:
 
     engine.serve_batch(tokens)  # warm-up
     short = []
-    for _ in range(3):
-        kern = after_marker(lambda: engine.serve_batch(tokens), timed, pad_runs=1) or []
+    for lead in PROFILE_LEAD_KERNELS:
+        kern = after_marker(lambda: engine.serve_batch(tokens), timed, pad_runs=1,
+                            lead=lead) or []
         groups: dict = {}
         seen: dict = {}
         for e in kern:

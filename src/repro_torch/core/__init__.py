@@ -1,9 +1,11 @@
 """LCCS-LSH core, PyTorch port of `repro.core`: `LCCSIndex`, the dynamic
-`SegmentedLCCSIndex`, `SearchParams` + the candidate-source registry."""
-from . import multiprobe
-from .bruteforce import bruteforce_topk
+`SegmentedLCCSIndex`, `SearchParams` + the candidate-source registry, the
+paper's closed forms (`theory`) and the verify the baselines share
+(`verify_candidates`)."""
+from . import multiprobe, theory
+from .bruteforce import bruteforce_topk, circ_run_lengths
 from .csa import CSA, build_csa, circular_ranks
-from .index import LCCSIndex, candidates, resolve_device, search
+from .index import LCCSIndex, candidates, resolve_device, search, verify_candidates
 from .lsh import (
     BitSamplingLSH,
     CrossPolytopeLSH,
@@ -33,6 +35,7 @@ __all__ = [
     "bruteforce_topk",
     "build_csa",
     "candidates",
+    "circ_run_lengths",
     "circular_ranks",
     "distance",
     "family_from_arrays",
@@ -45,4 +48,6 @@ __all__ = [
     "register_source",
     "resolve_device",
     "search",
+    "theory",
+    "verify_candidates",
 ]

@@ -12,12 +12,18 @@ from __future__ import annotations
 
 import torch
 
-from ..kernels.circrun import circrun_topk
+from ..kernels.circrun import circrun, circrun_topk
 from .search import _pad_lam
 
 # (queries, rows) lengths one chunk of the CPU route may hold: 256 MB of
 # int32, and twice that in the int64 ranking keys of `topk_largest_lcp`
 _LENS_ELEMS = 1 << 26
+
+
+def circ_run_lengths(h: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """h: (n, m) int32, q: (m,) int32 -> (n,) int32 LCCS lengths: the
+    `circrun` kernel on a CUDA tensor, its plain version on a CPU tensor."""
+    return circrun(h, q)
 
 
 def circ_topk(h: torch.Tensor, q_hash: torch.Tensor, k: int, ok: torch.Tensor | None = None):

@@ -254,6 +254,22 @@ class LCCSIndex:
         )
 
 
+def verify_candidates(data: torch.Tensor, queries: torch.Tensor, cand_ids: torch.Tensor,
+                      k: int, metric: str):
+    """True distances of the candidates `cand_ids` (B, lam) int32, -1 padded,
+    over the rows of `data` (n, d) float32, and the nearest k per query.
+    Returns (ids (B, k) int32, dists (B, k) float32); missing slots are
+    id -1, dist inf.  The port's exact verify (`exec.stages.exact_topk`)
+    over an fp32 store that wraps `data` without a copy: the fused
+    `gather_l2_topk` kernel on CUDA tensors, its plain version on CPU
+    tensors (Euclidean and angular; other metrics take the plain scan)."""
+    store = store_mod.Fp32Store.from_dense(data)
+    queries = queries.to(device=store.rows.device, dtype=torch.float32).contiguous()
+    cand_ids = cand_ids.to(device=store.rows.device, dtype=torch.int32).contiguous()
+    return exec_stages.exact_topk(store, queries, cand_ids, cand_ids, k, metric,
+                                  use_kernel=True)
+
+
 # ---------------------------------------------------------------------------
 # Functional search API
 # ---------------------------------------------------------------------------

@@ -8,6 +8,11 @@ provides:
       vals:   (B, m, n_alt) int32  -- alternative hash values per position,
       scores: (B, m, n_alt) float  -- ascending penalty per alternative
                                       (consumed by MP-LCCS-LSH, Algorithm 3).
+  query_alternatives(q: (d,)) -> (vals, scores)    single-query numpy wrapper
+                                                   around `alternatives`.
+  collision_prob(tau) -> float                     the family's closed-form
+                                                   per-function collision
+                                                   probability (`theory`).
 
 Families are dataclasses holding tensors; `create` draws new parameters from
 a `torch.Generator` seeded with `seed` (on the CPU, then moved to `device`,
@@ -41,10 +46,19 @@ import torch
 from ..kernels.common import no_tf32
 from ..kernels.hash_rp import hash_rp
 from ..kernels.hash_xp import hash_xp
+from . import theory
 
 
 def _next_pow2(x: int) -> int:
     return 1 << (x - 1).bit_length()
+
+
+def _query_alternatives(family, q: np.ndarray, n_alt: int):
+    """`family.alternatives` of one query: (d,) numpy in, (m, n_alt) numpy
+    vals and scores out, computed on the family's device."""
+    x = torch.as_tensor(np.asarray(q), device=family.device)[None, :]
+    vals, scores = family.alternatives(x, n_alt)
+    return vals[0].cpu().numpy(), scores[0].cpu().numpy()
 
 
 def _generator(seed: int) -> torch.Generator:
@@ -101,6 +115,10 @@ class RandomProjectionLSH:
     def d(self) -> int:
         return self.a.shape[0]
 
+    @property
+    def device(self) -> torch.device:
+        return self.a.device
+
     def projections(self, x: torch.Tensor) -> torch.Tensor:
         no_tf32()
         return x.to(torch.float32) @ self.a + self.b
@@ -108,6 +126,9 @@ class RandomProjectionLSH:
     def hash(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(torch.float32).contiguous()
         return hash_rp(x, self.a.contiguous(), self.b.contiguous(), w=self.w)
+
+    def collision_prob(self, tau: float) -> float:
+        return theory.rp_collision_prob(tau, self.w)
 
     def alternatives(self, x: torch.Tensor, n_alt: int = 4):
         """Multi-Probe LSH (Lv et al. 2007) alternatives: h +- j, scored by
@@ -130,6 +151,9 @@ class RandomProjectionLSH:
             torch.gather(vals, -1, order).to(torch.int32),
             torch.gather(scores, -1, order),
         )
+
+    def query_alternatives(self, q: np.ndarray, n_alt: int = 4):
+        return _query_alternatives(self, q, n_alt)
 
 
 # ---------------------------------------------------------------------------
@@ -188,6 +212,10 @@ class CrossPolytopeLSH:
     def m(self) -> int:
         return self.signs.shape[0] if self.rotation == "pseudo" else self.rot.shape[0]
 
+    @property
+    def device(self) -> torch.device:
+        return self.signs.device if self.rot is None else self.rot.device
+
     def rotations(self, x: torch.Tensor) -> torch.Tensor:
         """(n, d) -> (n, m, dr) rotated copies."""
         no_tf32()
@@ -211,6 +239,9 @@ class CrossPolytopeLSH:
         sgn = torch.gather(y, -1, idx[..., None])[..., 0] < 0
         return (idx + torch.where(sgn, self.dr, 0)).to(torch.int32)
 
+    def collision_prob(self, tau: float) -> float:
+        return theory.xp_collision_prob(tau, self.dr)
+
     def alternatives(self, x: torch.Tensor, n_alt: int = 4):
         """FALCONN-style alternatives: other cross-polytope vertices ranked by
         margin (|y_top| - |y_j|)^2.  Of the n_alt + 1 best vertices, the one
@@ -226,6 +257,9 @@ class CrossPolytopeLSH:
         vals = torch.gather(verts, -1, keep)
         scores = (top_vals[..., :1] - torch.gather(top_vals, -1, keep)) ** 2
         return vals, scores
+
+    def query_alternatives(self, q: np.ndarray, n_alt: int = 4):
+        return _query_alternatives(self, q, n_alt)
 
 
 # ---------------------------------------------------------------------------
@@ -250,8 +284,16 @@ class BitSamplingLSH:
     def m(self) -> int:
         return self.idx.shape[0]
 
+    @property
+    def device(self) -> torch.device:
+        return self.idx.device
+
     def hash(self, x: torch.Tensor) -> torch.Tensor:
         return x[:, self.idx.long()].to(torch.int32)
+
+    def collision_prob(self, tau: float) -> float:
+        # tau = Hamming distance; p = 1 - tau/d
+        return max(0.0, 1.0 - tau / self.d)
 
     def alternatives(self, x: torch.Tensor, n_alt: int = 1):
         """Only one alternative per bit: flip it.  x: (B, d) binary."""
@@ -259,6 +301,9 @@ class BitSamplingLSH:
         vals = (1 - qv)[..., None]
         scores = torch.ones(vals.shape, dtype=torch.float32, device=x.device)
         return vals, scores
+
+    def query_alternatives(self, q: np.ndarray, n_alt: int = 1):
+        return _query_alternatives(self, q, n_alt)
 
 
 FAMILIES = {

@@ -30,6 +30,22 @@ def clustered_vectors(
     return X.astype(dtype)
 
 
+def paper_dataset_analogue(name: str, *, scale: float = 1.0, seed: int = 0):
+    """A scaled synthetic stand-in for one of the paper's datasets
+    (`configs.lccs_ann.DATASETS[name]`), with its config.  `scale` shrinks n
+    (1.0 = paper size, at least 1,000 rows)."""
+    from ..configs.lccs_ann import DATASETS
+
+    cfg = DATASETS[name]
+    n = max(1000, int(cfg.n * scale))
+    return (
+        clustered_vectors(
+            n, cfg.d, seed=seed, normalize=(cfg.metric == "angular")
+        ),
+        cfg,
+    )
+
+
 def queries_from(X: np.ndarray, n_queries: int, *, jitter: float = 0.05, seed: int = 1):
     rng = np.random.default_rng(seed)
     idx = rng.choice(X.shape[0], n_queries, replace=False)

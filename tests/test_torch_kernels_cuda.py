@@ -837,3 +837,63 @@ def test_smoke_model_on_card_matches_cpu(dev, arch):
     kernel = "ssm_scan" if cfg.family == "ssm" else "flash_attn"
     assert after[kernel] - before[kernel] == cfg.n_layers
     torch.testing.assert_close(out.cpu(), cpu(toks), rtol=1e-4, atol=1e-4)
+
+
+def _family_on(fam, device):
+    import dataclasses
+
+    fields = {f.name: getattr(fam, f.name) for f in dataclasses.fields(fam)}
+    return lsh.family_from_arrays(type(fam).__name__, {
+        k: v.cpu().numpy() if isinstance(v, torch.Tensor) else v for k, v in fields.items()},
+        device)
+
+
+@pytest.mark.parametrize("method,metric,kw", [
+    ("E2LSH", "euclidean", dict(K=4, L=8)), ("MultiProbeLSH", "euclidean", dict(K=4, L=4)),
+    ("C2LSH", "euclidean", dict(m=32, l_threshold=2)), ("LinearScan", "euclidean", {}),
+    ("E2LSH", "angular", dict(K=1, L=16)), ("MultiProbeLSH", "angular", dict(K=2, L=8)),
+    ("FALCONNLike", "angular", dict(K=2, L=8)), ("C2LSH", "angular", dict(m=32)),
+    ("LinearScan", "angular", {}),
+])
+def test_baseline_on_card_matches_cpu(dev, method, metric, kw):
+    """Each baseline built on the card and on the CPU over one family: ids
+    and last_cands equal, distances within rtol/atol 1e-5; the card's query
+    launched its hash kernel and the fused verify (no plain route).  Rows
+    and family are dyadic, so projections are exact on both devices."""
+    from repro_torch import baselines
+
+    rng = np.random.default_rng(11)
+    X = rng.normal(size=(3000, 32)) * 3
+    if metric == "angular":
+        X = _dyadic(X / np.linalg.norm(X, axis=1, keepdims=True), bits=10).astype(np.float32)
+        Q = X[:40] + 2.0 ** -8
+    else:
+        X = _dyadic(X).astype(np.float32)
+        Q = X[:40] + 0.25
+    cls = getattr(baselines, method)
+    if method == "LinearScan":
+        built = [cls.build(X, metric=metric, device=d) for d in ("cpu", dev)]
+    else:
+        m = kw["m"] if method == "C2LSH" else kw["K"] * kw["L"]
+        if metric == "euclidean":
+            fam = lsh.make_family("euclidean", 2, 32, m, w=4.0)
+            fam.a = torch.from_numpy(_dyadic(fam.a).astype(np.float32))
+            fam.b = torch.from_numpy(_dyadic(fam.b).astype(np.float32))
+        else:
+            fam = lsh.make_family("angular", 2, 32, m, rotation="gaussian")
+            fam.rot = torch.from_numpy(_dyadic(fam.rot, bits=12).astype(np.float32))
+        built = [cls.build(X, family=_family_on(fam, d), device=d, **kw) for d in ("cpu", dev)]
+    cpu, card = built
+    q = dict(k=10, lam=200, cap_per_table=64)
+    ci, cd = cpu.query(Q, **q)
+    before = common.launch_counts()
+    gi, gd = card.query(Q, **q)
+    after = common.launch_counts()
+    assert gi.device.type == "cuda"
+    assert torch.equal(ci, gi.cpu())
+    torch.testing.assert_close(gd.cpu(), cd, rtol=1e-5, atol=1e-5)
+    assert getattr(cpu, "last_cands", None) == getattr(card, "last_cands", None)
+    if method != "LinearScan":
+        hash_kernel = "hash_xp" if metric == "angular" else "hash_rp"
+        assert after[hash_kernel] > before[hash_kernel]
+        assert after["gather_l2_topk"] > before["gather_l2_topk"]
