@@ -32,6 +32,16 @@ Drives the port's paths on one NVIDIA card at the paper's SIFT size
     falcon-mamba-7b (64 Mamba-1 layers, the ssm_scan kernel) over 1,024
     documents and 128 requests; each static, then as a dynamic stream with
     an insert / delete / compact burst;
+  * gemma-2b's static index behind the async serving front (phase
+    `serve_async`, `launch.serve --async`'s own `_serve_async` and
+    `_obs_epilogue`): 256 requests submitted at once to two replicas that
+    share the model and the index, a 500 ms SLO, a /metrics scrape while
+    they are served and the recall-drift probe after; the answers held to
+    `serve_batch`'s, no plan built or evicted after warm-up, and the same
+    requests through instrumented plans bit for bit against the fused ones,
+    with the stage histogram's per-stage medians; then one run of the CLI
+    with every flag of the async front on a smoke model
+    (`serve_async_cli`);
   * the same smoke-size models on the card and on the CPU.
 
 It builds the CUDA kernels from the sources in the checkout, shows through
@@ -65,11 +75,15 @@ repository beside it, the script fails before printing a result.
 from __future__ import annotations
 
 import json
+import os
+import re
 import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
+import urllib.request
 import warnings
 from contextlib import contextmanager
 from pathlib import Path
@@ -117,6 +131,20 @@ SERVE = (("gemma-2b", 4096, 256), ("falcon-mamba-7b", 1024, 128))
 SERVE_TOKENS, SERVE_M, SERVE_BATCH = 32, 32, 32
 SERVE_KERNEL = {"gemma-2b": "flash_attn", "falcon-mamba-7b": "ssm_scan"}
 SMALL_SERVE_DOCS = 256
+# phase serve_async, on gemma-2b's static index: the serving CLI's --async
+# front as `launch.serve` drives it (its defaults: all requests submitted at
+# once, a 500 ms SLO), two replicas, a /metrics scrape and the drift probe
+ASYNC_ARGS = ("--async", "--replicas", "2", "--slo-ms", "500", "--queue-depth", "256",
+              "--metrics-port", "0", "--drift-probe", "64")
+# one run of the CLI itself with every flag of the async front (smoke model)
+ASYNC_CLI = ("--smoke", "--async", "--replicas", "2", "--instrument", "--metrics-port", "0",
+             "--drift-probe", "16", "--slo-ms", "500", "--queue-depth", "256",
+             "--stats-interval", "1")
+# the spans a traced async run must hold
+ASYNC_SPANS = {"router.submit", "queue_wait", "serve_batch", "embed", "search",
+               "exec.hash_queries", "exec.probe", "exec.gather"}
+# a Prometheus text-format sample line
+PROM_SAMPLE = re.compile(r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^}]*\})? [^ ]+$')
 # card vs CPU embeddings of the smoke models: float32 through a few layers,
 # cuBLAS against the CPU's summation order
 EMB_TOL = dict(rtol=1e-4, atol=1e-5)
@@ -1705,6 +1733,10 @@ def run_serving(dev) -> dict:
                 counts[k] += run_counts[k]
             if not dynamic:  # after the static run's counts are read
                 profile_batch(engine, corpus[:SERVE_BATCH])
+                if arch == "gemma-2b":  # the async front on the same static index
+                    async_counts = serve_async(engine, corpus, n_req)
+                    for k in counts:
+                        counts[k] += async_counts[k]
         kernel = SERVE_KERNEL[arch]
         module, fn = (flash_ops, "flash_attention") if kernel == "flash_attn" \
             else (scan_ops, "ssm_scan")
@@ -1714,6 +1746,7 @@ def run_serving(dev) -> dict:
         recorded[kernel] = calls[0]
         del engine, model
         torch.cuda.empty_cache()
+    serve_async_cli()
     small_serve_vs_cpu(dev)
     return dict(counts=counts, recorded=recorded)
 
@@ -1777,6 +1810,228 @@ def serve_once(engine, corpus: np.ndarray, n_req: int, dynamic: bool) -> dict:
             + (CIRCRUN_KERNELS if dynamic else ()),
             f"{cfg.name} {state} serving")
     return counts
+
+
+def registry_value(name: str) -> float:
+    """A counter's sum over its series in the port's metrics registry (0
+    before anything declared it)."""
+    from repro_torch.obs.registry import registry
+
+    try:
+        return registry().get(name).value()
+    except KeyError:
+        return 0.0
+
+
+def serve_async(engine, corpus: np.ndarray, n_req: int) -> dict:
+    """Phase 13b: gemma-2b's static index behind the async serving front, as
+    `repro_torch.launch.serve --async` drives it (`_serve_async`,
+    `_obs_epilogue`; ASYNC_ARGS).  First the same requests, a batch of 32 at
+    a time, through `serve_batch` and through a second engine on the same
+    model and index with instrumented plans: the answers must be equal bit
+    for bit, and the stage histogram gains one observation a stage a batch.
+    Then all requests submitted at once to two replicas, with a /metrics
+    scrape while they are served and the drift probe after: every request
+    answered (self-retrieval >= 0.90; the ids `serve_batch` gave, or
+    distances tied within GATHER_TOL), no plan built or evicted after warm,
+    flash_attn launched n_layers times a padded batch embedded.  Returns
+    the launch counts of the phase."""
+    from repro_torch.exec import resolve_params, stages
+    from repro_torch.kernels import common
+    from repro_torch.launch.serve import _obs_epilogue, _serve_async, build_parser, \
+        request_stream
+    from repro_torch.obs import start_metrics_server
+    from repro_torch.obs.registry import registry
+    from repro_torch.serve import RetrievalEngine
+
+    t_phase = time.perf_counter()
+    cfg, p, reg = engine.cfg, engine.search_params, registry()
+    args = build_parser().parse_args(list(ASYNC_ARGS))
+    picks, _ = request_stream(corpus, n_req)
+    batches = [corpus[picks[lo:lo + SERVE_BATCH]] for lo in range(0, n_req, SERVE_BATCH)]
+
+    # the instrumented plan against the fused plan, the same requests
+    inst = RetrievalEngine(cfg, engine.model, m=engine.m, metric=engine.metric,
+                           max_batch=engine.max_batch, search_params=p, store=engine.store,
+                           device=engine.device, name="serve_async-instrumented",
+                           instrument=True)
+    inst.index = engine.index
+    snap = reg.snapshot()
+    want_ids, want_d = [], []
+    for b in batches:
+        ids, d = engine.serve_batch(b)
+        ids_i, d_i = inst.serve_batch(b)
+        if not (np.array_equal(ids, ids_i) and np.array_equal(d, d_i)):
+            same_emb = torch.equal(engine.embed(b), engine.embed(b))
+            fail(f"serve_async: the instrumented plan's answers differ from the fused plan's "
+                 f"(two embeds of the batch equal: {same_emb})")
+        want_ids.append(ids)
+        want_d.append(d)
+    want_ids, want_d = np.concatenate(want_ids), np.concatenate(want_d)
+    window = reg.since(snap)
+    hist = "repro_exec_stage_seconds"
+    seen = {ls["stage"] for ls in reg.get(hist).labelsets() if ls["topology"] == "monolithic"
+            and window.count(hist, **ls)}
+    if seen != {"hash_queries", "probe", "gather"}:
+        fail(f"serve_async: instrumented stages {sorted(seen)}, expected hash_queries, probe, "
+             "gather (the fp32 store's fused verify)")
+    stage_hist_ms = {}
+    for st_name in ("hash_queries", "probe", "gather"):
+        obs = window.samples(hist, topology="monolithic", stage=st_name)
+        if len(obs) != len(batches):
+            fail(f"serve_async: {len(obs)} observations of stage {st_name}, expected "
+                 f"{len(batches)} (one a batch)")
+        stage_hist_ms[st_name] = statistics.median(obs) * 1e3
+    # the same stages of one served batch by CUDA events, beside the histogram
+    q = engine.embed(batches[0])
+    pr = resolve_params(engine.index, p)
+    qh = stages.hash_queries(engine.index.family, q)
+    cand, _ = stages.probe(engine.index, q, qh, pr)
+    stage_event_ms = {
+        "hash_queries": median_ms(lambda: stages.hash_queries(engine.index.family, q), 5),
+        "probe": median_ms(lambda: stages.probe(engine.index, q, qh, pr), 5),
+        "gather (fused verify)": median_ms(
+            lambda: stages.verify(engine.index.store, engine.index.tail, q, cand, pr,
+                                  engine.index.metric), 5),
+        "search (whole batch)": median_ms(lambda: engine.index.search(q, p), 5),
+    }
+    del inst
+
+    # the async front, with one scrape of /metrics while it serves
+    srv = start_metrics_server(0, host="127.0.0.1")
+    scrape: dict = {}
+    stop = threading.Event()
+    base = registry_value("repro_router_completed_total")
+
+    def scraper():
+        while not stop.is_set():
+            done = registry_value("repro_router_completed_total") - base
+            if done > 0:
+                scrape["completed_before"] = done
+                url = f"http://127.0.0.1:{srv.port}/metrics"
+                with urllib.request.urlopen(url, timeout=60) as resp:
+                    scrape["status"] = resp.status
+                    scrape["body"] = resp.read().decode()
+                scrape["completed_after"] = registry_value("repro_router_completed_total") - base
+                return
+            time.sleep(0.001)
+
+    th = threading.Thread(target=scraper, daemon=True)
+    th.start()
+    common.reset_launch_counts()
+    res, _ = sync_time(lambda: _serve_async(engine, corpus, picks, args, p))
+    counts = common.launch_counts()
+    stop.set()
+    th.join(timeout=60)
+    recall = _obs_epilogue(engine, corpus, args, p, srv, None)
+    phase_counts = common.launch_counts()  # with the drift probe's launches
+    engine.name = None  # Router.replicate named it replica-0
+
+    st = res["stats"]
+    outs = res["outs"]
+    if st.completed != n_req or st.rejected or len(outs) != n_req:
+        fail(f"serve_async: {st.completed} completed, {st.rejected} rejected of {n_req}")
+    ids = np.stack([o[1][0] for o in outs])
+    dists = np.stack([o[1][1] for o in outs])
+    if [o[0] for o in outs] != [int(i) for i in picks]:
+        fail("serve_async: the answers are not in submission order")
+    if ids.shape != (n_req, p.k) or not np.isfinite(dists[ids >= 0]).all():
+        fail(f"serve_async: bad answers {ids.shape}")
+    self_ret = float((ids == picks[:, None]).any(axis=1).mean())
+    differ = np.nonzero((ids != want_ids).any(axis=1))[0]
+    for j in differ[:1]:
+        print(f"serve_async: request {j} (doc {picks[j]}): router ids {ids[j].tolist()} dists "
+              f"{dists[j].tolist()}; serve_batch ids {want_ids[j].tolist()} dists "
+              f"{want_d[j].tolist()}", flush=True)
+    untied = [int(j) for j in differ if not np.allclose(dists[j], want_d[j], **GATHER_TOL)]
+    reps = [dict(name=r.name, batches=r.serve["batches"], requests=r.serve["requests"],
+                 batch_sizes=r.batch_size_hist, plan_hits=r.serve["plan_hits"],
+                 plan_misses=r.serve["plan_misses"], plan_evictions=r.serve["plan_evictions"],
+                 embed_s=r.serve["embed_s"], search_s=r.serve["search_s"],
+                 deadline_misses=r.deadline_misses) for r in st.replicas]
+    embedded = args.replicas + sum(r["batches"] for r in reps)  # warm: one batch a replica
+    body = scrape.get("body", "")
+    lines = [ln for ln in body.splitlines() if ln]
+    bad_lines = [ln for ln in lines if not ln.startswith("#") and not PROM_SAMPLE.match(ln)]
+    emit(phase="serve_async", arch=cfg.name, docs=corpus.shape[0], requests=n_req,
+         replicas=args.replicas, slo_ms=args.slo_ms, queue_depth=args.queue_depth,
+         params=dict(k=p.k, lam=p.lam), completed=st.completed, rejected=st.rejected,
+         slo_misses=st.deadline_misses, qps=st.completed / res["wall"], wall_s=res["wall"],
+         ready_ms=res["ready_s"] * 1e3, latency_ms=st.latency, self_retrieval=self_ret,
+         answers_differing=len(differ), answers_untied=untied, replica=reps,
+         batch_size_hist=st.batch_size_hist, embedded_batches=embedded, launches=counts,
+         stage_hist_ms_median=stage_hist_ms, stage_event_ms=stage_event_ms,
+         instrumented_batches=len(batches), instrumented_bits_equal=True,
+         drift_probe=dict(queries=args.drift_probe, recall_at_k=recall),
+         scrape=dict(status=scrape.get("status"), lines=len(lines),
+                     completed_before=scrape.get("completed_before"),
+                     completed_after=scrape.get("completed_after"), bad_lines=bad_lines[:3]),
+         seconds=time.perf_counter() - t_phase)
+    if self_ret < 0.90:
+        fail(f"serve_async: self-retrieval {self_ret} < 0.90")
+    if untied:
+        fail(f"serve_async: {len(untied)} requests differ from serve_batch's answers beyond "
+             f"ties (first: request {untied[0]})")
+    for r in reps:
+        if r["plan_misses"] or r["plan_evictions"]:
+            fail(f"serve_async: {r['name']} built or evicted a plan after warm: {r}")
+    if sum(r["requests"] for r in reps) != n_req:
+        fail(f"serve_async: the replicas counted {[r['requests'] for r in reps]} requests")
+    if counts["flash_attn"] != cfg.n_layers * embedded:
+        fail(f"serve_async: flash_attn launched {counts['flash_attn']} times, expected "
+             f"{cfg.n_layers} x {embedded} embedded batches")
+    require(counts, ("csa_probe", "pool_topk", "gather_l2_topk"), "gemma-2b serve_async")
+    if scrape.get("status") != 200 or bad_lines:
+        fail(f"serve_async: the /metrics scrape failed: {scrape.get('status')} {bad_lines[:3]}")
+    if not scrape["completed_before"] < n_req:
+        fail("serve_async: the /metrics scrape came after the run")
+    for series in ("repro_plan_cache_hits_total{", "repro_serve_requests_total{",
+                   "repro_router_latency_seconds_bucket{"):
+        if not any(ln.startswith(series) for ln in lines):
+            fail(f"serve_async: the /metrics scrape lacks {series}")
+    if recall is None or not 0.0 <= recall <= 1.0:
+        fail(f"serve_async: drift probe recall {recall}")
+    return phase_counts
+
+
+def serve_async_cli() -> None:
+    """Phase 13c: one run of `python -m repro_torch.launch.serve` with every
+    flag of the async front (ASYNC_CLI, a smoke model on the card): it must
+    exit 0, answer every request, build no plan after warm, scrape its own
+    metrics endpoint's line, and write a Chrome trace holding ASYNC_SPANS."""
+    root = Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = Path(tmp) / "serve_trace.json"
+        cmd = [sys.executable, "-m", "repro_torch.launch.serve", *ASYNC_CLI,
+               "--trace", str(trace)]
+        t0 = time.perf_counter()
+        out = subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=root,
+                             env={**os.environ, "PYTHONPATH": str(root / "src")})
+        secs = time.perf_counter() - t0
+        if out.returncode != 0:
+            fail(f"serve_async_cli: exit {out.returncode}\n{out.stdout[-3000:]}\n"
+                 f"{out.stderr[-3000:]}")
+        doc = json.loads(trace.read_text())
+    m = re.search(r"async: (\d+) completed / (\d+) rejected / (\d+) SLO misses .*"
+                  r"self-retrieval (\d+)/(\d+)", out.stdout)
+    audits = re.findall(r"replica-\d: \d+ batches, .* plan (\d+) compiles / \d+ reuses / "
+                        r"(\d+) evictions", out.stdout)
+    names = {e["name"] for e in doc["traceEvents"]}
+    emit(phase="serve_async_cli", args=list(ASYNC_CLI), seconds=secs,
+         stdout=[ln for ln in out.stdout.splitlines() if "[launch.serve]" in ln][-8:],
+         trace_events=len(doc["traceEvents"]), span_names=sorted(names))
+    if not m or int(m.group(1)) != int(m.group(5)) or int(m.group(2)):
+        fail(f"serve_async_cli: not every request was answered:\n{out.stdout[-2000:]}")
+    if int(m.group(4)) < 0.90 * int(m.group(5)):
+        fail(f"serve_async_cli: self-retrieval {m.group(4)}/{m.group(5)}")
+    if len(audits) != 2 or any(a != ("0", "0") for a in audits):
+        fail(f"serve_async_cli: a replica built or evicted a plan after warm: {audits}")
+    for needle in ("Prometheus metrics on :", "recall-drift probe: recall@",
+                   "trace events to"):
+        if needle not in out.stdout:
+            fail(f"serve_async_cli: no {needle!r} line")
+    if not ASYNC_SPANS <= names:
+        fail(f"serve_async_cli: the trace lacks {sorted(ASYNC_SPANS - names)}")
 
 
 # kernel-name fragments -> the part of a served batch they belong to

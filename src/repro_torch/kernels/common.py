@@ -72,23 +72,34 @@ SIGNATURES = {
 }
 
 # launches per kernel since the last reset: each wrapper adds one where it
-# launches its kernel, and nowhere else
+# launches its kernel, and nowhere else; `_count_lock` guards it, since the
+# serving front's replica threads launch kernels side by side
 LAUNCHES: dict[str, int] = {"csa_probe": 0, "pool_topk": 0, "gather_l2": 0, "gather_q": 0,
                             "gather_l2_topk": 0, "gather_q_topk": 0, "hash_rp": 0,
                             "hash_xp": 0, "circrun": 0, "circrun_topk": 0, "flash_attn": 0,
                             "ssm_scan": 0}
 
 _lock = threading.Lock()
+_count_lock = threading.Lock()
 _lib: ctypes.CDLL | None = None
 
 
 def reset_launch_counts() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
+    with _count_lock:
+        for name in LAUNCHES:
+            LAUNCHES[name] = 0
 
 
 def launch_counts() -> dict[str, int]:
-    return dict(LAUNCHES)
+    with _count_lock:
+        return dict(LAUNCHES)
+
+
+def count_launch(kernel: str) -> None:
+    """Add one launch of `kernel` (thread-safe: `+=` on a dict entry is a
+    read and a write, and two threads can interleave them)."""
+    with _count_lock:
+        LAUNCHES[kernel] += 1
 
 
 def no_tf32() -> None:
@@ -189,7 +200,7 @@ def launch(kernel: str, entry: str, *args) -> None:
     err = fn(*args, torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice()))
     if err != 0:
         raise RuntimeError(f"{kernel}: CUDA launch failed with cudaError {err}")
-    LAUNCHES[kernel] += 1
+    count_launch(kernel)
 
 
 def check(name: str, t: torch.Tensor, *, device: torch.device, dtype: torch.dtype,

@@ -1,4 +1,4 @@
 """Retrieval serving over the port's models and indexes."""
-from .engine import RetrievalEngine, ServeStats
+from .engine import PendingBatch, RetrievalEngine, ServeStats
 
-__all__ = ["RetrievalEngine", "ServeStats"]
+__all__ = ["PendingBatch", "RetrievalEngine", "ServeStats"]

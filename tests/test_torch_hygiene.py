@@ -1,6 +1,7 @@
 """Port hygiene: `repro_torch` (and chip_smoke.py) never import JAX or the
 reference package -- neither the index path, nor the serving engine, nor the
-serve CLI --, entry points default to CUDA and refuse to fall back to the
+serve CLI, synchronous or behind the async router with its metrics
+endpoint --, entry points default to CUDA and refuse to fall back to the
 CPU, and the kernel loader fails clearly without nvcc."""
 import os
 import re
@@ -94,6 +95,26 @@ print("BAD", bad)
                          timeout=300, env=ENV)
     assert out.returncode == 0, out.stderr
     assert "self-retrieval" in out.stdout and "churn" in out.stdout, out.stdout
+    assert "BAD []" in out.stdout, out.stdout
+
+
+def test_async_serve_cli_loads_no_jax_or_reference():
+    code = """
+import runpy
+import sys
+sys.argv = ["serve", "--arch", "gemma-2b", "--smoke", "--device", "cpu", "--corpus", "32",
+            "--requests", "16", "--m", "8", "--async", "--replicas", "2", "--instrument",
+            "--metrics-port", "0", "--drift-probe", "4"]
+runpy.run_module("repro_torch.launch.serve", run_name="__main__")
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
+             or m == "repro" or m.startswith("repro."))
+print("BAD", bad)
+"""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=300, env=ENV)
+    assert out.returncode == 0, out.stderr
+    assert "async: 16 completed" in out.stdout and "metrics on" in out.stdout, out.stdout
+    assert "recall-drift probe" in out.stdout, out.stdout
     assert "BAD []" in out.stdout, out.stdout
 
 
