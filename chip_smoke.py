@@ -54,8 +54,9 @@ at B 4, S 2048 with gemma2-9b's heads, causal and with window 1024 + softcap
 50, and at B 1, S 4096 with gemma-2b's; ssm_scan at B 4, L 2048 and B 1,
 L 4096), hash_rp and hash_xp also at the GIST width
 d = 960 and over one query batch, pool_topk also at a multiprobe-skip pool of
-several tiles and against the scatter-max dedupe, which no card path may
-call; circrun_topk also against the parent's route, circrun + the int64-key
+several tiles and at the serving pool (each with its device time and a
+`pool_stats` line: the cut lcp and the ids and entries at or above it) and
+against the scatter-max dedupe, which no card path may call; circrun_topk also against the parent's route, circrun + the int64-key
 top-k, which no card path may take; the fused verify, gather_l2_topk and
 gather_q_topk, bit for bit against the parent's route, the scan kernel +
 the plain epilogue and stable sort, which no card path's exact_topk or
@@ -442,13 +443,7 @@ def run(dev: torch.device) -> None:
     from repro_torch.exec import stages
     from repro_torch.kernels import common
     from repro_torch.kernels.csa_probe import ops as probe_ops
-    from repro_torch.kernels.csa_probe.ref import (
-        csa_probe_plain,
-        dedupe_topk_scatter,
-        pool_chunk,
-        pool_levels,
-        pool_topk_plain,
-    )
+    from repro_torch.kernels.csa_probe.ref import csa_probe_plain, dedupe_topk_scatter
     from repro_torch.kernels.gather_l2 import ops as l2_ops
     from repro_torch.kernels.gather_q import ops as q_ops
 
@@ -610,30 +605,13 @@ def run(dev: torch.device) -> None:
     # calls: lccs, multiprobe-skip, int8 lccs
     if len(pool_calls) != 3:
         fail(f"unexpected pool_topk calls: {len(pool_calls)}")
-    pool_recs = {}
-    for tag, (args, _) in (("lccs", pool_calls[0]), ("multiprobe-skip", pool_calls[1])):
-        p_ids, p_lcps, n_, lam_ = args
-        B_, pool_ = p_ids.shape
-        k_out = probe_ops.pool_topk(*args)
-        for ref_name, ref_fn in (("pool_topk_plain", pool_topk_plain),
-                                 ("dedupe_topk_scatter", dedupe_topk_scatter)):
-            r_out = ref_fn(*args)
-            if not (torch.equal(k_out[0], r_out[0]) and torch.equal(k_out[1], r_out[1])):
-                fail(f"pool_topk kernel != {ref_name} on the {tag} pool")
-        levels = pool_levels(pool_, min(lam_, n_), n_)
-        if tag == "multiprobe-skip" and len(levels) < 2:
-            fail(f"the multiprobe-skip pool ({pool_}) fits one tile: no merge was checked")
-        pool_recs[tag] = dict(
-            max_abs_err=0, ms=median_ms(lambda: probe_ops.pool_topk(*args), 20),
-            plain_ms=median_ms(lambda: pool_topk_plain(*args), 3),
-            # bytes: the pool's ids and lcps read once, (B, lam) ids and lcps written once
-            bound_ms=(B_ * pool_ + B_ * lam_) * 8 / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
-            library_ms=None,
-            scatter_ms=median_ms(lambda: dedupe_topk_scatter(*args), 3),
-            two_sorts_ms=median_ms(lambda: dedupe_topk(p_ids, p_lcps, lam_), 3),
-            shape=dict(B=B_, pool=pool_, n=n_, lam=lam_,
-                       tiles=-(-pool_ // pool_chunk(min(lam_, n_), n_)),
-                       launches_per_call=len(levels)))
+    pool_recs = {tag: pool_record(tag, args, dedupe_topk_scatter)
+                 for tag, (args, _) in (("lccs", pool_calls[0]),
+                                        ("multiprobe-skip", pool_calls[1]))}
+    if pool_recs["lccs"]["shape"]["launches_per_call"] != 1:
+        fail("the lccs pool took more than one pool_topk launch a call")
+    if pool_recs["multiprobe-skip"]["shape"]["launches_per_call"] < 2:
+        fail("the multiprobe-skip pool fits one tile: no merge was checked")
     kernels.append(dict(
         name="pool_topk", route="cuda", source="src/repro_torch/kernels/csrc/pool_topk.cu",
         replaces="src/repro/kernels/csa_probe/ref.py:114", launches=launches["pool_topk"],
@@ -706,6 +684,9 @@ def run(dev: torch.device) -> None:
     for rec in kernels:
         rec["launches"] = launches[rec["name"]]
     kernels += serve_kernels_vs_plain(serve, launches)
+    pool_rec = next(rec for rec in kernels if rec["name"] == "pool_topk")
+    pool_rec["pool"]["serving"] = pool_record("serving", serve["recorded"]["pool_topk"][0],
+                                              dedupe_topk_scatter)
     names = [rec["name"] for rec in kernels]
     if sorted(names) != sorted(common.LAUNCHES):
         fail(f"the kernels line lists {names}, the library has {sorted(common.LAUNCHES)}")
@@ -721,6 +702,57 @@ def run(dev: torch.device) -> None:
                                              "kind": torch.cuda.get_device_name(0),
                                              "count": torch.cuda.device_count()}}),
           flush=True)
+
+
+def pool_record(tag: str, args, scatter) -> dict:
+    """pool_topk at one recorded pool (ids, lcps, n, lam): the kernel bit for
+    bit against its plain version and the scatter-max dedupe (`scatter`, the
+    original function: forbid_scatter replaced the module's), timed by CUDA
+    events and by its kernels' device time beside its bound (the pool read
+    once, the (B, lam) lists written once), the plain version and the two
+    plain-torch dedupes; and a `pool_stats` line: what its band filter rests
+    on, per row (`ref.pool_cut_stats`), as median, min and max over rows."""
+    from repro_torch.core.search import dedupe_topk
+    from repro_torch.kernels.csa_probe import ops as probe_ops
+    from repro_torch.kernels.csa_probe.ref import (
+        pool_chunk,
+        pool_cut_stats,
+        pool_levels,
+        pool_topk_plain,
+    )
+
+    p_ids, p_lcps, n_, lam_ = args
+    B_, pool_ = p_ids.shape
+    k_out = probe_ops.pool_topk(*args)
+    for ref_name, ref_fn in (("pool_topk_plain", pool_topk_plain),
+                             ("dedupe_topk_scatter", scatter)):
+        r_out = ref_fn(*args)
+        if not (torch.equal(k_out[0], r_out[0]) and torch.equal(k_out[1], r_out[1])):
+            fail(f"pool_topk kernel != {ref_name} on the {tag} pool")
+    levels = pool_levels(pool_, min(lam_, n_), n_)
+
+    def summary(x: torch.Tensor) -> dict:
+        v = x.double().cpu()
+        return dict(median=float(v.median()), min=float(v.min()), max=float(v.max()))
+
+    cut, above, entries, distinct = pool_cut_stats(*args)
+    emit(phase="pool_stats", pool=tag, B=B_, entries=pool_, n=n_, lam=lam_,
+         cut_lcp=summary(cut), distinct_at_or_above_cut=summary(above),
+         entries_at_or_above_cut=summary(entries), distinct=summary(distinct))
+    rec = dict(
+        max_abs_err=0, ms=median_ms(lambda: probe_ops.pool_topk(*args), 20),
+        **device_ms(lambda: probe_ops.pool_topk(*args), 20, len(levels), "pool_topk_kernel"),
+        plain_ms=median_ms(lambda: pool_topk_plain(*args), 3),
+        # bytes: the pool's ids and lcps read once, (B, lam) ids and lcps written once
+        bound_ms=(B_ * pool_ + B_ * lam_) * 8 / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+        library_ms=None,
+        scatter_ms=median_ms(lambda: scatter(*args), 3),
+        two_sorts_ms=median_ms(lambda: dedupe_topk(p_ids, p_lcps, lam_), 3),
+        shape=dict(B=B_, pool=pool_, n=n_, lam=lam_,
+                   tiles=-(-pool_ // pool_chunk(min(lam_, n_), n_)),
+                   launches_per_call=len(levels)))
+    rec["device_of_bound"] = rec["bound_ms"] / rec["device_ms"]
+    return rec
 
 
 def int8_stage_ms(index8, qb: torch.Tensor, p8) -> dict:
@@ -1707,9 +1739,11 @@ def run_serving(dev) -> dict:
     dynamic (counts reset before each run and read after it), the kernel's
     arguments of one embedded batch recorded for phase 16, then the smoke
     models on the card against the CPU."""
+    import repro_torch.kernels.csa_probe as probe_pkg
     from repro_torch.configs import ARCHS
     from repro_torch.data import lm_token_batches
     from repro_torch.kernels import common
+    from repro_torch.kernels.csa_probe import ops as probe_ops
     from repro_torch.kernels.flash_attn import ops as flash_ops
     from repro_torch.kernels.ssm_scan import ops as scan_ops
     from repro_torch.models import init_model
@@ -1733,6 +1767,12 @@ def run_serving(dev) -> dict:
                 counts[k] += run_counts[k]
             if not dynamic:  # after the static run's counts are read
                 profile_batch(engine, corpus[:SERVE_BATCH])
+                if arch == "gemma-2b":  # the serving pool of one static batch's probe
+                    pool = []
+                    with recording(probe_ops, "pool_topk", pool, keep=1), \
+                            recording(probe_pkg, "pool_topk", pool, keep=1):
+                        engine.serve_batch(corpus[:SERVE_BATCH])
+                    recorded["pool_topk"] = pool[0]
                 if arch == "gemma-2b":  # the async front on the same static index
                     async_counts = serve_async(engine, corpus, n_req)
                     for k in counts:

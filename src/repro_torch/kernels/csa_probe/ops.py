@@ -80,9 +80,13 @@ def pool_topk(ids, lcps, n: int, lam: int):
     `ref.dedupe_topk_scatter` and `core.search.dedupe_topk`.
 
     On CUDA tensors: one launch of the kernel a tile pass of
-    `ref.pool_levels` (one for a pool of up to one tile, two for the lccs
-    pool at m 64, W 100 and the multiprobe pools), k <= POOL_MAX_K; no host
-    sync.  The tiles are `ref.pool_topk_plain`'s."""
+    `ref.pool_levels`, k <= POOL_MAX_K; no host sync.  A tile holds up to
+    `ref.POOL_TILE` = 16,384 entries (8,192 where ids reach 2^23): the
+    kernel keeps a tile in registers and dedupes only the entries whose lcp
+    can reach its top k, into a table sized for them, so one launch takes
+    the lccs pool (12,800 entries at m 64, W 100) and the serving pool
+    (4,096), and a tile pass plus one merge a multiprobe pool.  The tiles
+    are `ref.pool_topk_plain`'s."""
     if ids.device.type == "cpu":
         return pool_topk_plain(ids, lcps, n, lam)
     if ids.device.type != "cuda":

@@ -36,11 +36,16 @@ from ...core.search import _insertion_pos, _pad_lam, _row_lcp_less, dedupe_topk
 _ROWS = 1 << 16
 # buffer entries per chunk of the scatter-max dedupe
 _BUF = 1 << 27
-# pool entries of one tile of the pool top-lam: the kernel's shared-memory
-# hash table holds twice as many slots of 4-byte keys (64 KB, two blocks an
-# SM), or half as many entries where ids reach 2^23 and take 8-byte keys; a
-# tile is widened to 2k entries where k = min(lam, n) is larger
-POOL_TILE = 8192
+# pool entries of one tile of the pool top-lam, or half as many where ids
+# reach 2^23 and take 8-byte keys; a tile is widened to 2k entries where k =
+# min(lam, n) is larger.  The kernel holds a tile in registers and dedupes
+# only the entries whose lcp can reach its top k into a table sized for
+# them, so a tile of 16,384 entries fits (the table's capacity, for a tile
+# whose cut lies at lcp 0, is 1.25 x its entries: 80 KB of 4-byte keys).
+# One launch for the lccs pool (12,800 entries at m 64, W 100) and the
+# serving pool (4,096 at m 32, W 64); a tile pass and one merge for a
+# multiprobe-skip pool (106,496 entries at 17 probes, W 64: 7 tiles).
+POOL_TILE = 16384
 WIDE_IDS = 1 << 23
 
 
@@ -166,6 +171,33 @@ def pool_levels(pool: int, k: int, n: int, tile: int | None = None) -> list:
         pool = -(-pool // chunk) * k
         out.append(pool)
     return out
+
+
+def pool_cut_stats(ids: torch.Tensor, lcps: torch.Tensor, n: int, lam: int):
+    """What the pool top-lam kernel's band filter rests on, per row of a
+    (B, pool) probe pool with k = min(lam, n): the cut lcp c* (the max lcp of
+    the last id the row's top k holds, -1 for a row without an id), the
+    distinct ids with max lcp >= c*, the entries with lcp >= c*, and the
+    row's distinct ids.  Entries whose id or lcp is < 0 are dropped, lcps
+    above 256 count as 256.  Returns four (B,) int64 tensors."""
+    B = ids.shape[0]
+    k = min(lam, n)
+    live = (ids >= 0) & (lcps >= 0)
+    lcp = torch.clamp(lcps.long(), max=256)
+    key = torch.where(live, ids.long() * 512 + lcp, torch.full_like(lcp, -1))
+    key = key.sort(dim=1).values  # an id's entries together, its max lcp last
+    nxt = torch.cat([key[:, 1:] >> 9, torch.full_like(key[:, :1], -1)], dim=1)
+    last = (key >= 0) & ((key >> 9) != nxt)
+    best = torch.where(last, key & 511, torch.full_like(key, -1))  # an id's max lcp
+    distinct = last.sum(dim=1)
+    if key.shape[1] == 0 or k < 1:
+        cut = torch.full((B,), -1, dtype=torch.long, device=ids.device)
+    else:
+        top = torch.topk(best, min(k, key.shape[1]), dim=1).values
+        cut = torch.gather(top, 1, (torch.clamp(distinct, 1, top.shape[1]) - 1)[:, None])[:, 0]
+    above = (best >= cut[:, None]) & last
+    entries = (live & (lcp >= cut[:, None])).sum(dim=1)
+    return cut, above.sum(dim=1), entries, distinct
 
 
 def pool_topk_plain(ids: torch.Tensor, lcps: torch.Tensor, n: int, lam: int,

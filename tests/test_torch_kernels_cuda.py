@@ -133,7 +133,8 @@ def test_pool_topk_kernel_bit_identical(dev, monkeypatch, name):
 @pytest.mark.parametrize("spread", [1_000_000, 20_000])
 def test_pool_topk_kernel_at_the_lccs_pool(dev, spread):
     """The lccs pool at n = 10^6, m 64, W 100: 1,000 x 12,800 entries, one
-    tile a row; ids over the whole corpus, then crowded (many repeats)."""
+    tile a row (one launch); ids over the whole corpus, then crowded (many
+    repeats)."""
     rng = np.random.default_rng(spread)
     ids = torch.from_numpy(rng.integers(0, spread, (1000, 12_800)).astype(np.int32)).to(dev)
     lcps = torch.from_numpy(rng.integers(0, 65, (1000, 12_800)).astype(np.int32)).to(dev)
@@ -142,9 +143,9 @@ def test_pool_topk_kernel_at_the_lccs_pool(dev, spread):
 
 @pytest.mark.parametrize("n,lam", [(1_000_000, 1024), (2**31 - 1, 1024), (1_000_000, 4096)])
 def test_pool_topk_kernel_several_tiles_large_lam(dev, n, lam):
-    """A multiprobe-skip sized pool (139,264 entries: 17 tiles of 8,192 and
-    two merges at lam 1,024); n past 2^23 takes the kernel's 8-byte keys
-    (and tiles of 4,096); lam 4,096 places the chosen ids by a sort."""
+    """A multiprobe-skip sized pool (139,264 entries: 9 tiles of 16,384 and
+    one merge at lam 1,024); n past 2^23 takes the kernel's 8-byte keys
+    (and tiles of 8,192); lam 4,096 places the chosen ids by a sort."""
     rng = np.random.default_rng(7)
     ids = rng.integers(n - 200_000, n, (6, 139_264))
     ids[:, ::5] = -1
@@ -157,8 +158,9 @@ def test_pool_topk_kernel_several_tiles_large_lam(dev, n, lam):
 @pytest.mark.parametrize("n", [10**6, 2**24])
 def test_pool_topk_kernel_rejects_what_it_does_not_take(dev, monkeypatch, n):
     """k up to 4,096; tiles up to 16,384 entries, or 8,192 where ids reach
-    2^23 and take 8-byte keys (POOL_TILE // 2), so that the kernel's hash
-    table stays at most half full."""
+    2^23 and take 8-byte keys (POOL_TILE // 2), so that a tile fits the
+    kernel's registers and its table's capacity (1.25 x the tile's entries)
+    its shared memory."""
     z = torch.zeros((2, 20_000), dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match=str(POOL_MAX_K)):
         pool_topk(z, z, n, POOL_MAX_K + 1)

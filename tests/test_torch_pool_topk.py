@@ -11,7 +11,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
-from torch_pool_cases import POOL_CASES, make_pool
+from torch_pool_cases import POOL_CASES, bands_mirror, make_pool
 
 from repro.core import LCCSIndex as RefIndex
 from repro.core import SearchParams as RefParams
@@ -74,16 +74,61 @@ def test_pool_topk_plain_random_tiles(seed):
     assert _eq(ri, pi) and _eq(rv, pv)
 
 
+@pytest.mark.parametrize("name", list(POOL_CASES))
+def test_pool_bands_mirror_equals_reference(name):
+    """The kernel's band passes (tests/torch_pool_cases.py's mirror): over
+    each tile the wrapper cuts, deduping only the entries at or above the
+    last pass's floor gives the reference's deduped top k of the tile."""
+    _, _, n, lam, tile, _, _ = POOL_CASES[name]
+    ids, lcps = make_pool(name)
+    k = min(lam, n)
+    chunk = probe_ref.pool_chunk(k, n, tile)
+    for lo in range(0, ids.shape[1], chunk):
+        t_ids, t_lcps = ids[:, lo:lo + chunk], lcps[:, lo:lo + chunk]
+        ri, rv = jax.vmap(lambda i, v: ref_dedupe(i, v, k))(jnp.asarray(t_ids),
+                                                            jnp.asarray(t_lcps))
+        for r in range(ids.shape[0]):
+            mi, mv, floors = bands_mirror(t_ids[r], t_lcps[r], k)
+            assert np.array_equal(np.asarray(ri[r]), mi) and np.array_equal(np.asarray(rv[r]), mv)
+            assert floors == sorted(floors, reverse=True)
+
+
+@pytest.mark.parametrize("name", list(POOL_CASES))
+def test_pool_cut_stats(name):
+    """`pool_cut_stats` (chip_smoke.py's pool_stats lines) against a plain
+    count over each row's deduped ids."""
+    _, _, n, lam, _, _, _ = POOL_CASES[name]
+    ids, lcps = make_pool(name)
+    k = min(lam, n)
+    cut, above, entries, distinct = probe_ref.pool_cut_stats(
+        torch.from_numpy(ids), torch.from_numpy(lcps), n, lam)
+    for r in range(ids.shape[0]):
+        live = (ids[r] >= 0) & (lcps[r] >= 0)
+        best = {}
+        for i, v in zip(ids[r][live].tolist(), np.minimum(lcps[r][live], 256).tolist()):
+            best[i] = max(best.get(i, -1), v)
+        ranked = sorted(best.values(), reverse=True)
+        c = ranked[min(k, len(ranked)) - 1] if ranked and k >= 1 else -1
+        assert int(cut[r]) == c and int(distinct[r]) == len(best)
+        assert int(above[r]) == sum(v >= c for v in best.values())
+        assert int(entries[r]) == int((live & (np.minimum(lcps[r], 256) >= c)).sum())
+
+
 def test_pool_levels_promise_the_launches():
-    """A pool of up to one tile takes one pass; the sources' lccs and
-    multiprobe pools two; every pass at least halves a pool larger than a
-    tile; ids past 2^23 take tiles of half the length."""
+    """A pool of up to one tile (16,384 entries) takes one pass: the lccs
+    pool and the serving pool; the multiprobe pools two; every pass at least
+    halves a pool larger than a tile; ids past 2^23 take tiles of half the
+    length."""
     levels = probe_ref.pool_levels
     assert levels(8_192, 100, 10**6) == [8_192]
-    assert levels(12_800, 100, 10**6) == [12_800, 200]  # the lccs pool at m 64, W 100
-    assert levels(139_264, 200, 10**6) == [139_264, 3_400]  # multiprobe-skip, 17 probes
-    assert levels(139_264, 1024, 10**6) == [139_264, 17_408, 3_072]
-    assert levels(12_800, 100, 2**23 + 1) == [12_800, 400]
+    assert levels(12_800, 100, 10**6) == [12_800]  # the lccs pool at m 64, W 100
+    assert levels(4_096, 64, 4_096) == [4_096]  # the serving pool at m 32, W 64
+    assert levels(16_384, 100, 10**6) == [16_384]
+    assert levels(106_496, 200, 10**6) == [106_496, 1_400]  # multiprobe-skip, 17 probes
+    assert levels(139_264, 200, 10**6) == [139_264, 1_800]
+    assert levels(139_264, 1024, 10**6) == [139_264, 9_216]
+    assert levels(139_264, 4096, 10**6) == [139_264, 36_864, 12_288]
+    assert levels(12_800, 100, 2**23 + 1) == [12_800, 200]
     assert probe_ref.pool_chunk(40, 10**6, 16) == 80  # a tile holds at least 2k entries
     rng = np.random.default_rng(0)
     for _ in range(200):
