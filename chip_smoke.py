@@ -25,13 +25,29 @@ Drives the port's paths on one NVIDIA card at the paper's SIFT size
     deletes from both, search, a size-tiered compaction, search again;
   * the "bruteforce" source on the main fp32 index (it and the dynamic
     path's delta buffer rank through the circrun_topk kernels);
+  * the out-of-core build (phase `out_of_core`): the main corpus from its
+    host rows in four chunks of 262,144 (`LCCSIndex.build(chunk_rows=)`,
+    int8, the fp32 tail streamed to disk): its tables equal the monolithic
+    build's, its store the int8 index's, its `lccs` ids the int8 index's;
+    its build seconds split by span and its peak device memory beside the
+    monolithic int8 build's; and the dynamic path's bulk rows through
+    `SegmentedLCCSIndex.ingest_chunks` (phase `ingest_chunks`), its segment
+    equal to the bulk load's;
+  * the sharded topology (phase `sharded`): the main fp32 and int8
+    indexes in 4 and 3 row shards on the card (`LCCSIndex.shard`), the
+    "lccs" and "multiprobe-skip" searches through each, every shard's probe
+    and verify on the kernels; at n 4,000 (`sharded_small`) the sharded
+    search equals the monolithic one under complete coverage and the
+    card's equals the CPU's;
   * the retrieval serving path (RetrievalEngine, as `repro_torch.launch.serve`
     drives it) with two embedding models at full width and depth, random
     weights from seed 0: gemma-2b (18 attention layers, the flash_attn
     kernel) over 4,096 documents of 32 tokens and 256 requests, and
     falcon-mamba-7b (64 Mamba-1 layers, the ssm_scan kernel) over 1,024
     documents and 128 requests; each static, then as a dynamic stream with
-    an insert / delete / compact burst;
+    an insert / delete / compact burst; gemma-2b's corpus also built out of
+    core (bit for bit the static index) and served from 2 shards, and one
+    CLI run with `--shards 2 --build-chunk-rows 64` (`serve_shards_cli`);
   * gemma-2b's static index behind the async serving front (phase
     `serve_async`, `launch.serve --async`'s own `_serve_async` and
     `_obs_epilogue`): 256 requests submitted at once to two replicas that
@@ -126,12 +142,25 @@ WIDE_D, WIDE_RP_ROWS = 960, 1 << 18
 LCCS = dict(k=K, lam=100, width=100, source="lccs")
 SKIP = dict(k=K, lam=200, width=64, source="multiprobe-skip", probes=17)
 GATHER_TOL = dict(rtol=1e-5, atol=1e-5)  # fp32 summation order
+# phase out_of_core: cell 1's corpus built out of core in chunks of this many
+# rows (four chunks, so the cross-chunk merge runs); phase 9's ingest_chunks
+# of the bulk rows takes the same chunks
+OOC_CHUNK = 262_144
+# phase sharded: the shard counts on cell 1's indexes (3: an uneven split),
+# and the small exactness / card-vs-CPU checks' corpus size
+SHARD_COUNTS, SHARD_SMALL_N = (4, 3), 4_000
 # the serving path: (arch, corpus documents, requests), documents of 32
 # tokens, an angular index of m = 32 (the CLI's defaults), batches of 32
 SERVE = (("gemma-2b", 4096, 256), ("falcon-mamba-7b", 1024, 128))
 SERVE_TOKENS, SERVE_M, SERVE_BATCH = 32, 32, 32
 SERVE_KERNEL = {"gemma-2b": "flash_attn", "falcon-mamba-7b": "ssm_scan"}
 SMALL_SERVE_DOCS = 256
+# gemma-2b's corpus built again on the engine: out of core in chunks of this
+# many rows, and as this many shards
+SERVE_CHUNK_ROWS, SERVE_SHARDS = 1024, 2
+# one run of the CLI with both flags on a smoke model
+SHARDS_CLI = ("--smoke", "--corpus", "256", "--requests", "64", "--shards", "2",
+              "--build-chunk-rows", "64")
 # phase serve_async, on gemma-2b's static index: the serving CLI's --async
 # front as `launch.serve` drives it (its defaults: all requests submitted at
 # once, a 500 ms SLO), two replicas, a /metrics scrape and the drift probe
@@ -528,11 +557,17 @@ def run(dev: torch.device) -> None:
         fail("fused and legacy candidates differ")
 
     # -- 5. main path: int8 two-stage ----------------------------------------
+    torch.cuda.synchronize()
+    base8 = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
     index8, build8_s = sync_time(
         lambda: LCCSIndex.build(X, m=M, family="euclidean", w=W_BUCKET, store="int8",
                                 device=dev))
+    # the corpus X is resident before the build (its in-memory tail)
+    peak8 = torch.cuda.max_memory_allocated() - base8
     emit(phase="build_index", store="int8", seconds=build8_s,
-         index_bytes=index8.index_bytes(), store_bytes=index8.store_bytes())
+         index_bytes=index8.index_bytes(), store_bytes=index8.store_bytes(),
+         total_bytes=index8.total_bytes(), peak_mem_over_base_bytes=peak8)
     p8 = SearchParams(**LCCS, store="int8")
     index8.search(Q[:BATCH], p8)  # warm-up
     common.reset_launch_counts()
@@ -656,6 +691,14 @@ def run(dev: torch.device) -> None:
         fail(f"the card's verify differs from its first run on a rerun: {repeats}")
     emit(phase="small_input_vs_cpu", n=4000, ok=True)
 
+    # -- 7b.-7d. the out-of-core build and the sharded topology --------------
+    ctx = dict(dev=dev, X=X, Q=Q, X_np=X_np, truth=truth, src_rows=src_rows, index=index,
+               index8=index8, ids8=ids8, d8=d8, peak8=peak8, results=results)
+    for part in (run_out_of_core(ctx), run_sharded(ctx)):
+        for k in launches:
+            launches[k] += part[k]
+    del ctx
+
     # -- 8.-12. the paths of the second slice ---------------------------------
     del index8
     torch.cuda.empty_cache()
@@ -668,7 +711,8 @@ def run(dev: torch.device) -> None:
     torch.cuda.empty_cache()
     dynamic = run_dynamic(ctx)
     brute_counts = run_bruteforce(ctx)
-    for part in (angular["counts"], base_counts, dynamic["counts"], brute_counts):
+    for part in (angular["counts"], base_counts, dynamic["counts"], dynamic["ingest_counts"],
+                 brute_counts):
         for k in launches:
             launches[k] += part[k]
     for rec in kernels:  # every path's launches, not only the main path's
@@ -1354,10 +1398,10 @@ def small_family(metric: str, m: int):
     from repro_torch.core import lsh
 
     if metric == "euclidean":
-        fam = lsh.make_family("euclidean", 0, D, m, w=W_BUCKET)
+        fam = lsh.make_family("euclidean", 0, D, m, device="cpu", w=W_BUCKET)
         fam.a, fam.b = (torch.from_numpy(dyadic(t)) for t in (fam.a, fam.b))
         return fam
-    fam = lsh.make_family("angular", 0, D, m, rotation="gaussian")
+    fam = lsh.make_family("angular", 0, D, m, device="cpu", rotation="gaussian")
     fam.rot = torch.from_numpy(dyadic(fam.rot, bits=12))
     return fam
 
@@ -1372,6 +1416,9 @@ def run_dynamic(ctx) -> dict:
     common.reset_launch_counts()
     didx, bulk_s = sync_time(lambda: SegmentedLCCSIndex.build(
         X[:N_BULK], m=M, family="euclidean", w=W_BUCKET, device=dev))
+    bulk_counts = common.launch_counts()
+    ingest_counts = ingest_vs_bulk(ctx, didx)  # counted apart from the dynamic path
+    common.reset_launch_counts()
     insert_s = []
     for s in range(N_BULK, N, INSERT_ROWS):
         _, secs = sync_time(lambda: didx.insert(X[s:s + INSERT_ROWS]))
@@ -1415,7 +1462,8 @@ def run_dynamic(ctx) -> dict:
             fail(f"dynamic lccs top-1 self-retrieval {top1} < 0.90 ({tag})")
         return {k: counts_before[k] + counts[k] for k in counts}
 
-    counts = searched("segment + buffer", common.launch_counts())
+    counts = searched("segment + buffer",
+                      {k: bulk_counts[k] + v for k, v in common.launch_counts().items()})
     emit(phase="launches", run="dynamic load + lccs", counts=counts)
     emit(phase="stages", config="dynamic sift", state="segment + buffer", batch=BATCH,
          ms=dynamic_stage_ms(didx, Q[:BATCH], p))
@@ -1434,7 +1482,8 @@ def run_dynamic(ctx) -> dict:
     del didx, truth
     torch.cuda.empty_cache()
     small_dynamic_vs_cpu(ctx)
-    return dict(counts=counts, buf_h=buf_h, ok=buf_ok, qh=qh_batch)
+    return dict(counts=counts, ingest_counts=ingest_counts, buf_h=buf_h, ok=buf_ok,
+                qh=qh_batch)
 
 
 def dynamic_stage_ms(didx, qb: torch.Tensor, p) -> dict:
@@ -1515,6 +1564,268 @@ def small_dynamic_vs_cpu(ctx) -> None:
         torch.testing.assert_close(cd, gd.cpu(), **GATHER_TOL)
     emit(phase="small_dynamic_vs_cpu", n=4000, segments=cpu.segment_sizes(),
          buffer_count=cpu.buffer_count, ok=True)
+
+
+def span_seconds(events: list) -> dict:
+    """Seconds per span name, summed over the spans of that name (the
+    out-of-core build's `build.*` and `csa.*` spans)."""
+    out: dict = {}
+    for e in events:
+        out[e["name"]] = out.get(e["name"], 0.0) + e["dur"] / 1e6
+    return out
+
+
+def traced(fn):
+    """(result, seconds, spans) of fn() on the host clock, fenced, with the
+    port's tracing on for the call (`span_seconds` of its spans)."""
+    from repro_torch.obs.trace import clear_trace, disable_tracing, enable_tracing, events
+
+    enable_tracing()
+    try:
+        out, secs = sync_time(fn)
+        spans = span_seconds(events())
+    finally:
+        disable_tracing()
+        clear_trace()
+    return out, secs, spans
+
+
+def run_out_of_core(ctx) -> dict:
+    """Phase 7b: cell 1's corpus built out of core from the host rows
+    (`LCCSIndex.build(chunk_rows=OOC_CHUNK)`, int8 store, fp32 tail streamed
+    to disk): its tables equal the monolithic fp32 index's, its store
+    index8's, its tail file the rows; `hash_rp` launched once a chunk; the
+    10,000 `lccs` queries (the disk tail through the plan's host gather)
+    give index8's ids.  The build's seconds split by its spans, and its peak
+    device memory beside the monolithic int8 build's (phase 5).  Returns
+    the phase's launch counts."""
+    from repro_torch.core import LCCSIndex, SearchParams
+    from repro_torch.kernels import common
+
+    dev, X_np, Q, index, index8 = (ctx[k] for k in ("dev", "X_np", "Q", "index", "index8"))
+    t_phase = time.perf_counter()
+    chunks = -(-N // OOC_CHUNK)
+    with tempfile.TemporaryDirectory() as tmp:
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        common.reset_launch_counts()
+        ooc, build_s, spans = traced(lambda: LCCSIndex.build(
+            X_np, m=M, family="euclidean", w=W_BUCKET, store="int8",
+            tail_path=Path(tmp) / "tail", chunk_rows=OOC_CHUNK, device=dev))
+        peak = torch.cuda.max_memory_allocated() - base
+        counts = common.launch_counts()
+        if counts["hash_rp"] != chunks:
+            fail(f"out_of_core: hash_rp launched {counts['hash_rp']} times for {chunks} chunks")
+        tables = (("h", ooc.h, index.h),
+                  *zip("I P Hd L".split(), ooc.csa.tables(), index.csa.tables()))
+        differ = [name for name, a, b in tables if not torch.equal(a, b)]
+        if differ:
+            fail(f"out_of_core: the chunked tables {differ} differ from the monolithic build's")
+        if not (torch.equal(ooc.store.q, index8.store.q)
+                and torch.equal(ooc.store.scale, index8.store.scale)):
+            fail("out_of_core: the chunked int8 store differs from index8's")
+        if ooc.tail is not None or not np.array_equal(np.load(ooc.tail_path, mmap_mode="r"),
+                                                      X_np):
+            fail("out_of_core: the disk tail does not hold the corpus rows")
+        p8 = SearchParams(**LCCS, store="int8")
+        ooc.search(Q[:BATCH], p8)  # warm-up
+        common.reset_launch_counts()
+        (ids, dists), secs = sync_time(lambda: run_searches(ooc, Q, p8))
+        search_counts = common.launch_counts()
+        check_outputs(ids, dists, N_QUERIES)
+        same = torch.equal(ids, ctx["ids8"])
+        dist_diff = float((dists - ctx["d8"]).abs().max())
+        footprint = ooc.total_bytes()
+        del ooc
+    torch.cuda.empty_cache()
+    named = ("build.hash", "build.ranks", "csa.merge", "csa.upload")
+    emit(phase="out_of_core", n=N, d=D, m=M, store="int8", chunk_rows=OOC_CHUNK, chunks=chunks,
+         build_seconds=build_s,
+         build_split_seconds={"hash (hash_rp, card)": spans.get("build.hash", 0.0),
+                              "ranks (circular_ranks, card)": spans.get("build.ranks", 0.0),
+                              "quantize + tail write + copies (rest of the chunk loop)":
+                                  spans.get("build.chunks", 0.0) - spans.get("build.hash", 0.0)
+                                  - spans.get("build.ranks", 0.0),
+                              "host merge (numpy)": spans.get("csa.merge", 0.0),
+                              "table upload (+ P on the card)": spans.get("csa.upload", 0.0),
+                              "rest": build_s - spans.get("build.chunks", 0.0)
+                              - spans.get("csa.merge", 0.0) - spans.get("csa.upload", 0.0)},
+         spans_seen=sorted(k for k in spans if k in named or k == "build.chunks"),
+         peak_mem_over_base_bytes=peak, total_bytes=footprint,
+         monolithic_int8=dict(peak_mem_over_base_bytes=ctx["peak8"],
+                              total_bytes=index8.total_bytes()),
+         tables_equal_monolithic=True, store_equal_index8=True, tail_equal_rows=True,
+         search=dict(source="lccs", params=dict(LCCS, rerank_mult=4), tail="disk",
+                     qps=N_QUERIES / secs, seconds=secs,
+                     recall_at_10=recall_at_k(ids, ctx["truth"]), ids_equal_index8=same,
+                     max_abs_dist_diff_index8=dist_diff),
+         launches=dict(build=counts, search=search_counts),
+         seconds=time.perf_counter() - t_phase)
+    if not same:
+        fail("out_of_core: the chunked index's lccs ids differ from index8's")
+    return {k: counts[k] + search_counts[k] for k in counts}
+
+
+def run_sharded(ctx) -> dict:
+    """Phase 7c: cell 1's fp32 index and index8 (resident tail) partitioned
+    into S = 4 and S = 3 row shards (333,334 rows a shard, the last padded)
+    on the card; the `lccs` and `multiprobe-skip` searches of the main path
+    over the 10,000 queries through each: recall@10, QPS at batch 1,000,
+    and the launches of the probe, pool and verify kernels, each at least S
+    a batch (the verify exactly S a batch); top-1 self-retrieval >= 0.90.
+    Then the instrumented plan of each S and store, bit for bit against the
+    plain plan, and phase 7d.  Returns the phase's launch counts."""
+    from repro_torch.core import SearchParams
+    from repro_torch.exec import execute
+    from repro_torch.kernels import common
+
+    dev, Q, truth = ctx["dev"], ctx["Q"], ctx["truth"]
+    t_phase = time.perf_counter()
+    total = {k: 0 for k in common.LAUNCHES}
+    n_batches = -(-N_QUERIES // BATCH)
+    mono_ids = {("fp32", "lccs"): ctx["results"]["lccs"],
+                ("fp32", "multiprobe-skip"): ctx["results"]["multiprobe-skip"],
+                ("int8", "lccs"): ctx["ids8"]}
+    for S in SHARD_COUNTS:
+        (s32, s8), shard_s = sync_time(lambda: (ctx["index"].shard(S), ctx["index8"].shard(S)))
+        emit(phase="shard_index", shards=S, rows_per_shard=s32.rows_per_shard,
+             padded_rows=S * s32.rows_per_shard - N, seconds=shard_s,
+             fp32_total_bytes=s32.total_bytes(), int8_total_bytes=s8.total_bytes())
+        for store, sidx in (("fp32", s32), ("int8", s8)):
+            verify_kernel = "gather_l2_topk" if store == "fp32" else "gather_q_topk"
+            for name, kw in (("lccs", LCCS), ("multiprobe-skip", SKIP)):
+                p = SearchParams(**kw, store=store)
+                sidx.search(Q[:BATCH], p)  # warm-up (the plan)
+                common.reset_launch_counts()
+                (ids, dists), secs = sync_time(lambda: run_searches(sidx, Q, p))
+                counts = common.launch_counts()
+                check_outputs(ids, dists, N_QUERIES)
+                top1 = float((ids[:, 0].long() == ctx["src_rows"]).float().mean())
+                mono = mono_ids.get((store, name))
+                emit(phase="sharded", shards=S, store=store, source=name,
+                     params=dict(kw, store=store), qps=N_QUERIES / secs, seconds=secs,
+                     recall_at_10=recall_at_k(ids, truth), top1_self=top1,
+                     monolithic_recall_at_10=None if mono is None else recall_at_k(mono, truth),
+                     launches={k: counts[k] for k in ("csa_probe", "pool_topk", verify_kernel)},
+                     batches=n_batches)
+                for k in ("csa_probe", "pool_topk", verify_kernel):
+                    if counts[k] < S * n_batches:
+                        fail(f"sharded S={S} {store} {name}: {k} launched {counts[k]} times, "
+                             f"fewer than {S} a batch")
+                if counts[verify_kernel] != S * n_batches:
+                    fail(f"sharded S={S} {store} {name}: {verify_kernel} launched "
+                         f"{counts[verify_kernel]} times, not {S} a batch")
+                if top1 < 0.90:
+                    fail(f"sharded S={S} {store} {name}: top-1 self-retrieval {top1} < 0.90")
+                for k in total:
+                    total[k] += counts[k]
+            # the whole pipeline: the instrumented plan's bits == the plain plan's
+            p = SearchParams(**LCCS, store=store)
+            plain = execute(sidx, Q[:BATCH], p)
+            inst = execute(sidx, Q[:BATCH], p, instrument=True)
+            if not (torch.equal(plain[0], inst[0]) and torch.equal(plain[1], inst[1])):
+                fail(f"sharded S={S} {store}: the instrumented plan's bits differ from the plain "
+                     "plan's")
+        del s32, s8
+        torch.cuda.empty_cache()
+    emit(phase="sharded_instrumented", shards=list(SHARD_COUNTS), stores=["fp32", "int8"],
+         batch=BATCH, bits_equal=True)
+    small_sharded_checks(dev, ctx["X_np"])
+    emit(phase="sharded_done", seconds=time.perf_counter() - t_phase)
+    return total
+
+
+def small_sharded_checks(dev, X_np) -> None:
+    """Phase 7d: SHARD_SMALL_N dyadic rows hashed by a dyadic family (exact
+    projections, so the card and the CPU hash alike), fp32 and int8.  On the
+    card, under complete coverage (lam = width >= n, rerank_mult covering
+    every survivor), the sharded `lccs` search gives the monolithic ids for
+    S = 1..4; at S = 3 under the main path's `lccs` budget the card and the
+    CPU (plain versions) give equal ids and distances within GATHER_TOL."""
+    from repro_torch.core import LCCSIndex, SearchParams
+    from repro_torch.core.csa import build_csa
+    from repro_torch.store import make_store
+
+    Xd = dyadic(X_np[:SHARD_SMALL_N])
+    Qd = torch.from_numpy(Xd[:64] + 0.0625)
+    fam_c = small_family("euclidean", M)
+
+    def mono(device, store):
+        fam = family_on(fam_c, device)
+        X = torch.from_numpy(Xd).to(device)
+        h = fam.hash(X)
+        vs = make_store(store, X)
+        return LCCSIndex(family=fam, store=vs, h=h, csa=build_csa(h), metric="euclidean",
+                         tail=None if vs.exact else X)
+
+    lam = pow2_at_least(SHARD_SMALL_N)
+    complete = SearchParams(k=K, lam=lam, width=lam, rerank_mult=-(-lam // K) + 1)
+    for store in ("fp32", "int8"):
+        card, cpu = mono(dev, store), mono("cpu", store)
+        if not torch.equal(card.h.cpu(), cpu.h):
+            fail(f"sharded_small {store}: dyadic hash strings differ between card and CPU")
+        p = complete.replace(store=store)
+        want, want_d = card.search(Qd.to(dev), p)
+        for S in (1, 2, 3, 4):
+            got, got_d = card.shard(S).search(Qd.to(dev), p)
+            if not torch.equal(got, want):
+                fail(f"sharded_small {store} S={S}: the sharded ids differ from the monolithic "
+                     "ones under complete coverage")
+            torch.testing.assert_close(got_d, want_d, **GATHER_TOL)
+        pb = SearchParams(**LCCS, store=store)
+        ci, cd = cpu.shard(3).search(Qd, pb)
+        gi, gd = card.shard(3).search(Qd.to(dev), pb)
+        if not torch.equal(ci, gi.cpu()):
+            fail(f"sharded_small {store} S=3: the card's ids differ from the CPU's")
+        torch.testing.assert_close(gd.cpu(), cd, **GATHER_TOL)
+    emit(phase="sharded_small", n=SHARD_SMALL_N, queries=64, stores=["fp32", "int8"],
+         complete=dict(lam=lam, width=lam, rerank_mult=complete.rerank_mult, shards=[1, 2, 3, 4],
+                       ids_equal_monolithic=True),
+         card_vs_cpu=dict(shards=3, params=LCCS, ids_equal=True, dist_tol=GATHER_TOL))
+
+
+def ingest_vs_bulk(ctx, didx) -> dict:
+    """Phase 9a: `SegmentedLCCSIndex.ingest_chunks` of the bulk rows (host
+    rows, chunks of OOC_CHUNK) into a fresh index with the same family
+    seed: its one segment (2^20 rows, padded) equals the bulk load's
+    segment table for table, and a search of the 10,000 queries gives the
+    same ids.  Freed before phase 9's inserts.  Returns the phase's own
+    launch counts (its ingest and both searches), which stay out of the
+    dynamic path's."""
+    from repro_torch.core import SearchParams, SegmentedLCCSIndex
+    from repro_torch.core.index import iter_row_blocks
+    from repro_torch.kernels import common
+
+    dev = ctx["dev"]
+    common.reset_launch_counts()
+    ing = SegmentedLCCSIndex.create(D, m=M, family="euclidean", w=W_BUCKET, device=dev)
+    gids, secs, spans = traced(
+        lambda: ing.ingest_chunks(iter_row_blocks(ctx["X_np"][:N_BULK], OOC_CHUNK)))
+    if not np.array_equal(gids, np.arange(N_BULK)):
+        fail("ingest_chunks: the gids are not 0 .. N_BULK - 1")
+    if len(ing.segments) != 1 or len(didx.segments) != 1 or ing.buffer_count:
+        fail(f"ingest_chunks: {len(ing.segments)} segments, {ing.buffer_count} buffered rows")
+    a, b = ing.segments[0], didx.segments[0]
+    pairs = (("h", a.h, b.h), ("gid", a.gid, b.gid),
+             *zip("I P Hd L".split(), a.csa.tables(), b.csa.tables()))
+    differ = [name for name, x, y in pairs if not torch.equal(x, y)]
+    if differ:
+        fail(f"ingest_chunks: the segment's {differ} differ from the bulk load's")
+    p = SearchParams(**LCCS)
+    ids_i, _ = run_searches(ing, ctx["Q"], p)
+    ids_b, _ = run_searches(didx, ctx["Q"], p)
+    counts = common.launch_counts()
+    emit(phase="launches", run="ingest_chunks + lccs (ingested and bulk)", counts=counts)
+    emit(phase="ingest_chunks", rows=N_BULK, chunk_rows=OOC_CHUNK, segment_cap=a.cap,
+         seconds=secs, split_seconds={"host merge (numpy)": spans.get("csa.merge", 0.0),
+                                      "table upload": spans.get("csa.upload", 0.0)},
+         segment_equal_bulk=True, ids_equal_bulk=torch.equal(ids_i, ids_b))
+    if not torch.equal(ids_i, ids_b):
+        fail("ingest_chunks: the ingested index's lccs ids differ from the bulk load's")
+    del ing, a
+    torch.cuda.empty_cache()
+    return counts
 
 
 def run_bruteforce(ctx) -> dict:
@@ -1766,6 +2077,7 @@ def run_serving(dev) -> dict:
             for k in counts:
                 counts[k] += run_counts[k]
             if not dynamic:  # after the static run's counts are read
+                static_index = engine.index
                 profile_batch(engine, corpus[:SERVE_BATCH])
                 if arch == "gemma-2b":  # the serving pool of one static batch's probe
                     pool = []
@@ -1777,6 +2089,10 @@ def run_serving(dev) -> dict:
                     async_counts = serve_async(engine, corpus, n_req)
                     for k in counts:
                         counts[k] += async_counts[k]
+        if arch == "gemma-2b":  # the out-of-core and the sharded builds of the corpus
+            for k, v in serve_chunked_and_sharded(engine, corpus, n_req, static_index).items():
+                counts[k] += v
+        del static_index
         kernel = SERVE_KERNEL[arch]
         module, fn = (flash_ops, "flash_attention") if kernel == "flash_attn" \
             else (scan_ops, "ssm_scan")
@@ -1787,8 +2103,61 @@ def run_serving(dev) -> dict:
         del engine, model
         torch.cuda.empty_cache()
     serve_async_cli()
+    serve_shards_cli()
     small_serve_vs_cpu(dev)
     return dict(counts=counts, recorded=recorded)
+
+
+def serve_chunked_and_sharded(engine, corpus: np.ndarray, n_req: int, static_index) -> dict:
+    """Phase 13d: gemma-2b's corpus built again on the engine, out of core
+    (`build_index(chunk_rows=SERVE_CHUNK_ROWS)`): bit for bit the static
+    build's index; then an engine on the same model with
+    `shards=SERVE_SHARDS` serves the static run's request stream
+    (`serve_once`: self-retrieval >= 0.90, its requests/s beside the static
+    run's).  Returns the launch counts of both."""
+    from repro_torch.kernels import common
+    from repro_torch.serve import RetrievalEngine
+
+    common.reset_launch_counts()
+    chunked, secs = sync_time(lambda: engine.build_index(corpus, chunk_rows=SERVE_CHUNK_ROWS))
+    counts = common.launch_counts()
+    pairs = (("h", chunked.h, static_index.h),
+             ("rows", chunked.store.rows, static_index.store.rows),
+             *zip("I P Hd L".split(), chunked.csa.tables(), static_index.csa.tables()))
+    differ = [name for name, a, b in pairs if not torch.equal(a, b)]
+    emit(phase="serve_chunked_build", arch=engine.cfg.name, docs=corpus.shape[0],
+         chunk_rows=SERVE_CHUNK_ROWS, build_seconds=secs, equal_static=not differ,
+         launches=counts)
+    if differ:
+        fail(f"serve {engine.cfg.name}: the chunked build's {differ} differ from the static "
+             "build's")
+    sharded = RetrievalEngine(engine.cfg, engine.model, m=SERVE_M, metric="angular",
+                              max_batch=SERVE_BATCH, shards=SERVE_SHARDS, device=engine.device)
+    served = serve_once(sharded, corpus, n_req, dynamic=False)
+    del sharded
+    return {k: counts[k] + served[k] for k in counts}
+
+
+def serve_shards_cli() -> None:
+    """Phase 13e: one run of `python -m repro_torch.launch.serve` with
+    `--shards 2 --build-chunk-rows 64` (SHARDS_CLI, a smoke model on the
+    card): it must exit 0, build two shards and reach self-retrieval >= 0.90."""
+    root = Path(__file__).resolve().parent
+    cmd = [sys.executable, "-m", "repro_torch.launch.serve", *SHARDS_CLI]
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, capture_output=True, text=True, timeout=600, cwd=root,
+                         env={**os.environ, "PYTHONPATH": str(root / "src")})
+    secs = time.perf_counter() - t0
+    if out.returncode != 0:
+        fail(f"serve_shards_cli: exit {out.returncode}\n{out.stdout[-3000:]}\n"
+             f"{out.stderr[-3000:]}")
+    m = re.search(r"self-retrieval (\d+)/(\d+)", out.stdout)
+    emit(phase="serve_shards_cli", args=list(SHARDS_CLI), seconds=secs,
+         stdout=[ln for ln in out.stdout.splitlines() if "[launch.serve]" in ln][-4:])
+    if "2 shards" not in out.stdout:
+        fail(f"serve_shards_cli: no sharded index built:\n{out.stdout[-2000:]}")
+    if not m or int(m.group(1)) < 0.90 * int(m.group(2)):
+        fail(f"serve_shards_cli: self-retrieval below 0.90:\n{out.stdout[-2000:]}")
 
 
 def serve_once(engine, corpus: np.ndarray, n_req: int, dynamic: bool) -> dict:
@@ -1801,7 +2170,7 @@ def serve_once(engine, corpus: np.ndarray, n_req: int, dynamic: bool) -> dict:
     from repro_torch.launch.serve import request_stream
 
     cfg, n_docs = engine.cfg, corpus.shape[0]
-    state = "dynamic" if dynamic else "static"
+    state = "dynamic" if dynamic else f"{engine.shards} shards" if engine.shards else "static"
     engine.stats.reset()
     torch.cuda.reset_peak_memory_stats()
     common.reset_launch_counts()

@@ -1,7 +1,8 @@
 """LCCS-LSH core, PyTorch port of `repro.core`: `LCCSIndex`, the dynamic
 `SegmentedLCCSIndex`, `SearchParams` + the candidate-source registry, the
 paper's closed forms (`theory`) and the verify the baselines share
-(`verify_candidates`)."""
+(`verify_candidates`).  Importing it also imports `repro_torch.shard`,
+which registers the "sharded" candidate source and topology."""
 from . import multiprobe, theory
 from .bruteforce import bruteforce_topk, circ_run_lengths
 from .csa import CSA, build_csa, circular_ranks
@@ -19,6 +20,12 @@ from .search import klccs_search, klccs_search_pairs, klccs_search_with_lens
 # importing .segments registers the "segmented" candidate source
 from .segments import Segment, SegmentedLCCSIndex
 from .sources import CandidateSource, available_sources, get_source, register_source
+
+# importing repro_torch.shard registers the "sharded" candidate source and
+# topology.  A plain submodule import, so the reentrant case -- the shard
+# package importing this one first -- finds the partial module and returns;
+# the sharded names live in repro_torch.shard.
+from .. import shard as _shard  # noqa: E402,F401  isort: skip
 
 __all__ = [
     "CSA",

@@ -1,5 +1,5 @@
 """LCCSIndex -- the public API of the paper's scheme (PyTorch port of
-`repro.core.index`, monolithic build).
+`repro.core.index`).
 
 Indexing phase (§4.1): hash every object with m i.i.d. LSH functions into a
 hash string; build the CSA.  Query phase: a *candidate source* proposes
@@ -15,7 +15,12 @@ Canonical usage::
     ids, dists = index.search(Q, params)
 
 `build` and `load` place the index on CUDA unless the caller passes
-`device="cpu"`; without CUDA they raise instead of falling back.  `search`
+`device="cpu"`; without CUDA they raise instead of falling back.
+`build(chunk_rows=)` and `build_streaming` are the out-of-core build: row
+blocks are hashed, quantized and ranked one at a time on the device and the
+CSA is merged on the host (`csa.csa_from_chunk_ranks`), bit-identical to
+the monolithic build.  `shard(S)` partitions an index into S row shards
+on its device (`repro_torch.shard`).  `search`
 runs on the index's device: on CUDA the probe and verify stages launch the
 hand-written kernels in `repro_torch.kernels`, on the CPU their plain
 versions run.
@@ -37,24 +42,67 @@ import torch
 
 from ..exec import execute as _execute
 from ..exec import stages as exec_stages
-from ..store import get_store_cls, make_store
+from ..obs.trace import span as _span
+from ..store import concat_stores, get_store_cls, make_store
 from ..store import stores as store_mod
 from ..store import tail as tail_mod
 from . import lsh as lsh_mod
-from .csa import CSA, build_csa
+from .csa import CSA, build_csa, circular_ranks, csa_from_chunk_ranks
+from .device import resolve_device
 from .params import SearchParams
 
 
-def resolve_device(device=None) -> torch.device:
-    """None -> CUDA.  Raises when CUDA is asked for but absent: the port never
-    drops to the CPU on its own (pass device="cpu" for that)."""
-    dev = torch.device("cuda" if device is None else device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "repro_torch: CUDA is not available; pass device='cpu' to build "
-            "or load an index on the CPU"
-        )
-    return dev
+def iter_row_blocks(data, chunk_rows: int):
+    """Slice `data` into (<=chunk_rows, d) row blocks without materialising
+    the whole array: plain `__getitem__` slicing, so an `np.memmap` (or any
+    lazily-indexed source) is read one block at a time."""
+    if chunk_rows < 1:
+        raise ValueError(f"chunk_rows must be >= 1, got {chunk_rows}")
+    n = data.shape[0]
+    for lo in range(0, n, chunk_rows):
+        yield data[lo : min(lo + chunk_rows, n)]
+
+
+def _reblock(chunks, chunk_rows: int):
+    """Re-block a chunk stream (numpy arrays or tensors) to exactly
+    `chunk_rows` rows per yielded block (the last may be short).  Buffers at
+    most one outgoing block plus one incoming chunk -- still O(chunk)
+    memory."""
+    if chunk_rows < 1:
+        raise ValueError(f"chunk_rows must be >= 1, got {chunk_rows}")
+
+    def joined(parts):
+        if len(parts) == 1:
+            return parts[0]
+        return torch.cat(parts) if isinstance(parts[0], torch.Tensor) else np.concatenate(parts)
+
+    buf: list = []
+    fill = 0
+    for chunk in chunks:
+        if not isinstance(chunk, torch.Tensor):
+            chunk = np.asarray(chunk)
+        lo, n = 0, chunk.shape[0]
+        while lo < n:
+            take = min(chunk_rows - fill, n - lo)
+            buf.append(chunk[lo : lo + take])
+            fill += take
+            lo += take
+            if fill == chunk_rows:
+                yield joined(buf)
+                buf, fill = [], 0
+    if fill:
+        yield joined(buf)
+
+
+def rows_on(x, dev: torch.device) -> torch.Tensor:
+    """A row block (numpy, memmap or tensor) as a contiguous float32 tensor
+    on `dev`."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=dev, dtype=torch.float32).contiguous()
+    a = np.ascontiguousarray(x, np.float32)
+    if not a.flags.writeable:  # a read-only memmap block: the tensor must not alias it
+        a = a.copy()
+    return torch.from_numpy(a).to(dev)
 
 
 def _to_numpy(t):
@@ -109,6 +157,7 @@ class LCCSIndex:
         build_csa_structure: bool = True,
         store: str = "fp32",
         tail_path: str | Path | None = None,
+        chunk_rows: int | None = None,
         device=None,
         **family_kw,
     ) -> "LCCSIndex":
@@ -116,12 +165,19 @@ class LCCSIndex:
         stored as the named vector store.  Quantized stores ("bf16",
         "int8") verify in two stages; their fp32 rerank tail is held in
         memory unless `tail_path` is given (then it is written as .npy and
-        gathered lazily per batch)."""
+        gathered lazily per batch).
+
+        `chunk_rows` switches to the out-of-core path (`build_streaming`
+        over row slices of `data`, read one block at a time): the result is
+        bit-identical to the monolithic build for every chunk size."""
+        if chunk_rows is not None:
+            return LCCSIndex.build_streaming(
+                iter_row_blocks(data, chunk_rows), m=m, family=family, seed=seed,
+                build_csa_structure=build_csa_structure, store=store,
+                tail_path=tail_path, device=device, **family_kw,
+            )
         dev = resolve_device(device)
-        if isinstance(data, torch.Tensor):
-            data = data.to(device=dev, dtype=torch.float32)
-        else:
-            data = torch.from_numpy(np.ascontiguousarray(data, np.float32)).to(dev)
+        data = rows_on(data, dev)
         n, d = data.shape
         fam = lsh_mod.make_family(family, seed, d, m, device=dev, **family_kw)
         h = fam.hash(data)
@@ -134,6 +190,92 @@ class LCCSIndex:
                 tail_p = tail_mod.write_tail(tail_path, data.cpu().numpy())
             else:
                 tail = data
+        return LCCSIndex(family=fam, store=vstore, h=h, csa=csa,
+                         metric=fam.metric, tail=tail, tail_path=tail_p)
+
+    @staticmethod
+    def build_streaming(
+        chunks,
+        *,
+        m: int = 64,
+        family: str = "euclidean",
+        seed: int = 0,
+        build_csa_structure: bool = True,
+        store: str = "fp32",
+        tail_path: str | Path | None = None,
+        chunk_rows: int | None = None,
+        device=None,
+        **family_kw,
+    ) -> "LCCSIndex":
+        """Out-of-core `build` on `device` (None = CUDA): consume an
+        iterator of (c_i, d) row blocks (numpy, memmap or tensor).
+
+        Per block: hash on the device, quantize into a per-chunk store
+        (per-row quantization makes the chunk-wise quantize bit-identical to
+        the monolithic one), stream the fp32 rows to the disk tail
+        (`tail_path`) when the store is inexact, and run `circular_ranks` on
+        the chunk alone -- the device transients are O(chunk, m).  The
+        per-chunk sorted orders are then merged into the global CSA on the
+        host (`csa_from_chunk_ranks`), bit-identical to
+        `build(concat(chunks))` for every chunking of the same rows.
+
+        `chunk_rows` re-blocks the incoming stream to that block size; by
+        default each yielded chunk is one CSA chunk.  The fp32 corpus is
+        never resident on the device whole unless the store needs an
+        in-memory tail (inexact store, `tail_path=None`) or is the fp32
+        store itself."""
+        dev = resolve_device(device)
+        if chunk_rows is not None:
+            chunks = _reblock(chunks, chunk_rows)
+        fam = None
+        writer: tail_mod.TailWriter | None = None
+        h_parts: list[np.ndarray] = []
+        sizes: list[int] = []
+        ranks: list[np.ndarray] = []
+        store_parts: list[Any] = []
+        tail_parts: list[torch.Tensor] = []
+        with _span("build.chunks"):
+            for chunk in chunks:
+                rows = rows_on(chunk, dev)
+                if rows.dim() != 2 or rows.shape[0] == 0:
+                    raise ValueError(f"chunks must be non-empty (c, d) blocks, "
+                                     f"got shape {tuple(rows.shape)}")
+                if fam is None:
+                    fam = lsh_mod.make_family(family, seed, rows.shape[1], m, device=dev,
+                                              **family_kw)
+                with _span("build.hash"):
+                    hc = fam.hash(rows)
+                    h_parts.append(hc.cpu().numpy())
+                sizes.append(rows.shape[0])
+                if build_csa_structure:
+                    with _span("build.ranks"):
+                        ranks.append(circular_ranks(hc).cpu().numpy())
+                part = make_store(store, rows)
+                store_parts.append(part)
+                if not part.exact:
+                    if tail_path is not None:
+                        if writer is None:
+                            writer = tail_mod.TailWriter(tail_path, rows.shape[1])
+                        writer.append(rows.cpu().numpy())
+                    else:
+                        tail_parts.append(rows)
+                del rows, hc
+        if fam is None:
+            raise ValueError("build_streaming needs at least one chunk")
+        vstore = concat_stores(store_parts)
+        del store_parts
+        h_host = np.concatenate(h_parts) if len(h_parts) > 1 else h_parts[0]
+        del h_parts
+        csa = None
+        if build_csa_structure:
+            csa = csa_from_chunk_ranks(h_host, sizes, ranks, device=dev)
+            del ranks
+        h = torch.from_numpy(h_host).to(dev)
+        del h_host
+        tail = None
+        tail_p = writer.finalize() if writer is not None else None
+        if tail_parts:
+            tail = torch.cat(tail_parts) if len(tail_parts) > 1 else tail_parts[0]
         return LCCSIndex(family=fam, store=vstore, h=h, csa=csa,
                          metric=fam.metric, tail=tail, tail_path=tail_p)
 
@@ -171,12 +313,26 @@ class LCCSIndex:
             tot += self.tail.numel() * 4
         return tot
 
+    def total_bytes(self) -> int:
+        """Full serving footprint: search structure + resident vectors."""
+        return self.index_bytes() + self.store_bytes()
+
     # -- search -------------------------------------------------------------
 
     def search(self, queries, params: SearchParams | None = None):
         """c-k-ANNS: candidate generation + true-distance verification on the
         index's device.  Returns (ids (B, k) int32, dists (B, k) float32)."""
         return _execute(self, queries, params)
+
+    def shard(self, shards: int):
+        """Partition this index's rows into `shards` contiguous shards on its
+        device: one CSA and one vector-store slice a shard under the shared
+        family.  Returns a `repro_torch.shard.ShardedLCCSIndex` serving the
+        same SearchParams pipeline shard by shard, with an exact global
+        top-k merge (uneven row counts are padded and masked)."""
+        from ..shard import shard_index
+
+        return shard_index(self, shards)
 
     # -- persistence ---------------------------------------------------------
 
@@ -278,6 +434,12 @@ def verify_candidates(data: torch.Tensor, queries: torch.Tensor, cand_ids: torch
 def candidates(index: LCCSIndex, queries, params: SearchParams):
     """Candidate generation only: the hash + probe stages.  Returns
     (ids, lcps): (B, lam) int32 each, -1 padded."""
+    if getattr(index, "sharded", False) and params.source != "sharded":
+        raise TypeError(
+            f"a ShardedLCCSIndex holds per-shard CSAs; source="
+            f"{params.source!r} would read them as one flat index -- use "
+            f"SearchParams(source='sharded', inner={params.source!r})"
+        )
     queries = torch.as_tensor(queries, dtype=torch.float32).to(index.device)
     qh = exec_stages.hash_queries(index.family, queries)
     return exec_stages.probe(index, queries, qh, params)
@@ -289,6 +451,12 @@ def search(index: LCCSIndex, queries, params: SearchParams):
     plan: call `index.search` for that."""
     from ..exec.topology import search_pipeline
 
+    if getattr(index, "sharded", False):
+        raise TypeError(
+            "a ShardedLCCSIndex verifies per shard before the global merge; "
+            "call index.search(queries, params) or repro_torch.shard.search -- "
+            "this monolithic pipeline would mis-gather its stacked store"
+        )
     if not index.store.exact and index.tail is None and index.tail_path:
         raise ValueError(
             "this index's fp32 rerank tail is disk-lazy (tail_path="

@@ -16,9 +16,12 @@ provides:
 
 Families are dataclasses holding tensors; `create` draws new parameters from
 a `torch.Generator` seeded with `seed` (on the CPU, then moved to `device`,
-so a seed gives the same family on every device).  The draws differ from
-the JAX package's `jax.random` draws: to compare the two packages, build a
-family from the reference's arrays (`LCCSIndex.load` does this).
+so a seed gives the same family on every device).  `create` and
+`make_family` put the family on CUDA unless the caller passes
+`device="cpu"`, and raise without CUDA (`device.resolve_device`).  The
+draws differ from the JAX package's `jax.random` draws: to compare the two
+packages, build a family from the reference's arrays (`LCCSIndex.load`
+does this).
 
 Hashing goes through the kernels of `repro_torch.kernels`: `hash_rp` for
 the random-projection family and `hash_xp` for the cross-polytope family
@@ -47,6 +50,7 @@ from ..kernels.common import no_tf32
 from ..kernels.hash_rp import hash_rp
 from ..kernels.hash_xp import hash_xp
 from . import theory
+from .device import resolve_device
 
 
 def _next_pow2(x: int) -> int:
@@ -101,7 +105,8 @@ class RandomProjectionLSH:
     metric: str = field(default="euclidean")
 
     @staticmethod
-    def create(seed: int, d: int, m: int, w: float, device="cpu") -> "RandomProjectionLSH":
+    def create(seed: int, d: int, m: int, w: float, device=None) -> "RandomProjectionLSH":
+        device = resolve_device(device)
         g = _generator(seed)
         a = torch.randn((d, m), generator=g, dtype=torch.float32)
         b = torch.rand((m,), generator=g, dtype=torch.float32) * float(w)
@@ -192,7 +197,8 @@ class CrossPolytopeLSH:
 
     @staticmethod
     def create(seed: int, d: int, m: int, rotation: str = "pseudo",
-               device="cpu") -> "CrossPolytopeLSH":
+               device=None) -> "CrossPolytopeLSH":
+        device = resolve_device(device)
         g = _generator(seed)
         if rotation == "pseudo":
             dr = _next_pow2(d)
@@ -276,7 +282,8 @@ class BitSamplingLSH:
     metric: str = field(default="hamming")
 
     @staticmethod
-    def create(seed: int, d: int, m: int, device="cpu") -> "BitSamplingLSH":
+    def create(seed: int, d: int, m: int, device=None) -> "BitSamplingLSH":
+        device = resolve_device(device)
         idx = torch.randint(0, d, (m,), generator=_generator(seed), dtype=torch.int32)
         return BitSamplingLSH(idx=idx.to(device), d=d)
 
@@ -325,7 +332,9 @@ def family_from_arrays(family_cls: str, fields: dict, device):
     })
 
 
-def make_family(kind: str, seed: int, d: int, m: int, device="cpu", **kw):
+def make_family(kind: str, seed: int, d: int, m: int, device=None, **kw):
+    """The named family of m functions over R^d drawn from `seed`, on
+    `device` (None = CUDA, raising without it)."""
     if kind in ("rp", "euclidean", "random_projection"):
         return RandomProjectionLSH.create(seed, d, m, w=kw.get("w", 4.0), device=device)
     if kind in ("xp", "angular", "cross_polytope"):

@@ -1,6 +1,5 @@
 """Segmented dynamic LCCS index: online insert/delete over an LSM-style
-segment stack (PyTorch port of `repro.core.segments`, without the
-out-of-core `ingest_chunks`).
+segment stack (PyTorch port of `repro.core.segments`).
 
 LCCS candidate scoring is pointwise per object, so per-segment top-lambda
 candidate sets merge exactly.  That makes a mutable corpus an LSM problem:
@@ -17,7 +16,11 @@ candidate sets merge exactly.  That makes a mutable corpus an LSM problem:
     addressed, so its rows are reclaimed only by `vacuum()`, which
     renumbers ids),
   * `compact()` is a size-tiered merge: the buffer plus every segment no
-    larger than the running merge total is rebuilt into one new segment.
+    larger than the running merge total is rebuilt into one new segment,
+  * `ingest_chunks` is the out-of-core bulk load: row blocks are written
+    like `insert` batches, but their hash strings bypass the buffer into
+    one new segment built by the chunked CSA merge
+    (`csa.build_csa_chunked`).
 
 Segment sizes and the buffer capacity follow the reference's power-of-two
 schedule; padded rows hold the int32-max sentinel string and gid -1.  All
@@ -53,8 +56,8 @@ from ..exec import stages as exec_stages
 from ..store import make_store
 from . import lsh as lsh_mod
 from .bruteforce import circ_topk
-from .csa import CSA, build_csa
-from .index import LCCSIndex, resolve_device
+from .csa import CSA, build_csa, build_csa_chunked
+from .index import LCCSIndex, _reblock, resolve_device, rows_on
 from .params import SearchParams
 from .sources import get_source, register_source
 
@@ -89,16 +92,21 @@ class Segment:
         return self.h.shape[0]
 
     @staticmethod
-    def build(h_rows: torch.Tensor, gids: torch.Tensor) -> "Segment":
+    def build(h_rows: torch.Tensor, gids: torch.Tensor, *,
+              chunk_rows: int | None = None) -> "Segment":
         """Pad (n, m) hash rows and their gids to the next power of two, and
-        build the CSA over the padded strings."""
+        build the CSA over the padded strings, on the rows' device.
+        `chunk_rows` routes the CSA through the out-of-core chunked merge
+        (`build_csa_chunked`, bit-identical to the monolithic build -- the
+        sentinel pad rows are just maximal strings)."""
         n, m = h_rows.shape
         cap = _pow2_at_least(n)
         h = _pad_hash(cap, m, h_rows.device)
         h[:n] = h_rows
         g = _no_gids(cap, h_rows.device)
         g[:n] = gids
-        return Segment(h=h, csa=build_csa(h), gid=g)
+        csa = build_csa(h) if chunk_rows is None else build_csa_chunked(h, chunk_rows=chunk_rows)
+        return Segment(h=h, csa=csa, gid=g)
 
 
 @dataclass
@@ -251,11 +259,25 @@ class SegmentedLCCSIndex:
     # -- mutation -------------------------------------------------------------
 
     def _rows(self, X) -> torch.Tensor:
-        if isinstance(X, torch.Tensor):
-            X = X.to(device=self.device, dtype=torch.float32)
-        else:
-            X = torch.from_numpy(np.ascontiguousarray(X, np.float32)).to(self.device)
+        X = rows_on(X, self.device)
         return X[None, :] if X.dim() == 1 else X
+
+    def _write(self, X: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+        """The writer `insert` and `ingest_chunks` share: hash a batch,
+        allocate its global ids, write its rows into the store (quantized on
+        ingest) and the tail, and mark them alive.  Returns (hash strings,
+        gids), both on the device."""
+        b = X.shape[0]
+        h = self.family.hash(X)
+        n_ids = self.n_alloc
+        self._grow_store(n_ids + b)
+        rows = torch.arange(n_ids, n_ids + b, dtype=torch.int32, device=self.device)
+        self.store = self.store.set_rows(rows, X)  # quantize on ingest
+        if self.tail is not None:
+            self.tail[n_ids:n_ids + b] = X
+        self.alive[n_ids:n_ids + b] = True
+        self.n_alloc = n_ids + b
+        return h, rows
 
     def insert(self, X) -> np.ndarray:
         """Append a batch of vectors; returns their assigned global ids.
@@ -264,20 +286,55 @@ class SegmentedLCCSIndex:
         b = X.shape[0]
         if b == 0:
             return np.zeros((0,), np.int32)
-        h = self.family.hash(X)
         n_ids, fill = self.n_alloc, self.buf_fill
-        self._grow_store(n_ids + b)
-        rows = torch.arange(n_ids, n_ids + b, dtype=torch.int32, device=self.device)
-        self.store = self.store.set_rows(rows, X)  # quantize on ingest
-        if self.tail is not None:
-            self.tail[n_ids:n_ids + b] = X
-        self.alive[n_ids:n_ids + b] = True
+        h, rows = self._write(X)
         self._grow_buffer(fill + b)
         self.buf_h[fill:fill + b] = h
         self.buf_gid[fill:fill + b] = rows
-        self.n_alloc = n_ids + b
         self.buf_fill = fill + b
         return np.arange(n_ids, n_ids + b, dtype=np.int32)
+
+    def ingest_chunks(self, chunks, *, chunk_rows: int | None = None,
+                      compact: bool = True) -> np.ndarray:
+        """Bulk streaming ingest -- the out-of-core fast path.
+
+        Each chunk goes through the same writer as one `insert` batch (hash
+        on the device, quantize into the store, tail and tombstone
+        bookkeeping), but with `compact=True` (default) the hash strings
+        bypass the delta buffer: they stay on the host and are rolled into
+        ONE new CSA segment built by the chunked merge
+        (`Segment.build(chunk_rows=)`, at the largest chunk's size), so
+        neither the buffer nor the CSA construction holds an O(n)-row
+        device transient.  Equivalent to `insert(chunk) for chunk in
+        chunks; compact()` -- same gids, store and search results.
+        `compact=False` lands the chunks as plain `insert` batches.
+
+        `chunk_rows` re-blocks the incoming stream (and so sizes the merge
+        chunks).  Returns the assigned global ids."""
+        if chunk_rows is not None:
+            chunks = _reblock(chunks, chunk_rows)
+        if not compact:
+            parts = [self.insert(chunk) for chunk in chunks]
+            return np.concatenate(parts) if parts else np.zeros((0,), np.int32)
+        h_parts: list[np.ndarray] = []
+        gid_parts: list[np.ndarray] = []
+        max_chunk = 0
+        for chunk in chunks:
+            X = self._rows(chunk)
+            if X.shape[0] == 0:
+                continue
+            h, rows = self._write(X)
+            h_parts.append(h.cpu().numpy())
+            gid_parts.append(rows.cpu().numpy())
+            max_chunk = max(max_chunk, X.shape[0])
+            del X, h
+        if not h_parts:
+            return np.zeros((0,), np.int32)
+        gids = np.concatenate(gid_parts)
+        seg = Segment.build(torch.from_numpy(np.concatenate(h_parts)).to(self.device),
+                            torch.from_numpy(gids).to(self.device), chunk_rows=max_chunk)
+        self.segments = tuple(sorted(self.segments + (seg,), key=lambda sg: -sg.cap))
+        return gids
 
     def delete(self, ids) -> int:
         """Tombstone a batch of global ids (idempotent); returns the number

@@ -1,5 +1,21 @@
 """Synthetic corpora and token documents for tests, the serving launcher and
-the on-card smoke run."""
-from .synthetic import clustered_vectors, lm_token_batches, paper_dataset_analogue, queries_from
+the on-card smoke run; the chunked generators feed out-of-core builds."""
+from .synthetic import (
+    clustered_vector_chunks,
+    clustered_vectors,
+    embedding_vector_chunks,
+    embedding_vectors,
+    lm_token_batches,
+    paper_dataset_analogue,
+    queries_from,
+)
 
-__all__ = ["clustered_vectors", "lm_token_batches", "paper_dataset_analogue", "queries_from"]
+__all__ = [
+    "clustered_vector_chunks",
+    "clustered_vectors",
+    "embedding_vector_chunks",
+    "embedding_vectors",
+    "lm_token_batches",
+    "paper_dataset_analogue",
+    "queries_from",
+]

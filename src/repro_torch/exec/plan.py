@@ -248,15 +248,20 @@ def plan_cache() -> PlanCache:
 
 # (data fields, meta fields) per class: the reference's pytree registrations
 # (`repro/core/index.py:466-470`, `repro/core/segments.py:107-109,483-487`,
-# `repro/core/lsh.py:275-282`, `repro/store/stores.py:249-251`, and `CSA`, a
-# NamedTuple there).  A data field enters the signature as its shape and
-# dtype (a Python int counter as a scalar), so new values keep the plan; a
-# meta field enters by value, as the treedef's static aux does.
+# `repro/shard/index.py:198-202`, `repro/core/lsh.py:275-282`,
+# `repro/store/stores.py:249-251`, and `CSA`, a NamedTuple there).  A data
+# field enters the signature as its shape and dtype (a Python int counter as
+# a scalar), so new values keep the plan; a meta field enters by value, as
+# the treedef's static aux does.
 _PYTREE_FIELDS: dict[str, tuple[tuple[str, ...], tuple[str, ...]]] = {
     "LCCSIndex": (("family", "store", "h", "csa", "tail"), ("metric", "tail_path")),
     "SegmentedLCCSIndex": (("family", "store", "alive", "segments", "buf_h", "buf_gid",
                             "n_alloc", "buf_fill", "tail"), ("metric",)),
     "Segment": (("h", "csa", "gid"), ()),
+    # the reference's mesh and axis are static aux there; the port has no
+    # mesh, and the shard count is the leading axis of every leaf
+    "ShardedLCCSIndex": (("family", "store", "h", "csa", "gid", "tail"),
+                         ("metric", "n_rows")),
     "CSA": (("I", "P", "Hd", "L"), ()),
     "RandomProjectionLSH": (("a", "b"), ("w", "metric")),
     "CrossPolytopeLSH": (("signs", "rot"), ("d", "dr", "rotation", "metric")),

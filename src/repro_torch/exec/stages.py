@@ -13,7 +13,12 @@ of `repro.exec.stages`, the stages the monolithic topology runs).
                                       rows
                  verify               the composed verification
     merge        merge_candidates     exact max-LCP merge of per-part
-                                      candidate sets (the segmented fan-out)
+                                      candidate sets (the segmented and
+                                      sharded fan-outs)
+                 merge_topk           the global top-k of pooled per-shard
+                                      result sets (`topk_ids`)
+                 cut_survivors        a pooled survivor set cut back to the
+                                      global stage-1 budget R
                  pad_candidates, local_to_global, mask_dead
                                       the id algebra around it
 
@@ -108,6 +113,9 @@ def topk_ids(dist: torch.Tensor, ids: torch.Tensor, k: int):
     return out_ids, out_d
 
 
+merge_topk = topk_ids  # result-set merge: the same operation, read as a stage
+
+
 def fused_verify(store, metric: str, use_kernel: bool) -> bool:
     """True when the verify's scan and top-k run as one gather kernel pass
     (`store.gather_topk`): the gather kernels are on, the store has the
@@ -164,6 +172,19 @@ def rerank_rows(rows: torch.Tensor, queries: torch.Tensor, cand_ids: torch.Tenso
     return topk_ids(dist, cand_ids, k)
 
 
+def cut_survivors(ids: torch.Tensor, approx: torch.Tensor, rows: torch.Tensor, params):
+    """Cut a pooled survivor set (the sharded fan-out's per-shard survivor
+    sets, concatenated) back to the global stage-1 budget R by approximate
+    distance, ties to the lower index.  Each part's local top-R is a
+    superset of its members of the global top-R, so the cut reproduces the
+    monolithic survivor set.  Returns (ids (B, R), rows (B, R, d))."""
+    r = survivor_budget(params, ids.shape[1])
+    _, sel = _smallest(approx, r)
+    ids_sel = torch.gather(ids, 1, sel)
+    rows_sel = torch.gather(rows, 1, sel[..., None].expand(-1, -1, rows.shape[2]))
+    return ids_sel, rows_sel
+
+
 def verify(store, tail, queries, cand_ids, params, metric: str):
     """The composed verification stage: single-stage `exact_topk` for exact
     stores, `survivors -> gather_fp32 -> rerank_rows` for quantized ones.
@@ -179,7 +200,7 @@ def verify(store, tail, queries, cand_ids, params, metric: str):
 
 
 # ---------------------------------------------------------------------------
-# merge stages + id algebra (segmented fan-out)
+# merge stages + id algebra (segmented and sharded fan-outs)
 # ---------------------------------------------------------------------------
 
 

@@ -3,12 +3,15 @@ over a corpus of token documents (port of `repro.launch.serve`).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b --smoke \\
         --corpus 512 --requests 128 [--dynamic] [--store int8] [--device cpu] \\
-        [--async --replicas 2 --slo-ms 500]
+        [--shards 4] [--build-chunk-rows 4096] [--async --replicas 2 --slo-ms 500]
 
 Serves from random-init weights (`init_model`, seed 0) on the card unless
 `--device cpu`.  `--smoke` takes the architecture's reduced configuration.
 `--dynamic` serves a SegmentedLCCSIndex and interleaves an insert / delete /
-compact burst into the request stream.
+compact burst into the request stream.  `--shards N` partitions the static
+index into N row shards on the one device (`repro_torch.shard`: shard-local
+search + the exact global top-k merge); `--build-chunk-rows ROWS` builds the
+static index out of core, in ROWS-row blocks (bit-identical).
 
 --async serves the request stream through the deadline-aware serving front
 (`repro_torch.router`): --replicas N engines sharing one device, one model
@@ -26,8 +29,7 @@ staged, per-stage-timed plans (the same bits); --drift-probe N replays N
 pinned corpus queries against brute-force ground truth after serving and
 reports the recall (the repro_recall_drift gauge).
 
-Not offered yet: `--ckpt-dir` (ROADMAP A11), `--shards` (A9),
-`--build-chunk-rows` (A8).
+Not offered yet: `--ckpt-dir` (ROADMAP A11).
 """
 from __future__ import annotations
 
@@ -173,9 +175,20 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--store", default="fp32", choices=sorted(available_stores()),
                     help="corpus-vector layout: fp32 = exact single-stage "
                          "verify; bf16/int8 = quantized two-stage rerank")
+    ap.add_argument("--build-chunk-rows", type=int, default=None, metavar="ROWS",
+                    help="build the static index out of core: stream the "
+                         "embedded corpus through the chunked CSA merge in "
+                         "ROWS-row blocks (bit-identical to the monolithic "
+                         "build; bounds build transients to O(ROWS) fp32)")
     ap.add_argument("--rerank-mult", type=int, default=4,
                     help="two-stage over-fetch factor (quantized stores "
                          "rerank the best k*rerank_mult survivors in fp32)")
+    ap.add_argument("--shards", type=int, default=1,
+                    help="partition the static index into this many row "
+                         "shards on the device (shard-local search + exact "
+                         "global top-k merge); on one card the shards run in "
+                         "turn, so this is slower than the monolithic index "
+                         "and is not a speed option")
     ap.add_argument("--device", default="cuda",
                     help="device of the model and the index (cuda or cpu)")
     ap.add_argument("--async", dest="async_serve", action="store_true",
@@ -217,14 +230,26 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv: list[str] | None = None) -> None:
     ap = build_parser()
     args = ap.parse_args(argv)
+    if args.shards > 1 and args.dynamic:
+        ap.error("--shards and --dynamic are mutually exclusive "
+                 "(the sharded layout is static)")
     if args.async_serve and args.dynamic:
         ap.error("--async serves query traffic; corpus updates (--dynamic) "
                  "stay on the synchronous stream path")
+    if args.build_chunk_rows is not None and args.dynamic:
+        ap.error("--build-chunk-rows streams the *static* build; dynamic "
+                 "corpora ingest out of core via "
+                 "SegmentedLCCSIndex.ingest_chunks")
+    # the reference re-execs itself here with more (fake) devices when
+    # --shards exceeds the visible count; the port's shards all live on the
+    # one device, so no device check or re-exec is needed
 
     search_params = SearchParams.from_legacy(k=args.k, lam=args.lam, probes=args.probes)
     with _suppress_width_warning():  # derived from the user's own choice above
         search_params = search_params.replace(store=args.store,
                                               rerank_mult=args.rerank_mult)
+        if args.shards > 1:
+            search_params = search_params.replace(shards=args.shards)
         if args.source:
             search_params = search_params.replace(source=args.source)
 
@@ -250,13 +275,15 @@ def main(argv: list[str] | None = None) -> None:
 
     engine = RetrievalEngine(cfg, model, m=args.m, metric="angular",
                              max_batch=args.max_batch, search_params=search_params,
-                             store=args.store, device=args.device,
-                             instrument=args.instrument)
+                             store=args.store,
+                             shards=args.shards if args.shards > 1 else None,
+                             device=args.device, instrument=args.instrument)
     gen = lm_token_batches(vocab=cfg.vocab, seed=0)
     corpus, _ = gen(0, args.corpus, 32)
     t0 = time.perf_counter()
-    engine.build_index(corpus, dynamic=args.dynamic)
-    layout = "dynamic" if args.dynamic else "static"
+    engine.build_index(corpus, dynamic=args.dynamic, chunk_rows=args.build_chunk_rows)
+    layout = ("dynamic" if args.dynamic
+              else f"{args.shards} shards" if args.shards > 1 else "static")
     print(f"[launch.serve] indexed {args.corpus} docs in "
           f"{time.perf_counter() - t0:.1f}s "
           f"(index {engine.index.index_bytes() / 1e6:.2f} MB + "

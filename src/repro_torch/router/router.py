@@ -228,7 +228,7 @@ class Router:
                 engine.cfg, engine.model, m=engine.m, metric=engine.metric,
                 max_batch=engine.max_batch,
                 search_params=engine.search_params, store=engine.store,
-                device=engine.device, name=f"replica-{i}",
+                shards=engine.shards, device=engine.device, name=f"replica-{i}",
                 instrument=getattr(engine, "instrument", False),
             )
             e.index = engine.index    # share the (immutable) index

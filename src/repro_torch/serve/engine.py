@@ -4,7 +4,10 @@
   build:  corpus token sequences -> the model's final hidden states,
           mean-pooled over the sequence and L2-normalised -> LCCSIndex, or,
           with ``dynamic=True``, a SegmentedLCCSIndex that absorbs online
-          inserts and deletes without a full rebuild.
+          inserts and deletes without a full rebuild; with ``shards`` > 1 a
+          ShardedLCCSIndex of that many row shards on the engine's device
+          (static corpora only), and with ``chunk_rows`` the static build
+          runs out of core (bit-identical).
   serve:  batched requests -> embed -> candidate source -> verified top-k,
           with greedy micro-batching.  `serve_stream` interleaves update
           requests -- ("insert", tokens) / ("delete", ids) / ("compact",) --
@@ -22,9 +25,6 @@ evictions: a steady-state serving loop grows only `plan_hits`.
 (`repro_torch.router`).  The stats have registry twins
 (`repro_serve_*_total{engine}`) and the serving calls trace spans
 (`repro_torch.obs`).
-
-Not ported yet: sharded serving (`shards` > 1, ROADMAP A9) and the
-out-of-core build (`chunk_rows`, A8).
 """
 from __future__ import annotations
 
@@ -37,6 +37,7 @@ import torch
 from ..core import LCCSIndex, SearchParams, SegmentedLCCSIndex
 from ..core.index import resolve_device
 from ..exec import compile_plan, plan_cache
+from ..shard import ShardedLCCSIndex
 from ..kernels.common import no_tf32
 from ..obs.registry import registry
 from ..obs.trace import add_span as _add_span
@@ -132,8 +133,6 @@ class RetrievalEngine:
                  max_batch: int = 32, search_params: SearchParams = DEFAULT_PARAMS,
                  store: str = "fp32", shards: int | None = None, device=None,
                  name: str | None = None, instrument: bool = False):
-        if shards is not None and shards > 1:
-            raise NotImplementedError("sharded serving is not ported yet (ROADMAP A9)")
         dev = resolve_device(device)
         if dev.type == "cuda" and dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())
@@ -151,13 +150,17 @@ class RetrievalEngine:
         # single-stage verification; "bf16"/"int8" quantize on ingest and
         # serve the two-stage rerank path (search_params.rerank_mult)
         self.store = store
+        # shards > 1 partitions the built index into that many row shards on
+        # the engine's device (repro_torch.shard): shard-local search + the
+        # exact global top-k merge
+        self.shards = shards
         # `name` labels this engine's plan-cache activity (its scope); the
         # replica router names its engines replica-0..N-1
         self.name = name
         # instrument=True serves through the staged, per-stage-timed plans
         # (the same bits; every stage in repro_exec_stage_seconds)
         self.instrument = instrument
-        self.index: LCCSIndex | SegmentedLCCSIndex | None = None
+        self.index: LCCSIndex | SegmentedLCCSIndex | ShardedLCCSIndex | None = None
         self.stats = ServeStats()
         # registry twins of the stats counters, labeled by engine: what
         # Prometheus and StatsLogger read
@@ -221,14 +224,33 @@ class RetrievalEngine:
                     chunk_rows: int | None = None):
         """Embed + index the corpus.  `dynamic=True` builds a
         SegmentedLCCSIndex so `insert`/`delete`/`compact` work afterwards.
-        The engine's `store` kind decides the vector layout."""
-        if chunk_rows is not None:
-            raise NotImplementedError("the out-of-core build is not ported yet (ROADMAP A8)")
+        The engine's `store` kind decides the vector layout.  With `shards`
+        > 1 the built index is partitioned into that many row shards
+        (static corpora only -- the sharded layout is immutable).
+        `chunk_rows` routes a static build through the out-of-core path
+        (`LCCSIndex.build(chunk_rows=)`, bit-identical); a dynamic corpus
+        ingests out of core through `SegmentedLCCSIndex.ingest_chunks`
+        instead, so `dynamic=True` refuses it."""
+        if dynamic and self.shards and self.shards > 1:
+            raise ValueError(
+                "sharded serving needs a static corpus: shards > 1 and "
+                "dynamic=True are mutually exclusive"
+            )
+        if dynamic and chunk_rows is not None:
+            raise ValueError(
+                "chunk_rows streams the static build; a dynamic corpus ingests "
+                "out of core through SegmentedLCCSIndex.ingest_chunks"
+            )
         emb = self.embed(corpus_tokens)
         fam = "angular" if self.metric == "angular" else "euclidean"
-        cls = SegmentedLCCSIndex if dynamic else LCCSIndex
-        self.index = cls.build(emb, m=self.m, family=fam, seed=seed, store=self.store,
-                               device=self.device)
+        kw = dict(m=self.m, family=fam, seed=seed, store=self.store, device=self.device)
+        if dynamic:
+            self.index = SegmentedLCCSIndex.build(emb, **kw)
+        elif self.shards and self.shards > 1:
+            self.index = ShardedLCCSIndex.build(emb, shards=self.shards,
+                                                chunk_rows=chunk_rows, **kw)
+        else:
+            self.index = LCCSIndex.build(emb, chunk_rows=chunk_rows, **kw)
         return self.index
 
     # -- dynamic corpus (SegmentedLCCSIndex only) ----------------------------

@@ -35,6 +35,7 @@ id < 0 padding).
 """
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import torch
@@ -267,3 +268,25 @@ class Int8Store:
 
 for _cls in (Fp32Store, Bf16Store, Int8Store):
     register_store(_cls)
+
+
+def concat_stores(parts):
+    """Concatenate same-kind stores along the row axis.
+
+    Every built-in store keeps all its tensors n-leading (rows, codes,
+    per-row scales), so concatenating each field along axis 0 is exact, and
+    per-row quantization makes the result bit-identical to quantizing the
+    concatenated rows in one go -- what `LCCSIndex.build_streaming` relies
+    on.  Mixed kinds raise."""
+    parts = list(parts)
+    if not parts:
+        raise ValueError("concat_stores needs at least one store")
+    kinds = {p.kind for p in parts}
+    if len(kinds) != 1:
+        raise ValueError(f"cannot concatenate mixed store kinds: {sorted(kinds)}")
+    if len(parts) == 1:
+        return parts[0]
+    return type(parts[0])(**{
+        f.name: torch.cat([getattr(p, f.name) for p in parts], dim=0)
+        for f in dataclasses.fields(parts[0])
+    })

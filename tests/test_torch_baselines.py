@@ -159,7 +159,7 @@ def test_baselines_default_to_cuda_and_raise_without_it(method):
 
 def test_a_family_of_the_wrong_size_is_refused(data):
     X, _ = data["euclidean"]
-    fam = lsh.make_family("euclidean", 0, X.shape[1], 12, w=4.0)
+    fam = lsh.make_family("euclidean", 0, X.shape[1], 12, device="cpu", w=4.0)
     with pytest.raises(ValueError, match="12 functions"):
         baselines.E2LSH.build(X, K=4, L=4, family=fam, device="cpu")
 
@@ -224,7 +224,7 @@ def test_batched_alternatives_give_the_per_query_probes(kind, kw, K):
     scores to the float32 rounding of a one-row against a many-row matmul,
     and each table's probing sequence is the same."""
     L = 8
-    fam = lsh.make_family(kind, 7, 32, K * L, **kw)
+    fam = lsh.make_family(kind, 7, 32, K * L, device="cpu", **kw)
     Q = np.random.default_rng(7).normal(size=(64, 32)).astype(np.float32)
     vals, scores = fam.alternatives(torch.from_numpy(Q))
     for b in range(Q.shape[0]):
@@ -297,7 +297,7 @@ def test_c2lsh_counting_touches_linear_candidates(claims_data):
 def test_lccs_collision_statistics_monotone_in_similarity():
     rng = np.random.default_rng(0)
     d, m, w = 32, 4096, 4.0
-    fam = lsh.make_family("euclidean", 5, d, m, w=w)
+    fam = lsh.make_family("euclidean", 5, d, m, device="cpu", w=w)
     taus = [0.25, 0.5, 1.0, 2.0, 4.0, 8.0]
     n_pairs = 24
     coll, lccs_mean = [], []

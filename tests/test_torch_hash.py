@@ -119,7 +119,7 @@ def test_carried_gaussian_family_hashes_like_reference(d, m):
 @pytest.mark.parametrize("kind,kw", [("euclidean", dict(w=1.0)), ("angular", {}),
                                      ("angular", dict(rotation="gaussian"))])
 def test_alternatives_never_equal_base(kind, kw):
-    fam = lsh.make_family(kind, 9, 20, 10, **kw)
+    fam = lsh.make_family(kind, 9, 20, 10, device="cpu", **kw)
     Q = torch.from_numpy(np.random.default_rng(2).normal(size=(200, 20)).astype(np.float32))
     vals, scores = fam.alternatives(Q, 4)
     assert vals.shape == (200, 10, 4)

@@ -136,6 +136,53 @@ def test_build_defaults_to_cuda_and_raises_without_it():
         LCCSIndex.build(X, m=4, device="cuda")
 
 
+def test_out_of_core_and_sharded_paths_load_no_jax_or_reference():
+    code = """
+import sys
+import numpy as np
+import torch
+torch.set_num_threads(2)
+from repro_torch import LCCSIndex, SearchParams, SegmentedLCCSIndex
+from repro_torch.core.index import iter_row_blocks
+from repro_torch.data import clustered_vector_chunks
+from repro_torch.shard import ShardedLCCSIndex
+X = np.concatenate(list(clustered_vector_chunks(600, 16, chunk_rows=200, n_clusters=8)))
+idx = LCCSIndex.build(X, m=8, family="euclidean", w=4.0, store="int8", chunk_rows=256,
+                      device="cpu")
+dyn = SegmentedLCCSIndex.create(16, m=8, family="euclidean", w=4.0, device="cpu")
+dyn.ingest_chunks(iter_row_blocks(X, 256))
+sh = idx.shard(3)
+p = SearchParams(k=3, lam=32, width=32)
+for index in (idx, dyn, sh, ShardedLCCSIndex.build(X, shards=2, m=8, device="cpu")):
+    assert index.search(X[:4], p)[0].shape == (4, 3)
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
+             or m == "repro" or m.startswith("repro."))
+print("BAD", bad)
+"""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=300, env=ENV)
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+
+
+def test_out_of_core_and_sharded_entry_points_default_to_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device resolves to CUDA")
+    from repro_torch import SegmentedLCCSIndex
+    from repro_torch.core.csa import build_csa_chunked
+    from repro_torch.shard import ShardedLCCSIndex
+
+    X = np.zeros((10, 4), np.float32)
+    h = np.zeros((10, 4), np.int32)
+    for call in (lambda: LCCSIndex.build(X, m=4, chunk_rows=4),
+                 lambda: LCCSIndex.build_streaming(iter([X]), m=4),
+                 lambda: ShardedLCCSIndex.build(X, shards=2, m=4),
+                 lambda: build_csa_chunked(h, chunk_rows=4),
+                 lambda: SegmentedLCCSIndex.create(4, m=4)):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+
+
 def test_model_entry_points_default_to_cuda_and_raise_without_it():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device resolves to CUDA")

@@ -878,11 +878,11 @@ def test_baseline_on_card_matches_cpu(dev, method, metric, kw):
     else:
         m = kw["m"] if method == "C2LSH" else kw["K"] * kw["L"]
         if metric == "euclidean":
-            fam = lsh.make_family("euclidean", 2, 32, m, w=4.0)
+            fam = lsh.make_family("euclidean", 2, 32, m, device="cpu", w=4.0)
             fam.a = torch.from_numpy(_dyadic(fam.a).astype(np.float32))
             fam.b = torch.from_numpy(_dyadic(fam.b).astype(np.float32))
         else:
-            fam = lsh.make_family("angular", 2, 32, m, rotation="gaussian")
+            fam = lsh.make_family("angular", 2, 32, m, device="cpu", rotation="gaussian")
             fam.rot = torch.from_numpy(_dyadic(fam.rot, bits=12).astype(np.float32))
         built = [cls.build(X, family=_family_on(fam, d), device=d, **kw) for d in ("cpu", dev)]
     cpu, card = built

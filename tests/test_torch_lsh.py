@@ -69,8 +69,8 @@ def test_hash_and_alternatives_parity(kind, kw, d, m):
 @pytest.mark.parametrize("kind,kw", [("euclidean", dict(w=2.0)), ("angular", {}),
                                      ("angular", dict(rotation="gaussian")), ("hamming", {})])
 def test_create_is_seeded_and_shaped(kind, kw):
-    a = lsh.make_family(kind, 5, 20, 9, **kw)
-    b = lsh.make_family(kind, 5, 20, 9, **kw)
+    a = lsh.make_family(kind, 5, 20, 9, device="cpu", **kw)
+    b = lsh.make_family(kind, 5, 20, 9, device="cpu", **kw)
     X = torch.from_numpy(_data(kind, 50, 20, 0))
     h = a.hash(X)
     assert h.shape == (50, 9) and h.dtype == torch.int32
@@ -90,3 +90,22 @@ def test_distance_parity_with_zero_rows(metric):
     ours = lsh.distance(torch.from_numpy(x), torch.from_numpy(y), metric).numpy()
     assert np.isfinite(ours).all()
     np.testing.assert_allclose(ours, ref, rtol=1e-5, atol=1e-6)
+
+
+def test_make_family_defaults_to_cuda_and_raises_without_it():
+    """No device means CUDA, as every entry point of the port: without a
+    card `make_family` and each family's `create` raise instead of drawing
+    the family on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device resolves to CUDA")
+    for kind, kw in (("euclidean", dict(w=4.0)), ("angular", {}),
+                     ("angular", dict(rotation="gaussian")), ("hamming", {})):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            lsh.make_family(kind, 0, 8, 4, **kw)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        lsh.RandomProjectionLSH.create(0, 8, 4, w=4.0)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        lsh.CrossPolytopeLSH.create(0, 8, 4)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        lsh.BitSamplingLSH.create(0, 8, 4)
+    assert lsh.make_family("euclidean", 0, 8, 4, device="cpu", w=4.0).device.type == "cpu"

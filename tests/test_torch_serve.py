@@ -8,8 +8,9 @@
      reference's engine -- `serve_batch` on a static index, and a
      `serve_stream` with an insert / delete / compact burst on a dynamic
      one -- with distances within rtol/atol 1e-5.
-  3. The CLI serves a smoke model on the CPU, and the engine refuses what is
-     not ported and, without a device, a missing CUDA.
+  3. The CLI serves a smoke model on the CPU, and the engine refuses a
+     sharded or chunked dynamic build, updates to a static index and,
+     without a device, a missing CUDA.
 """
 import dataclasses
 import os
@@ -147,14 +148,17 @@ def test_cli_serves_a_smoke_model_on_the_cpu():
 
 
 def test_engine_refuses_what_is_not_ported():
+    """What the engine refuses: a sharded or chunked *dynamic* build (the
+    sharded layout is static, and a dynamic corpus ingests out of core
+    through `ingest_chunks`), and corpus updates against a static index."""
     cfg = ARCHS["gemma-2b"].smoke()
     model = init_model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="A9"):
-        RetrievalEngine(cfg, model, shards=2, device="cpu")
-    eng = RetrievalEngine(cfg, model, m=8, device="cpu")
     toks = np.zeros((4, 8), np.int32)
-    with pytest.raises(NotImplementedError, match="A8"):
-        eng.build_index(toks, chunk_rows=2)
+    with pytest.raises(ValueError, match="mutually exclusive"):
+        RetrievalEngine(cfg, model, m=8, shards=2, device="cpu").build_index(toks, dynamic=True)
+    eng = RetrievalEngine(cfg, model, m=8, device="cpu")
+    with pytest.raises(ValueError, match="ingest_chunks"):
+        eng.build_index(toks, dynamic=True, chunk_rows=2)
     eng.build_index(toks)
     with pytest.raises(ValueError, match="dynamic=True"):
         eng.serve_stream([toks[0], ("delete", [0])])

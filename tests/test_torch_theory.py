@@ -92,5 +92,5 @@ def test_collision_prob_matches_reference(kind, kw, d):
     for tau in (0.0, 0.1, 0.57, 1.0, 1.9, 3.0, 17.0):
         assert ours.collision_prob(tau) == ref.collision_prob(tau)
     # the drawn families keep the closed form of their kind and width
-    drawn = lsh.make_family(kind, 2, d, 8, **kw)
+    drawn = lsh.make_family(kind, 2, d, 8, device="cpu", **kw)
     assert drawn.collision_prob(0.57) == ref.collision_prob(0.57)
