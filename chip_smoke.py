@@ -58,7 +58,19 @@ Drives the port's paths on one NVIDIA card at the paper's SIFT size
     with the stage histogram's per-stage medians; then one run of the CLI
     with every flag of the async front on a smoke model
     (`serve_async_cli`);
-  * the same smoke-size models on the card and on the CPU.
+  * the same smoke-size models on the card and on the CPU;
+  * the LM's loss, prefill and decode (phase `lm_decode`): qwen2-7b (28
+    attention layers, GQA 28/4, dh 128), gemma3-1b (26 layers, 5:1
+    local:global at window 512, MQA, dh 256) and falcon-mamba-7b (64
+    Mamba-1 layers) at full width and depth, one at a time, random weights
+    from seed 0: `loss_fn` over a 640-token prompt at batch 4, `prefill`,
+    then 64 greedy `decode_step`s against the bf16 KV caches and the
+    Mamba-1 state, every pass launching flash_attn once an attention layer
+    or ssm_scan once a Mamba-1 layer and nothing else (counted, and no plain
+    version may run); the decode logits held to unembed(forward) over the
+    same tokens (DECODE_VS_FORWARD_TOL), one decode step profiled
+    (`profile_decode_step`); before them the smoke-size models (with
+    gemma2-9b's softcaps) on the card against the CPU (`lm_decode_vs_cpu`).
 
 It builds the CUDA kernels from the sources in the checkout, shows through
 their launch counts (reset before each path, read after it) that each path
@@ -68,8 +80,8 @@ land at pos 0 and pos n, and timed on the multiprobe-skip pairs worklist
 beside the lccs one; flash_attn and ssm_scan also at long shapes (flash_attn
 at B 4, S 2048 with gemma2-9b's heads, causal and with window 1024 + softcap
 50, and at B 1, S 4096 with gemma-2b's; ssm_scan at B 4, L 2048 and B 1,
-L 4096), hash_rp and hash_xp also at the GIST width
-d = 960 and over one query batch, pool_topk also at a multiprobe-skip pool of
+L 4096; both also at the last decode step's shapes of phase lm_decode),
+hash_rp and hash_xp also at the GIST width d = 960 and over one query batch, pool_topk also at a multiprobe-skip pool of
 several tiles and at the serving pool (each with its device time and a
 `pool_stats` line: the cut lcp and the ids and entries at or above it) and
 against the scatter-max dedupe, which no card path may call; circrun_topk also against the parent's route, circrun + the int64-key
@@ -178,6 +190,34 @@ PROM_SAMPLE = re.compile(r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^}]*\})? [^ ]+$')
 # card vs CPU embeddings of the smoke models: float32 through a few layers,
 # cuBLAS against the CPU's summation order
 EMB_TOL = dict(rtol=1e-4, atol=1e-5)
+# phase lm_decode at full width and depth: max |teacher-forced decode logit -
+# unembed(forward) logit| over the largest forward logit, per model.  At
+# least 8 x the reference's own gap (its bf16 KV cache; falcon-mamba-7b's
+# float32 state only reorders sums) at full width, derived on the CPU by
+# tests/test_torch_decode.py (test_reference_decode_gap_is_under_the_card_
+# tolerance): measured at full depth over three widths and extrapolated as
+# a power of the width.  qwen2-7b: 5.3e-3 / 2.5e-3 / 2.6e-3 at d_model
+# 64 / 256 / 1024 (it does not grow; x 8 = 0.042); gemma3-1b: 6.2e-3 /
+# 4.6e-3 / 2.9e-3 (x 8 = 0.050); falcon-mamba-7b: 4.3e-5 / 1.1e-4 / 3.0e-4
+# at d_inner 128 / 512 / 2048, w^0.71, so 7.9e-4 at 8192 (x 8 = 6.3e-3,
+# rounded up to 1e-2 against the CPU's own variation of the fit).
+DECODE_VS_FORWARD_TOL = {"qwen2-7b": 0.06, "gemma3-1b": 0.06, "falcon-mamba-7b": 1e-2}
+# phase lm_decode: each model at full width and depth, one at a time, random
+# weights from seed 0: loss_fn over the prompt, prefill, greedy decode steps
+LM_FULL = ("qwen2-7b", "gemma3-1b", "falcon-mamba-7b")
+LM_BATCH, LM_PROMPT, LM_STEPS = 4, 640, 64
+# and at smoke size on the card against the CPU (the prompt is longer than
+# the smoke window of 16), with the CPU tests' tolerances
+# (tests/test_torch_decode.py): the loss and prefill's logits float32 in
+# another order; prefill's K and V, at the prompt's positions before and
+# after decode, one bf16 step (+ LM_TOL) apart at most; decode logits, and
+# the caches that decode writes, within 2^-8 (a bf16 step, relative) of the
+# largest CPU value, as a cache entry may round one bf16 step apart and
+# move what later layers and steps compute
+LM_SMOKE = ("qwen2-7b", "gemma3-1b", "gemma2-9b", "falcon-mamba-7b")
+LM_SMOKE_PROMPT, LM_SMOKE_STEPS = 24, 16
+LM_TOL = dict(rtol=1e-4, atol=1e-5)
+BF16_REL = 2.0 ** -8
 # kernel vs plain version on the card: float32 summation order, and the
 # order of the online softmax (flash_attn) or of the C contraction (ssm_scan)
 FLASH_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -723,11 +763,13 @@ def run(dev: torch.device) -> None:
     del ctx, angular, dynamic, index, X, Q, truth, src_rows, results, ids, dists, ids8, d8
     torch.cuda.empty_cache()
     serve = run_serving(dev)
+    lm = run_lm_decode(dev)
     for k in launches:
-        launches[k] += serve["counts"][k]
+        launches[k] += serve["counts"][k] + lm["counts"][k]
     for rec in kernels:
         rec["launches"] = launches[rec["name"]]
     kernels += serve_kernels_vs_plain(serve, launches)
+    decode_kernels_vs_plain(kernels, lm)
     pool_rec = next(rec for rec in kernels if rec["name"] == "pool_topk")
     pool_rec["pool"]["serving"] = pool_record("serving", serve["recorded"]["pool_topk"][0],
                                               dedupe_topk_scatter)
@@ -736,7 +778,7 @@ def run(dev: torch.device) -> None:
         fail(f"the kernels line lists {names}, the library has {sorted(common.LAUNCHES)}")
 
     for rec in kernels:
-        subs = [sub for k in ("wide", "batch", "long", "pool", "worklists")
+        subs = [sub for k in ("wide", "batch", "long", "pool", "worklists", "decode")
                 for sub in rec.get(k, {}).values()]
         for r in (rec, *subs):
             with_ratios(r)
@@ -2445,7 +2487,8 @@ def serve_async_cli() -> None:
 
 # kernel-name fragments -> the part of a served batch they belong to
 KERNEL_GROUPS = (("flash_attn_kernel", "flash_attn"), ("ssm_scan_kernel", "ssm_scan"),
-                 ("gemm", "matmul (cuBLAS)"), ("csa_probe_kernel", "index kernels"),
+                 ("gemm", "matmul (cuBLAS)"), ("gemv", "matmul (cuBLAS)"),
+                 ("splitkreduce", "matmul (cuBLAS)"), ("csa_probe_kernel", "index kernels"),
                  ("pool_topk_kernel", "index kernels"),
                  ("gather_scan_kernel", "index kernels"), ("gather_topk_kernel", "index kernels"),
                  ("gather_merge", "index kernels"), ("gather_emit_kernel", "index kernels"),
@@ -2453,30 +2496,29 @@ KERNEL_GROUPS = (("flash_attn_kernel", "flash_attn"), ("ssm_scan_kernel", "ssm_s
                  ("circrun_topk_kernel", "index kernels"))
 
 
-def profile_batch(engine, tokens: np.ndarray) -> None:
-    """Where one served batch spends the card's time: torch.profiler over one
-    `serve_batch` (embed + search) on the static index, after an untimed
-    batch and a marker kernel in the same session; device time and kernels
-    summed by kernel group, and the share of the batch's wall time in which
-    no kernel ran (measured under the profiler, which adds host time).  The
-    flash_attn and ssm_scan kernels seen must equal their launches
-    (`common.LAUNCHES`) over the batch: a session that saw fewer is run
-    again with more lead kernels (PROFILE_LEAD_KERNELS), and after three
-    the run fails."""
+def profile_call(run, phase: str, **fields) -> None:
+    """Where one call of run() spends the card's time: torch.profiler over
+    one call, after an untimed call and a marker kernel in the same session;
+    device time and kernels summed by kernel group, and the share of the
+    call's wall time in which no kernel ran (measured under the profiler,
+    which adds host time).  The flash_attn and ssm_scan kernels seen must
+    equal their launches (`common.LAUNCHES`) over the call: a session that
+    saw fewer is run again with more lead kernels (PROFILE_LEAD_KERNELS),
+    and after three the run fails.  Emits one line of `phase` with
+    `fields`."""
     from repro_torch.kernels import common
 
     out: dict = {}
 
     def timed():
         common.reset_launch_counts()
-        _, out["wall"] = sync_time(lambda: engine.serve_batch(tokens))
+        _, out["wall"] = sync_time(run)
         out["counts"] = common.launch_counts()
 
-    engine.serve_batch(tokens)  # warm-up
+    run()  # warm-up
     short = []
     for lead in PROFILE_LEAD_KERNELS:
-        kern = after_marker(lambda: engine.serve_batch(tokens), timed, pad_runs=1,
-                            lead=lead) or []
+        kern = after_marker(run, timed, pad_runs=1, lead=lead) or []
         groups: dict = {}
         seen: dict = {}
         for e in kern:
@@ -2485,12 +2527,12 @@ def profile_batch(engine, tokens: np.ndarray) -> None:
             seen[g] = seen.get(g, 0) + 1
         expected = {k: out["counts"][k] for k in ("flash_attn", "ssm_scan")}
         if any(seen.get(k, 0) > n for k, n in expected.items()):
-            fail(f"profile_batch: the profiler saw {seen}, more than the launches {expected}")
+            fail(f"{phase}: the profiler saw {seen}, more than the launches {expected}")
         if all(seen.get(k, 0) == n for k, n in expected.items()):
             break
         short.append({k: seen.get(k, 0) for k in expected})
     else:
-        fail(f"profile_batch: three profiler sessions saw {short} of the launches {expected}")
+        fail(f"{phase}: three profiler sessions saw {short} of the launches {expected}")
     wall = out["wall"]
     spans = sorted((e.time_range.start, e.time_range.end) for e in kern)
     busy, end = 0.0, float("-inf")
@@ -2498,11 +2540,17 @@ def profile_batch(engine, tokens: np.ndarray) -> None:
         busy += max(0.0, b - max(a, end))
         end = max(end, b)
     busy_ms = busy / 1e3
-    emit(phase="profile_batch", arch=engine.cfg.name, batch=len(tokens), wall_ms=wall * 1e3,
-         kernels=len(kern), device_busy_ms=busy_ms,
+    emit(phase=phase, **fields, wall_ms=wall * 1e3, kernels=len(kern), device_busy_ms=busy_ms,
          idle_share=(1.0 - busy_ms / (wall * 1e3)) if kern else "not measured",
          device_ms_by_group=groups, launches_seen_by_group=seen, launches=expected,
          short_sessions=short)
+
+
+def profile_batch(engine, tokens: np.ndarray) -> None:
+    """Where one served batch (`serve_batch`: embed + search on the static
+    index) spends the card's time (profile_call)."""
+    profile_call(lambda: engine.serve_batch(tokens), "profile_batch", arch=engine.cfg.name,
+                 batch=len(tokens))
 
 
 def small_serve_vs_cpu(dev) -> None:
@@ -2540,6 +2588,300 @@ def small_serve_vs_cpu(dev) -> None:
             fail(f"small serve {arch}: served ids differ between card and CPU")
         emit(phase="small_serve_vs_cpu", arch=arch, docs=SMALL_SERVE_DOCS,
              embed_max_abs_err=err, tolerance=EMB_TOL, ids_identical=True, ok=True)
+
+
+@contextmanager
+def plain_versions_refused():
+    """Fail the run if the plain version of flash_attn or ssm_scan runs
+    while the block does: on the card the LM's path launches the kernels or
+    raises, and never gives way to them."""
+    from repro_torch.kernels.flash_attn import ops as flash_ops
+    from repro_torch.kernels.ssm_scan import ops as scan_ops
+
+    saved = flash_ops.flash_attention_ref, scan_ops.ssm_scan_batched_ref
+
+    def refuse(*args, **kw):
+        fail("lm_decode: a plain version of flash_attn or ssm_scan ran on the card's path")
+
+    flash_ops.flash_attention_ref = scan_ops.ssm_scan_batched_ref = refuse
+    try:
+        yield
+    finally:
+        flash_ops.flash_attention_ref, scan_ops.ssm_scan_batched_ref = saved
+
+
+def lm_kernel_layers(cfg) -> dict:
+    """The launches of one pass over the layers: flash_attn once an
+    attention layer, ssm_scan once a Mamba-1 layer, nothing else."""
+    from repro_torch.kernels import common
+    from repro_torch.models.lm import layer_kinds
+
+    kinds = layer_kinds(cfg)
+    want = {k: 0 for k in common.LAUNCHES}
+    want["ssm_scan"] = kinds.count("m1")
+    want["flash_attn"] = len(kinds) - want["ssm_scan"]
+    return want
+
+
+def cache_bytes(caches: list) -> int:
+    return sum(t.numel() * t.element_size() for c in caches for t in c[:2])
+
+
+def lm_smoke_vs_cpu(dev) -> None:
+    """The smoke-size models with the same weights on the card and on the
+    CPU: loss_fn, prefill of LM_SMOKE_PROMPT tokens, then LM_SMOKE_STEPS
+    greedy decode steps, both devices fed the CPU's greedy tokens.  Gates:
+    the loss and prefill's logits within LM_TOL, each step's logits within
+    BF16_REL of the largest CPU logit, the card's greedy token the CPU's
+    wherever the CPU's top two are further apart than that tolerance,
+    prefill's K and V within one bf16 step (+ LM_TOL), and still so at the
+    prompt's positions after the steps, the rest of the caches after the
+    steps within the decode tolerance (`caches_close`), and each decode
+    step on the card launching its kernels once a layer.  The line reports
+    the largest K / V difference in bf16 steps of the entry."""
+    import copy
+
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import common
+    from repro_torch.models import decode_step, init_model, loss_fn, prefill
+    from repro_torch.models.attention import KVCache
+
+    def bf16_step(mag):
+        _, e = torch.frexp(mag)
+        return torch.ldexp(torch.ones_like(mag), e - 8)
+
+    def caches_close(card, cpu, prompt: int | None) -> dict:
+        """The largest |card - cpu| over its bound across every cache
+        (`of_bound`).  After prefill (`prompt` None) every entry is bound by
+        LM_TOL, plus one bf16 step for K and V.  After decode, K and V at
+        positions < `prompt` (written by prefill, read by every step) keep
+        that bound; K and V at the decode positions, and the conv tail and
+        state, are bound by BF16_REL of the largest CPU value (plus one step
+        for K and V): they are computed from hidden states that the steps'
+        bf16 reads move apart.  Also the readings: the largest K / V
+        difference in bf16 steps of the entry at the prompt's and at the
+        decode positions, and the largest difference of what decode wrote
+        over the largest CPU value of its tensor."""
+        out = dict(of_bound=0.0, prompt_kv_bf16_steps=0.0, decode_kv_bf16_steps=0.0,
+                   decode_rel=0.0)
+        p = prompt
+        for c, h in zip(card, cpu):
+            kv = isinstance(c, KVCache)
+            for a, b in zip(c[:2], h[:2]):
+                a, b = a.cpu().float(), b.float()
+                diff, mag = (a - b).abs(), torch.maximum(a.abs(), b.abs())
+                step = bf16_step(mag) if kv else torch.zeros_like(mag)
+                bound = LM_TOL["atol"] + LM_TOL["rtol"] * mag + step
+                if prompt is not None:
+                    loose = BF16_REL * float(b.abs().max()) + step
+                    bound = torch.cat([bound[:, :p], loose[:, p:]], 1) if kv else loose
+                    written = diff[:, p:] if kv else diff
+                    out["decode_rel"] = max(out["decode_rel"], float(
+                        written.max() / b.abs().max().clamp_min(1e-30)))
+                out["of_bound"] = max(out["of_bound"], float((diff / bound).max()))
+                if kv:
+                    steps = diff / step
+                    out["prompt_kv_bf16_steps"] = max(out["prompt_kv_bf16_steps"],
+                                                      float(steps[:, :p].max()))
+                    if prompt is not None:
+                        out["decode_kv_bf16_steps"] = max(out["decode_kv_bf16_steps"],
+                                                          float(steps[:, p:].max()))
+        return out
+
+    for arch in LM_SMOKE:
+        cfg = ARCHS[arch].smoke()
+        cpu = init_model(cfg, seed=0, device="cpu")
+        card = copy.deepcopy(cpu).to(dev)
+        toks = np.random.default_rng(0).integers(0, cfg.vocab,
+                                                 (LM_BATCH, LM_SMOKE_PROMPT + 1))
+        batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        with torch.no_grad():
+            loss_cpu, loss_card = loss_fn(cpu, batch)[0], loss_fn(card, batch)[0].cpu()
+        torch.testing.assert_close(loss_card, loss_cpu, **LM_TOL)
+        max_len = LM_SMOKE_PROMPT + LM_SMOKE_STEPS
+        lc, cc = prefill(cpu, {"tokens": toks[:, :-1]}, max_len)
+        lg, cg = prefill(card, {"tokens": toks[:, :-1]}, max_len)
+        torch.testing.assert_close(lg.cpu(), lc, **LM_TOL)
+        prefill_caches = caches_close(cg, cc, None)
+        if prefill_caches["of_bound"] > 1.0:
+            fail(f"lm_decode_vs_cpu {arch}: prefill caches past their bound: {prefill_caches}")
+        want = lm_kernel_layers(cfg)
+        err, equal, near_ties = 0.0, 0, 0
+        for _ in range(LM_SMOKE_STEPS):
+            tc, tg = lc.argmax(-1), lg.argmax(-1).cpu()
+            tol = BF16_REL * float(lc.abs().max())
+            top2 = lc.topk(2, dim=-1).values
+            tie = (top2[:, 0] - top2[:, 1]) <= 2 * tol
+            if bool(((tc != tg) & ~tie).any()):
+                fail(f"lm_decode_vs_cpu {arch}: the card's greedy token differs from the CPU's")
+            equal += int((tc == tg).sum())
+            near_ties += int(tie.sum())
+            common.reset_launch_counts()
+            lg, cg = decode_step(card, tc[:, None], cg)
+            if common.launch_counts() != want:
+                fail(f"lm_decode_vs_cpu {arch}: a decode step launched "
+                     f"{common.launch_counts()}, expected {want}")
+            lc, cc = decode_step(cpu, tc[:, None], cc)
+            step_err = float((lg.cpu() - lc).abs().max())
+            if step_err > BF16_REL * float(lc.abs().max()):
+                fail(f"lm_decode_vs_cpu {arch}: decode logits {step_err} apart")
+            err = max(err, step_err)
+        decoded_caches = caches_close(cg, cc, LM_SMOKE_PROMPT)
+        if decoded_caches["of_bound"] > 1.0:
+            fail(f"lm_decode_vs_cpu {arch}: caches after decode past their bound: "
+                 f"{decoded_caches}")
+        emit(phase="lm_decode_vs_cpu", arch=arch, batch=LM_BATCH, prompt=LM_SMOKE_PROMPT,
+             steps=LM_SMOKE_STEPS, window=cfg.window, loss_cpu=float(loss_cpu),
+             loss_card=float(loss_card), decode_logits_max_abs_err=err,
+             greedy_tokens_equal=f"{equal}/{LM_BATCH * LM_SMOKE_STEPS}",
+             cpu_near_ties=near_ties, prefill_caches=prefill_caches,
+             decoded_caches=decoded_caches,
+             tolerance=dict(loss_prefill=LM_TOL, decode_rel=BF16_REL), ok=True)
+
+
+def lm_full(dev, arch: str, recorded: dict) -> dict:
+    """One model at full width and depth (random weights, seed 0): loss_fn
+    over the prompt, prefill, then LM_STEPS greedy decode steps, with the
+    launches of each counted; the greedy tokens' logits against
+    unembed(forward) over the prompt and those tokens.  Records the
+    kernels' arguments of the last decode step into `recorded`.  Returns
+    the phase's launches."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import common
+    from repro_torch.kernels.flash_attn import ops as flash_ops
+    from repro_torch.kernels.ssm_scan import ops as scan_ops
+    from repro_torch.models import decode_step, init_model, loss_fn, param_count, prefill
+
+    cfg = ARCHS[arch]
+    base = torch.cuda.memory_allocated()
+    model, init_s = sync_time(lambda: init_model(cfg, seed=0, device=dev))
+    param_bytes = torch.cuda.memory_allocated() - base
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    toks = torch.randint(0, cfg.vocab, (LM_BATCH, LM_PROMPT + 1), generator=g, device=dev)
+    prompt = {"tokens": toks[:, :-1]}
+    max_len = LM_PROMPT + LM_STEPS
+    per_pass = lm_kernel_layers(cfg)
+    counts = {k: 0 for k in common.LAUNCHES}
+
+    def counted(fn, want: dict, what: str):
+        common.reset_launch_counts()
+        out = fn()
+        got = common.launch_counts()
+        if got != want:
+            fail(f"lm_decode {arch}: {what} launched {got}, expected {want}")
+        for k in counts:
+            counts[k] += got[k]
+        return out
+
+    with torch.no_grad(), plain_versions_refused():
+        torch.cuda.reset_peak_memory_stats()
+        batch = dict(prompt, labels=toks[:, 1:])
+        loss, _ = counted(lambda: loss_fn(model, batch), per_pass, "loss_fn")
+        loss_ms = median_ms(lambda: loss_fn(model, batch), 3)
+        loss_peak = torch.cuda.max_memory_allocated() - base
+        prefill_ms = median_ms(lambda: prefill(model, prompt, max_len), 3)
+        torch.cuda.reset_peak_memory_stats()
+        logits, caches = counted(lambda: prefill(model, prompt, max_len), per_pass, "prefill")
+        out, fed, events = [logits], [], []
+        calls = {"flash_attn": [], "ssm_scan": []}
+        for i in range(LM_STEPS):
+            token = logits.argmax(-1, keepdim=True)
+            fed.append(token)
+            if i == LM_STEPS - 1:  # the step rewrites its slot with the same token
+                profile_call(lambda: decode_step(model, token, caches), "profile_decode_step",
+                             arch=arch, batch=LM_BATCH, cache_length=caches[0].length)
+
+            def step():
+                return counted(lambda: decode_step(model, token, caches), per_pass,
+                               f"decode step {i}")
+
+            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            a.record()
+            if i < LM_STEPS - 1:
+                logits, caches = step()
+            else:  # the last step's kernel arguments, for decode_kernels_vs_plain
+                with recording(flash_ops, "flash_attention", calls["flash_attn"]), \
+                        recording(scan_ops, "ssm_scan", calls["ssm_scan"]):
+                    logits, caches = step()
+            b.record()
+            events.append((a, b))
+            out.append(logits)
+        torch.cuda.synchronize()
+        step_ms = [a.elapsed_time(b) for a, b in events]
+        decode_peak = torch.cuda.max_memory_allocated() - base
+        kv = cache_bytes(caches)
+        shapes = {}  # one call of each (Skv, window): gemma3-1b's local and global layers
+        for args, kw in calls["flash_attn"]:
+            shapes.setdefault((args[1].shape[1], kw["window"]), (args, kw))
+        if shapes:
+            recorded["flash_attn"][arch] = list(shapes.values())
+        if calls["ssm_scan"]:
+            recorded["ssm_scan"][arch] = calls["ssm_scan"][:1]
+        decoded = torch.stack(out, 1)  # (B, STEPS + 1, V): positions P - 1 .. P + STEPS - 1
+        seq = torch.cat([toks[:, :-1]] + fed, dim=1)
+        forward = model.unembed(model(seq)[:, LM_PROMPT - 1:])
+    finite = bool(torch.isfinite(decoded).all() and torch.isfinite(forward).all()
+                  and torch.isfinite(loss) and torch.isfinite(logits).all())
+    gap = float((decoded - forward).abs().max() / forward.abs().max())
+    med = statistics.median(step_ms)
+    emit(phase="lm_decode", arch=arch, n_layers=cfg.n_layers, d_model=cfg.d_model,
+         vocab=cfg.vocab, params=param_count(model), param_bytes=param_bytes,
+         init_seconds=init_s, batch=LM_BATCH, prompt=LM_PROMPT, steps=LM_STEPS,
+         window=cfg.window, loss=float(loss), loss_ms=loss_ms, prefill_ms=prefill_ms,
+         decode_ms_per_step_median=med, decode_ms_per_step_min=min(step_ms),
+         decode_ms_per_step_max=max(step_ms), decode_tokens_per_s=LM_BATCH * 1e3 / med,
+         cache_bytes=kv, peak_mem_over_base_bytes=dict(loss=loss_peak, decode=decode_peak),
+         launches_per_pass={k: v for k, v in per_pass.items() if v}, launches=counts,
+         decode_vs_forward_rel=gap, tolerance=DECODE_VS_FORWARD_TOL[arch], finite=finite)
+    if not finite:
+        fail(f"lm_decode {arch}: a logit or the loss is not finite")
+    if gap > DECODE_VS_FORWARD_TOL[arch]:
+        fail(f"lm_decode {arch}: decode logits {gap} (relative) off the forward's, "
+             f"tolerance {DECODE_VS_FORWARD_TOL[arch]}")
+    del model, caches, logits, decoded, forward
+    torch.cuda.empty_cache()
+    return counts
+
+
+def run_lm_decode(dev) -> dict:
+    """Phase lm_decode: the smoke models on the card against the CPU, then
+    each full-width model (LM_FULL), one at a time, freed before the next."""
+    from repro_torch.kernels import common
+
+    lm_smoke_vs_cpu(dev)
+    counts = {k: 0 for k in common.LAUNCHES}
+    recorded: dict = {"flash_attn": {}, "ssm_scan": {}}
+    launches = {}
+    for arch in LM_FULL:
+        launches[arch] = lm_full(dev, arch, recorded)
+        for k, v in launches[arch].items():
+            counts[k] += v
+    return dict(counts=counts, recorded=recorded, launches=launches)
+
+
+def decode_kernels_vs_plain(kernels: list, lm: dict) -> None:
+    """flash_attn and ssm_scan against their plain versions at decode's
+    shapes (the arguments of each model's last decode step: one call of
+    each key count and window), timed beside their bounds (and SDPA for
+    flash_attn); each record carries its kernel's launches in that model's
+    run of the phase (loss_fn, prefill, every decode step)."""
+    recs = {rec["name"]: rec for rec in kernels}
+    for kernel in ("flash_attn", "ssm_scan"):
+        decode = {}
+        for arch, calls in lm["recorded"][kernel].items():
+            for args, kw in calls:
+                if kernel == "flash_attn":
+                    tag = f"{arch} decode, Sq 1, Skv {args[1].shape[1]}, window {kw['window']}"
+                    rec = flash_record(*args, dict(kw))
+                else:
+                    tag, rec = f"{arch} decode, L 1", scan_record(*args)
+                decode[tag] = dict(rec, launches=lm["launches"][arch][kernel])
+        if not decode:
+            fail(f"lm_decode: no {kernel} call recorded at a decode step")
+        recs[kernel]["decode"] = decode
+    emit(phase="kernels_vs_plain", kernels=["flash_attn (decode)", "ssm_scan (decode)"],
+         tolerance=dict(flash_attn=FLASH_TOL, ssm_scan=SCAN_TOL), ok=True)
 
 
 def flash_record(q, k, v, kw: dict) -> dict:

@@ -5,9 +5,13 @@ from __future__ import annotations
 from .base import ModelConfig
 from .falcon_mamba_7b import CONFIG as falcon_mamba_7b
 from .gemma2_9b import CONFIG as gemma2_9b
+from .gemma3_1b import CONFIG as gemma3_1b
 from .gemma_2b import CONFIG as gemma_2b
+from .qwen2_7b import CONFIG as qwen2_7b
 
-ARCHS: dict[str, ModelConfig] = {c.name: c for c in [gemma_2b, gemma2_9b, falcon_mamba_7b]}
+ARCHS: dict[str, ModelConfig] = {
+    c.name: c for c in [gemma_2b, gemma3_1b, gemma2_9b, qwen2_7b, falcon_mamba_7b]
+}
 
 
 def get_config(arch: str) -> ModelConfig:

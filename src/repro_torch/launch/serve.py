@@ -6,7 +6,9 @@ over a corpus of token documents (port of `repro.launch.serve`).
         [--shards 4] [--build-chunk-rows 4096] [--async --replicas 2 --slo-ms 500]
 
 Serves from random-init weights (`init_model`, seed 0) on the card unless
-`--device cpu`.  `--smoke` takes the architecture's reduced configuration.
+`--device cpu`.  `--arch` names any architecture of the port's registry
+(gemma-2b, gemma3-1b, gemma2-9b, qwen2-7b, falcon-mamba-7b); `--smoke`
+takes its reduced configuration.
 `--dynamic` serves a SegmentedLCCSIndex and interleaves an insert / delete /
 compact burst into the request stream.  `--shards N` partitions the static
 index into N row shards on the one device (`repro_torch.shard`: shard-local

@@ -1,8 +1,10 @@
 """Model substrate of the port (PyTorch counterpart of `repro.models`): the
-decoder LM forward with attention (through the `flash_attn` kernel) and
-Mamba-1 (through the `ssm_scan` kernel) blocks."""
-from .api import init_model
-from .convert import params_from_reference
+decoder LM with attention (through the `flash_attn` kernel) and Mamba-1
+(through the `ssm_scan` kernel) blocks -- its forward, loss, and prefill
+and one-token decode with KV and Mamba-1 caches."""
+from .api import decode_step, init_caches, init_model, loss_fn, param_count, prefill
+from .convert import caches_from_reference, params_from_reference
 from .lm import LM
 
-__all__ = ["LM", "init_model", "params_from_reference"]
+__all__ = ["LM", "caches_from_reference", "decode_step", "init_caches", "init_model",
+           "loss_fn", "param_count", "params_from_reference", "prefill"]

@@ -1,9 +1,11 @@
-"""Attention substrate (port of `repro.models.attention`, full-sequence
-forward only): GQA/MQA projections, RoPE, and the attention itself through
-the `flash_attn` wrapper -- the hand-written kernel on CUDA tensors, its
-plain version on CPU tensors.  That computes the reference's
+"""Attention substrate (port of `repro.models.attention`): GQA/MQA
+projections, RoPE, the full-sequence forward, and prefill and one-token
+decode with a KV cache.  The attention itself runs through the
+`flash_attn` wrapper -- the hand-written kernel on CUDA tensors, its plain
+version on CPU tensors --, which computes the reference's
 `chunked_attention` (causal with the ends aligned, sliding window, logit
-soft-capping); KV caches, prefill and decode are not ported yet."""
+soft-capping) and, at Sq = 1 over the cache's live keys, its
+`attention_decode`."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -26,6 +28,25 @@ class AttnConfig(NamedTuple):
     rope_theta: float = 10000.0
     mrope: bool = False
     causal: bool = True
+
+
+# the reference's cache dtype (`repro.models.attention.init_cache`)
+CACHE_DTYPE = torch.bfloat16
+
+
+class KVCache(NamedTuple):
+    """A layer's keys and values, (B, S_max, Hkv, dh) in bf16, and the number
+    of tokens in them: one count for the batch, as in the reference, kept a
+    Python int so that a decode step needs no host sync."""
+    k: torch.Tensor
+    v: torch.Tensor
+    length: int
+
+
+def init_cache(cfg: AttnConfig, batch: int, max_len: int, device=None) -> KVCache:
+    shape = (batch, max_len, cfg.n_kv, cfg.head_dim)
+    return KVCache(torch.zeros(shape, dtype=CACHE_DTYPE, device=device),
+                   torch.zeros(shape, dtype=CACHE_DTYPE, device=device), 0)
 
 
 class Attention(nn.Module):
@@ -67,10 +88,49 @@ class Attention(nn.Module):
             k = apply_rope(k, positions, cfg.rope_theta)
         return q, k, v
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
-        """x: (B, S, D), positions (B, S) -> (B, S, D)."""
+    def _attend(self, q, k, v) -> torch.Tensor:
+        """q (B, S, Hq, dh) over k, v -> the output projection (B, S, D)."""
         cfg = self.cfg
-        q, k, v = self.project_qkv(x, positions)
         out = flash_ops.flash_attention(q, k, v, causal=cfg.causal, window=cfg.window,
                                         softcap=cfg.softcap)
-        return out.reshape(x.shape[0], x.shape[1], -1) @ self.wo
+        return out.reshape(q.shape[0], q.shape[1], -1) @ self.wo
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+        """x: (B, S, D), positions (B, S) -> (B, S, D)."""
+        return self._attend(*self.project_qkv(x, positions))
+
+    def prefill(self, x: torch.Tensor, positions: torch.Tensor, max_len: int):
+        """The forward over a prompt, and a cache of `max_len` slots holding
+        its keys and values.  The attention reads them in float32; only the
+        cache holds them rounded to bf16.  Returns (out (B, S, D), KVCache)."""
+        B, S, _ = x.shape
+        if S > max_len:
+            raise ValueError(f"a prompt of {S} tokens does not fit a cache of {max_len}")
+        q, k, v = self.project_qkv(x, positions)
+        out = self._attend(q, k, v)
+        cache = init_cache(self.cfg, B, max_len, device=x.device)
+        cache.k[:, :S] = k
+        cache.v[:, :S] = v
+        return out, cache._replace(length=S)
+
+    def decode(self, x: torch.Tensor, cache: KVCache, position: torch.Tensor):
+        """One token, x (B, 1, D), at position `cache.length`, which
+        `position` (B, 1) holds (built once a step by the caller).  Its key and
+        value are written into the cache first (in place: the slot beyond
+        the given cache's length), then the live keys are read back as
+        float32, so the token's own key is seen rounded, as in the
+        reference: [lo, length] with lo = length + 1 - window for a local
+        layer, else 0.  The attention's aligned ends put the query at key
+        position `length`, where its window keeps the keys the reference's
+        mask keeps.  Returns (out (B, 1, D), the cache one token longer)."""
+        cfg = self.cfg
+        t = cache.length
+        if t >= cache.k.shape[1]:
+            raise ValueError(f"the cache is full: {t} of {cache.k.shape[1]} slots")
+        q, k, v = self.project_qkv(x, position)
+        cache.k[:, t] = k[:, 0]
+        cache.v[:, t] = v[:, 0]
+        lo = max(0, t + 1 - cfg.window) if cfg.window > 0 else 0
+        keys, values = (c[:, lo:t + 1].to(torch.float32).contiguous()
+                        for c in (cache.k, cache.v))
+        return self._attend(q, keys, values), cache._replace(length=t + 1)

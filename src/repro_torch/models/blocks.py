@@ -1,15 +1,17 @@
-"""Layer blocks (port of `repro.models.blocks`, full-sequence forward): the
-kinds attn / global / local / dense (attention + MLP) and m1 (Mamba-1).
-The reference's other kinds are not ported yet and raise."""
+"""Layer blocks (port of `repro.models.blocks`): the kinds attn / global /
+local / dense (attention + MLP) and m1 (Mamba-1), each in the reference's
+three modes -- the full-sequence forward, prefill (which also builds the
+layer's cache) and one-token decode against it.  The reference's other
+kinds are not ported yet and raise."""
 from __future__ import annotations
 
 import torch
 from torch import nn
 
-from .attention import Attention, AttnConfig
+from .attention import Attention, AttnConfig, init_cache
 from .common import layer_norm, rms_norm
 from .ffn import MLP
-from .ssm import Mamba1, Mamba1Config
+from .ssm import Mamba1, Mamba1Config, init_mamba1_cache
 
 ATTN_KINDS = ("attn", "global", "local", "dense")
 # block kinds of the reference that the port does not run yet
@@ -89,14 +91,48 @@ class Block(nn.Module):
             return rms_norm(x, getattr(self, f"{name}_scale"))
         return layer_norm(x, getattr(self, f"{name}_scale"), getattr(self, f"{name}_bias"))
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    def _residual(self, x: torch.Tensor, mix):
+        """The residual layer around `mix`, the attention or the SSM, which
+        maps the normed x to (out, cache).  Returns (x, cache)."""
+        h, cache = mix(self._norm(x, "ln1"))
         if self.kind == "m1":
-            return x + self.ssm(self._norm(x, "ln1"))
-        a = self.attn(self._norm(x, "ln1"), positions)
+            return x + h, cache
         if self.cfg.post_norms:
-            a = self._norm(a, "ln1p")
-        x = x + a
+            h = self._norm(h, "ln1p")
+        x = x + h
         f = self.mlp(self._norm(x, "ln2"))
         if self.cfg.post_norms:
             f = self._norm(f, "ln2p")
-        return x + f
+        return x + f, cache
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+        if self.kind == "m1":
+            return self._residual(x, lambda h: (self.ssm(h), None))[0]
+        return self._residual(x, lambda h: (self.attn(h, positions), None))[0]
+
+    def prefill(self, x: torch.Tensor, positions: torch.Tensor, max_len: int):
+        """The forward, and the layer's cache (a KVCache of `max_len` slots,
+        or an SSMCache).  Returns (x, cache)."""
+        if self.kind == "m1":
+            return self._residual(x, self.ssm.prefill)
+        return self._residual(x, lambda h: self.attn.prefill(h, positions, max_len))
+
+    def decode(self, x: torch.Tensor, cache, position: torch.Tensor | None):
+        """One token, x (B, 1, D), against the layer's cache; `position` (B, 1)
+        holds the cache's length (an attention layer's RoPE reads it).
+        Returns (x, the new cache)."""
+        if self.kind == "m1":
+            return self._residual(x, lambda h: self.ssm.decode(h, cache))
+        return self._residual(x, lambda h: self.attn.decode(h, cache, position))
+
+
+def init_block_cache(kind: str, cfg, batch: int, max_len: int, device=None):
+    """An empty cache of a layer of `kind` (port of
+    `repro.models.blocks.init_block_cache`)."""
+    if kind in UNPORTED:
+        raise NotImplementedError(f"block kind {kind!r}: {UNPORTED[kind]} is not ported yet")
+    if kind in ATTN_KINDS:
+        return init_cache(attn_cfg_for(cfg, kind), batch, max_len, device=device)
+    if kind == "m1":
+        return init_mamba1_cache(m1_cfg_for(cfg), batch, device=device)
+    raise ValueError(f"unknown block kind {kind!r}")

@@ -1,5 +1,5 @@
 """Shared model components (port of `repro.models.common`): norms, rotary
-embeddings, the dense initialiser."""
+embeddings, the dense initialiser, the cross-entropy."""
 from __future__ import annotations
 
 import math
@@ -54,3 +54,18 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0)
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                          mask: torch.Tensor | None = None) -> torch.Tensor:
+    """Mean negative log-likelihood over tokens, in float32 through
+    logsumexp.  logits (B, S, V), labels (B, S) int; with `mask` (B, S) the
+    sum of nll * mask over max(sum(mask), 1)."""
+    logits = logits.to(torch.float32)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    nll = lse - gold
+    if mask is None:
+        return torch.mean(nll)
+    mask = mask.to(torch.float32)
+    return torch.sum(nll * mask) / torch.clamp(torch.sum(mask), min=1.0)

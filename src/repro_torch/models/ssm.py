@@ -1,12 +1,14 @@
-"""State-space blocks (port of `repro.models.ssm`, Mamba-1 forward only).
+"""State-space blocks (port of `repro.models.ssm`: Mamba-1, its forward,
+prefill and one-token decode with the conv tail and scan state cached).
 
 The input projection, the depthwise causal conv, the dt/B/C projections,
 the `+ x D` skip and the `silu(z)` gate are plain torch; the selective scan
 runs through the `ssm_scan` wrapper -- the hand-written kernel on CUDA
 tensors, its plain version on CPU tensors.  It computes what the
 reference's `_mamba1_fused` and `_mamba1_scan` paths both compute, on the
-(B, L, d_inner) layout the projections produce.  Mamba-2 and the decode
-caches are not ported yet."""
+(B, L, d_inner) layout the projections produce; prefill and decode carry
+the state through it as h0 and h_fin, decode as one launch at L = 1.
+Mamba-2 is not ported yet."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -27,15 +29,33 @@ class Mamba1Config(NamedTuple):
     d_conv: int = 4
 
 
-def causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """Depthwise causal conv over time from a zero history.  x: (B, L, C),
-    w: (k, C), b: (C,).  Sums the taps in the reference's order."""
+class SSMCache(NamedTuple):
+    """A Mamba-1 layer's decode state: the conv's last k - 1 inputs
+    (B, k - 1, d_inner), the scan state (B, d_inner, N) float32, and the
+    tokens seen (a Python int)."""
+    conv_tail: torch.Tensor
+    state: torch.Tensor
+    length: int
+
+
+def init_mamba1_cache(cfg: Mamba1Config, batch: int, device=None) -> SSMCache:
+    return SSMCache(
+        torch.zeros((batch, cfg.d_conv - 1, cfg.d_inner), dtype=torch.float32, device=device),
+        torch.zeros((batch, cfg.d_inner, cfg.d_state), dtype=torch.float32, device=device), 0)
+
+
+def causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, tail: torch.Tensor):
+    """Depthwise causal conv over time.  x: (B, L, C), w: (k, C), b: (C,);
+    `tail` (B, k - 1, C) the inputs before x (zeros: no history).  Sums the
+    taps in the reference's order.  Returns (out (B, L, C), the new tail:
+    the last k - 1 inputs, a copy, so that a cache does not hold the whole
+    padded input)."""
     k, L = w.shape[0], x.shape[1]
-    xp = F.pad(x, (0, 0, k - 1, 0))  # (B, L + k - 1, C)
+    xp = torch.cat([tail, x], dim=1)  # (B, L + k - 1, C)
     out = xp[:, 0:L, :] * w[0]
     for i in range(1, k):
         out = out + xp[:, i:i + L, :] * w[i]
-    return out + b
+    return out + b, xp[:, L:, :].contiguous()
 
 
 class Mamba1(nn.Module):
@@ -63,17 +83,27 @@ class Mamba1(nn.Module):
             self.A_log.copy_(torch.log(n).expand_as(self.A_log))
             self.D.fill_(1.0)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """x: (B, L, D) -> (B, L, D)."""
+    def decode(self, x: torch.Tensor, cache: SSMCache):
+        """x (B, L, D) after `cache` -> (out (B, L, D), the cache after x).
+        A decode step is L = 1: one `ssm_scan` launch from the cached
+        state."""
         cfg = self.cfg
         Di, N, R = cfg.d_inner, cfg.d_state, cfg.dt_rank
         x1, z = torch.split(x @ self.in_proj, [Di, Di], dim=-1)
-        x1 = F.silu(causal_conv(x1, self.conv_w, self.conv_b))
+        x1, tail = causal_conv(x1, self.conv_w, self.conv_b, cache.conv_tail)
+        x1 = F.silu(x1)
         dt_r, Bc, Cc = torch.split(x1 @ self.x_proj, [R, N, N], dim=-1)
         dt = F.softplus(dt_r @ self.dt_proj + self.dt_bias)  # (B, L, Di)
         A = -torch.exp(self.A_log.to(torch.float32))  # (Di, N)
-        h0 = torch.zeros((x.shape[0], Di, N), dtype=torch.float32, device=x.device)
-        y, _ = scan_ops.ssm_scan(dt, x1, Bc.contiguous(), Cc.contiguous(), A, h0)
+        y, h = scan_ops.ssm_scan(dt, x1, Bc.contiguous(), Cc.contiguous(), A, cache.state)
         y = (y + x1 * self.D).to(x.dtype)
         y = y * F.silu(z)
-        return y @ self.out_proj
+        return y @ self.out_proj, SSMCache(tail, h, cache.length + x.shape[1])
+
+    def prefill(self, x: torch.Tensor):
+        """The forward over a prompt and the cache after it."""
+        return self.decode(x, init_mamba1_cache(self.cfg, x.shape[0], device=x.device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x: (B, L, D) -> (B, L, D)."""
+        return self.prefill(x)[0]

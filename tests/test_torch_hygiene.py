@@ -1,8 +1,9 @@
 """Port hygiene: `repro_torch` (and chip_smoke.py) never import JAX or the
 reference package -- neither the index path, nor the serving engine, nor the
 serve CLI, synchronous or behind the async router with its metrics
-endpoint --, entry points default to CUDA and refuse to fall back to the
-CPU, and the kernel loader fails clearly without nvcc."""
+endpoint, nor the LM's loss, prefill and decode --, entry points default to
+CUDA and refuse to fall back to the CPU, and the kernel loader fails clearly
+without nvcc."""
 import os
 import re
 import subprocess
@@ -196,6 +197,48 @@ def test_model_entry_points_default_to_cuda_and_raise_without_it():
         params_from_reference(cfg, {})
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         params_from_reference(cfg, {}, device="cuda")
+
+
+@pytest.mark.parametrize("arch", ["qwen2-7b", "gemma3-1b", "falcon-mamba-7b"])
+def test_cpu_loss_prefill_and_decode_load_no_jax_or_reference(arch):
+    code = f"""
+import sys
+import numpy as np
+import torch
+torch.set_num_threads(2)
+from repro_torch.configs import ARCHS
+from repro_torch.models import decode_step, init_caches, init_model, loss_fn, prefill
+cfg = ARCHS[{arch!r}].smoke()
+model = init_model(cfg, seed=0, device="cpu")
+toks = np.random.default_rng(0).integers(0, cfg.vocab, (2, 20))
+loss, _ = loss_fn(model, {{"tokens": toks, "labels": toks}})
+assert bool(torch.isfinite(loss))
+logits, caches = prefill(model, {{"tokens": toks}}, 24)
+for _ in range(3):
+    logits, caches = decode_step(model, logits.argmax(-1, keepdim=True), caches)
+assert logits.shape == (2, cfg.vocab_padded) and caches[0].length == 23
+assert len(init_caches(cfg, 2, 24, device="cpu")) == cfg.n_layers
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
+             or m == "repro" or m.startswith("repro."))
+print("BAD", bad)
+"""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=300, env=ENV)
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+
+
+def test_decode_entry_points_default_to_cuda_and_raise_without_it():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device resolves to CUDA")
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import caches_from_reference, init_caches
+
+    cfg = ARCHS["qwen2-7b"].smoke()
+    for call in (lambda: init_caches(cfg, 1, 8), lambda: init_caches(cfg, 1, 8, device="cuda"),
+                 lambda: caches_from_reference(cfg, {})):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
 
 
 def test_loader_raises_clearly_without_nvcc(monkeypatch, tmp_path):

@@ -841,6 +841,84 @@ def test_smoke_model_on_card_matches_cpu(dev, arch):
     torch.testing.assert_close(out.cpu(), cpu(toks), rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("B,Skv,Hq,Hkv,dh,window,softcap", [
+    (4, 704, 28, 4, 128, 0, 0.0),      # qwen2-7b's last decode step
+    (4, 512, 4, 1, 256, 512, 0.0),     # gemma3-1b's local layer, a full window
+    (3, 40, 8, 2, 256, 16, 50.0),      # window + softcap (gemma2's smoke)
+    (2, 1, 4, 1, 64, 0, 30.0),         # the first token
+])
+def test_flash_attn_kernel_at_one_query(dev, B, Skv, Hq, Hkv, dh, window, softcap):
+    """Decode's shape: one query at key position Skv - 1 (the aligned ends)
+    over the cache's live keys, within rtol/atol 1e-4 of the plain version."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(Skv)
+    q, k, v = (torch.randn((B, S, H, dh), generator=g, device=dev)
+               for S, H in ((1, Hq), (Skv, Hkv), (Skv, Hkv)))
+    kw = dict(causal=True, window=window, softcap=softcap)
+    before = common.launch_counts()["flash_attn"]
+    out = flash_attention(q, k, v, **kw)
+    assert common.launch_counts()["flash_attn"] == before + 1
+    torch.testing.assert_close(out, flash_attention_ref(q, k, v, **kw), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("arch", ["qwen2-7b", "gemma3-1b", "gemma2-9b", "falcon-mamba-7b"])
+def test_smoke_decode_on_card_matches_cpu(dev, arch):
+    """The same smoke-size weights on both devices, with the CPU tests'
+    tolerances (tests/test_torch_decode.py): the loss and prefill of 24
+    tokens (past the smoke window of 16) within rtol 1e-4 / atol 1e-5, then
+    8 decode steps fed the CPU's greedy tokens, their logits within 2^-8 of
+    the largest CPU logit (a cache entry may round one bf16 step apart) and
+    the card's greedy token the CPU's unless the CPU's top two are closer
+    than that; each step on the card launched the model's kernel once a
+    layer.  After the steps, K and V at the prompt's positions within one
+    bf16 step + rtol 1e-4 / atol 1e-5 (prefill's bound: decode must leave
+    them as they were); at the decode positions, and the conv tail and
+    state, within 2^-8 of the largest CPU value (+ one bf16 step for K and
+    V): decode computes them from hidden states that the steps' bf16 reads
+    move apart by more than rtol 1e-4."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.models import decode_step, init_model, loss_fn, prefill
+    from repro_torch.models.attention import KVCache
+
+    tol, rel = dict(rtol=1e-4, atol=1e-5), 2.0 ** -8
+    cfg = ARCHS[arch].smoke()
+    cpu = init_model(cfg, seed=0, device="cpu")
+    card = init_model(cfg, seed=0, device="cpu").to(dev)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab, (3, 25))
+    kernel = "ssm_scan" if cfg.family == "ssm" else "flash_attn"
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    with torch.no_grad():
+        torch.testing.assert_close(loss_fn(card, batch)[0].cpu(), loss_fn(cpu, batch)[0], **tol)
+    lc, cc = prefill(cpu, {"tokens": toks[:, :-1]}, 32)
+    lg, cg = prefill(card, {"tokens": toks[:, :-1]}, 32)
+    torch.testing.assert_close(lg.cpu(), lc, **tol)
+    for _ in range(8):
+        top2 = lc.topk(2, dim=-1).values
+        near_tie = (top2[:, 0] - top2[:, 1]) <= 2 * rel * float(lc.abs().max())
+        tc = lc.argmax(-1, keepdim=True)
+        assert bool(((tc == lg.argmax(-1, keepdim=True).cpu())[:, 0] | near_tie).all())
+        before = common.launch_counts()[kernel]
+        lg, cg = decode_step(card, tc, cg)
+        assert common.launch_counts()[kernel] - before == cfg.n_layers
+        lc, cc = decode_step(cpu, tc, cc)
+        torch.testing.assert_close(lg.cpu(), lc, rtol=0, atol=rel * float(lc.abs().max()))
+    prompt = toks.shape[1] - 1
+    for a, b in zip(cg, cc):
+        for x, y in zip(a[:2], b[:2]):
+            x, y = x.cpu().float(), y.float()
+            loose = torch.full_like(x, rel * float(y.abs().max()))
+            if isinstance(a, KVCache):
+                mag = torch.maximum(x.abs(), y.abs())
+                _, e = torch.frexp(mag)
+                step = torch.ldexp(torch.ones_like(x), e - 8)
+                tight = step + tol["atol"] + tol["rtol"] * mag
+                bound = torch.cat([tight[:, :prompt], (loose + step)[:, prompt:]], 1)
+            else:
+                bound = loose
+            over = float(((x - y).abs() / bound).max())
+            assert over <= 1.0, f"a cache {over} x its bound apart"
+
+
 def _family_on(fam, device):
     import dataclasses
 

@@ -22,7 +22,7 @@ from repro.models.ssm import Mamba1Config as RefMamba1Config
 from repro.models.ssm import init_mamba1, mamba1_block
 from repro_torch.configs import ARCHS, ModelConfig
 from repro_torch.kernels import common
-from repro_torch.models import init_model, params_from_reference
+from repro_torch.models import caches_from_reference, init_model, params_from_reference
 from repro_torch.models.attention import Attention, AttnConfig
 from repro_torch.models.blocks import Block
 from repro_torch.models.ffn import MLP
@@ -31,7 +31,7 @@ from repro_torch.models.ssm import Mamba1, Mamba1Config
 torch.set_num_threads(2)
 
 TOL = dict(rtol=1e-4, atol=1e-5)
-PORTED = ("gemma-2b", "falcon-mamba-7b", "gemma2-9b")
+PORTED = ("gemma-2b", "falcon-mamba-7b", "gemma2-9b", "qwen2-7b", "gemma3-1b")
 
 
 def _set(module: torch.nn.Module, params: dict) -> None:
@@ -153,3 +153,49 @@ def test_params_from_reference_rejects_a_wrong_shape():
     params["final_norm"]["fn_scale"] = np.zeros(3, np.float32)
     with pytest.raises(ValueError, match="fn_scale"):
         params_from_reference(ARCHS["gemma-2b"].smoke(), params, "cpu")
+
+
+def test_params_from_reference_carries_an_untied_head():
+    ref_cfg, cfg = REF_ARCHS["qwen2-7b"].smoke(), ARCHS["qwen2-7b"].smoke()
+    params = jax.tree.map(np.asarray, ref_api.init_model(jax.random.key(0), ref_cfg))
+    model = params_from_reference(cfg, params, "cpu")
+    assert model.lm_head is not None
+    assert np.array_equal(model.lm_head.numpy(), params["head"]["lm_head"])
+    x = np.random.default_rng(0).normal(size=(2, 3, cfg.d_model)).astype(np.float32)
+    want = ref_lm.unembed(ref_cfg, params, jnp.asarray(x))
+    np.testing.assert_allclose(model.unembed(torch.from_numpy(x)).numpy(), np.asarray(want),
+                               **TOL)
+    params.pop("head")
+    with pytest.raises(KeyError, match="lm_head"):
+        params_from_reference(cfg, params, "cpu")
+
+
+@pytest.mark.parametrize("key", ["shared", "head"])
+def test_params_from_reference_rejects_a_key_it_does_not_read(key):
+    """A top-level key the port does not read (zamba's `shared`), or a head
+    on a model whose embeddings are tied, is an error, not a silent drop."""
+    ref_cfg = REF_ARCHS["gemma-2b"].smoke()
+    params = jax.tree.map(np.asarray, ref_api.init_model(jax.random.key(0), ref_cfg))
+    params[key] = {"lm_head": np.zeros((ref_cfg.d_model, ref_cfg.vocab_padded), np.float32)}
+    with pytest.raises(KeyError, match="shared" if key == "shared" else "no place"):
+        params_from_reference(ARCHS["gemma-2b"].smoke(), params, "cpu")
+
+
+def test_caches_from_reference_follows_the_layer_order():
+    """gemma3-1b's smoke pattern (6 slots x 2 repeats, then a tail block):
+    port cache r * 6 + j is the reference's slot j at repeat r, then the
+    tail's; each tagged here by its layer number."""
+    ref_cfg, cfg = REF_ARCHS["gemma3-1b"].smoke(), ARCHS["gemma3-1b"].smoke()
+    caches = jax.tree.map(np.asarray, ref_api.init_caches(ref_cfg, 1, 4))
+    n_pat = len(cfg.pattern)
+    for j in range(n_pat):
+        k, v, _ = caches["pattern"][f"slot{j}"]
+        tags = np.arange(cfg.repeats, dtype=np.float32) * n_pat + j
+        caches["pattern"][f"slot{j}"] = (k + tags[:, None, None, None, None], v,
+                                         np.arange(cfg.repeats, dtype=np.int32) + 5)
+    k, v, _ = caches["tail"]["tail0"]
+    caches["tail"]["tail0"] = (k + cfg.repeats * n_pat, v, np.int32(9))
+    got = caches_from_reference(cfg, caches, "cpu")
+    assert [float(c.k[0, 0, 0, 0]) for c in got] == list(range(cfg.n_layers))
+    assert [c.length for c in got] == [5 + i // n_pat for i in range(cfg.n_layers - 1)] + [9]
+    assert all(c.k.dtype == torch.bfloat16 for c in got)
