@@ -59,10 +59,10 @@ Drives the port's paths on one NVIDIA card at the paper's SIFT size
     with every flag of the async front on a smoke model
     (`serve_async_cli`);
   * the same smoke-size models on the card and on the CPU;
-  * the LM's loss, prefill and decode (phase `lm_decode`): qwen2-7b (28
-    attention layers, GQA 28/4, dh 128), gemma3-1b (26 layers, 5:1
+  * the LM's loss, prefill and decode (phase `lm_decode`): qwen2-7b (7 of
+    its 28 attention layers, GQA 28/4, dh 128), gemma3-1b (26 layers, 5:1
     local:global at window 512, MQA, dh 256) and falcon-mamba-7b (64
-    Mamba-1 layers) at full width and depth, one at a time, random weights
+    Mamba-1 layers) at full width, one at a time, random weights
     from seed 0: `loss_fn` over a 640-token prompt at batch 4, `prefill`,
     then 64 greedy `decode_step`s against the bf16 KV caches and the
     Mamba-1 state, every pass launching flash_attn once an attention layer
@@ -70,7 +70,18 @@ Drives the port's paths on one NVIDIA card at the paper's SIFT size
     version may run); the decode logits held to unembed(forward) over the
     same tokens (DECODE_VS_FORWARD_TOL), one decode step profiled
     (`profile_decode_step`); before them the smoke-size models (with
-    gemma2-9b's softcaps) on the card against the CPU (`lm_decode_vs_cpu`).
+    gemma2-9b's softcaps, and the MoE models with their expert choices
+    compared) on the card against the CPU (`lm_decode_vs_cpu`);
+  * the MoE FFN (phase `lm_moe`): qwen3-moe-235b-a22b (128 experts, top 8,
+    GQA 64/4) at 4 layers and llama4-maverick-400b-a17b (128 experts, top
+    1, a dense layer, a shared expert, GQA 40/8) at 2, full width, one at a
+    time, as lm_decode runs its models, with the dropped assignments
+    counted in the loss's forward and over the decode steps and the peak
+    memory beside a reckoning of weights, logits and dispatch buffer; the
+    decode-vs-forward gate at capacity_factor E / K (nothing dropped), with
+    the forward's expert choices replayed in decode so that every position
+    compares, and the router's perturbation (`moe_replay_gap`,
+    MOE_ROUTE_TOL).
 
 It builds the CUDA kernels from the sources in the checkout, shows through
 their launch counts (reset before each path, read after it) that each path
@@ -80,7 +91,8 @@ land at pos 0 and pos n, and timed on the multiprobe-skip pairs worklist
 beside the lccs one; flash_attn and ssm_scan also at long shapes (flash_attn
 at B 4, S 2048 with gemma2-9b's heads, causal and with window 1024 + softcap
 50, and at B 1, S 4096 with gemma-2b's; ssm_scan at B 4, L 2048 and B 1,
-L 4096; both also at the last decode step's shapes of phase lm_decode),
+L 4096; both also at the last decode step's shapes of phases lm_decode and
+lm_moe, flash_attn also at lm_moe's prefill shapes, GQA groups 16 and 5),
 hash_rp and hash_xp also at the GIST width d = 960 and over one query batch, pool_topk also at a multiprobe-skip pool of
 several tiles and at the serving pool (each with its device time and a
 `pool_stats` line: the cut lcp and the ids and entries at or above it) and
@@ -190,7 +202,7 @@ PROM_SAMPLE = re.compile(r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{[^}]*\})? [^ ]+$')
 # card vs CPU embeddings of the smoke models: float32 through a few layers,
 # cuBLAS against the CPU's summation order
 EMB_TOL = dict(rtol=1e-4, atol=1e-5)
-# phase lm_decode at full width and depth: max |teacher-forced decode logit -
+# phase lm_decode at full width (LM_FULL's depth): max |teacher-forced decode logit -
 # unembed(forward) logit| over the largest forward logit, per model.  At
 # least 8 x the reference's own gap (its bf16 KV cache; falcon-mamba-7b's
 # float32 state only reorders sums) at full width, derived on the CPU by
@@ -201,11 +213,39 @@ EMB_TOL = dict(rtol=1e-4, atol=1e-5)
 # 4.6e-3 / 2.9e-3 (x 8 = 0.050); falcon-mamba-7b: 4.3e-5 / 1.1e-4 / 3.0e-4
 # at d_inner 128 / 512 / 2048, w^0.71, so 7.9e-4 at 8192 (x 8 = 6.3e-3,
 # rounded up to 1e-2 against the CPU's own variation of the fit).
-DECODE_VS_FORWARD_TOL = {"qwen2-7b": 0.06, "gemma3-1b": 0.06, "falcon-mamba-7b": 1e-2}
-# phase lm_decode: each model at full width and depth, one at a time, random
-# weights from seed 0: loss_fn over the prompt, prefill, greedy decode steps
-LM_FULL = ("qwen2-7b", "gemma3-1b", "falcon-mamba-7b")
+# The MoE models (phase lm_moe) are gated at capacity_factor = E / K on both
+# sides (no assignment drops), over every position, with the forward's
+# expert choices replayed in decode (moe_replay, moe_replay_gap): a route
+# flip is discontinuous, and the bf16 cache flips a near-tie within a few
+# steps, so replayed routes leave their limit to hold the cache's rounding,
+# as for the attention models.  Derived by tests/test_torch_moe.py
+# (test_reference_moe_decode_gap_is_under_the_card_tolerance) from the
+# reference on the CPU, its routes replayed the same way, at the depth the
+# card runs (LM_MOE), all 128 experts and the config's K, over d_model 128 /
+# 256 / 512 (expert F at the config's F / D): qwen3-moe 1.9e-3 / 1.9e-3 /
+# 1.8e-3 (flat; x 8 = 0.015), llama4-maverick 4.8e-3 / 3.0e-3 / 4.5e-3 (x 8
+# = 0.038); both at 0.06 with the attention models.  The router's
+# perturbation there (MOE_ROUTE_TOL: max |p_decode - p_forward| over the
+# K-th probability, up to a sequence's first would-be flip) read 0.024 /
+# 0.037 / 0.015 and 6.6e-3 / 8.0e-3 / 7.0e-3 (x 8 = 0.30 and 0.064, rounded
+# up to 0.4 and 0.1).
+DECODE_VS_FORWARD_TOL = {"qwen2-7b": 0.06, "gemma3-1b": 0.06, "falcon-mamba-7b": 1e-2,
+                         "qwen3-moe-235b-a22b": 0.06, "llama4-maverick-400b-a17b": 0.06}
+MOE_ROUTE_TOL = {"qwen3-moe-235b-a22b": 0.4, "llama4-maverick-400b-a17b": 0.1}
+# moe_replay_gap's flip_tie_over_bound is at most 1 in exact arithmetic;
+# this is the float32 rounding of the tie and the perturbation it divides
+FLIP_BOUND_SLACK = 1e-5
+# phase lm_decode: each model at full width, one at a time, random weights
+# from seed 0: loss_fn over the prompt, prefill, greedy decode steps; at
+# full depth (None) but qwen2-7b, cut to 7 of its 28 layers (the same layer
+# 28 times; its limit above was derived at full depth) so that the run,
+# with phase lm_moe, keeps to the time it took before that phase came
+LM_FULL = {"qwen2-7b": 7, "gemma3-1b": None, "falcon-mamba-7b": None}
 LM_BATCH, LM_PROMPT, LM_STEPS = 4, 640, 64
+# phase lm_moe: the MoE models at full width with the depth cut so that their
+# float32 weights fit one 80 GB card (qwen3-moe 44.8 GB at 4 layers,
+# llama4-maverick 74.2 GB at one (dense, moe) repeat), as lm_decode runs them
+LM_MOE = {"qwen3-moe-235b-a22b": 4, "llama4-maverick-400b-a17b": 2}
 # and at smoke size on the card against the CPU (the prompt is longer than
 # the smoke window of 16), with the CPU tests' tolerances
 # (tests/test_torch_decode.py): the loss and prefill's logits float32 in
@@ -214,10 +254,18 @@ LM_BATCH, LM_PROMPT, LM_STEPS = 4, 640, 64
 # the caches that decode writes, within 2^-8 (a bf16 step, relative) of the
 # largest CPU value, as a cache entry may round one bf16 step apart and
 # move what later layers and steps compute
-LM_SMOKE = ("qwen2-7b", "gemma3-1b", "gemma2-9b", "falcon-mamba-7b")
+LM_SMOKE = ("qwen2-7b", "gemma3-1b", "gemma2-9b", "falcon-mamba-7b", "qwen3-moe-235b-a22b",
+            "llama4-maverick-400b-a17b")
 LM_SMOKE_PROMPT, LM_SMOKE_STEPS = 24, 16
 LM_TOL = dict(rtol=1e-4, atol=1e-5)
 BF16_REL = 2.0 ** -8
+# the smoke MoE models on the card against the CPU: an expert choice may
+# differ only at a near-tie of the CPU's router probabilities, (p_k -
+# p_{k+1}) / p_k within 2 x BF16_REL (two probabilities crossing, each moved
+# by at most the decode logits' tolerance); a sequence whose routes differ at
+# a decode step is another function from there on, and leaves the logit and
+# cache checks
+SMOKE_ROUTE_TIE = 2 * BF16_REL
 # kernel vs plain version on the card: float32 summation order, and the
 # order of the online softmax (flash_attn) or of the C contraction (ssm_scan)
 FLASH_TOL = dict(rtol=1e-4, atol=1e-4)
@@ -761,6 +809,11 @@ def run(dev: torch.device) -> None:
 
     # -- 13.-16. the serving path of the third slice --------------------------
     del ctx, angular, dynamic, index, X, Q, truth, src_rows, results, ids, dists, ids8, d8
+    # phases 3b-7's arguments and outputs on the card (the index's tables
+    # and store among them): the LM phases need the room
+    del (probe_calls, l2_calls, q_calls, pool_calls, worklists, I, L, Hd, qd, shifts, qidx,
+         edge_q, e_ids, probe_ids, k_out, p_out, pool_ids, pool_lcps, w_ids, w_lcps, qh, qb,
+         fused, legacy, cand, gpu, Qs)
     torch.cuda.empty_cache()
     serve = run_serving(dev)
     lm = run_lm_decode(dev)
@@ -778,7 +831,7 @@ def run(dev: torch.device) -> None:
         fail(f"the kernels line lists {names}, the library has {sorted(common.LAUNCHES)}")
 
     for rec in kernels:
-        subs = [sub for k in ("wide", "batch", "long", "pool", "worklists", "decode")
+        subs = [sub for k in ("wide", "batch", "long", "pool", "worklists", "decode", "prefill")
                 for sub in rec.get(k, {}).values()]
         for r in (rec, *subs):
             with_ratios(r)
@@ -2627,6 +2680,29 @@ def cache_bytes(caches: list) -> int:
     return sum(t.numel() * t.element_size() for c in caches for t in c[:2])
 
 
+def route_diffs(card: list, cpu: list):
+    """The expert choices of the same MoE layer calls on the card and on the
+    CPU (`moe.recording(model)` lists).  Returns (agreeing (token, k)
+    choices, all choices, a bool (T,) a call: the tokens whose choices
+    differ, and the largest tie of a differing choice: on the CPU's
+    probabilities sorted, (p_k - p_{k+1}) / p_k with its nearer neighbour,
+    rank k - 1 or k + 1, the K + 1-th included)."""
+    agree = total = 0
+    tie, differ = 0.0, []
+    for g, c in zip(card, cpu):
+        d = g.eidx.cpu() != c.eidx
+        agree += int((~d).sum())
+        total += d.numel()
+        K = c.eidx.shape[1]
+        top = c.probs.topk(K + 1, dim=-1).values
+        gaps = (top[:, :-1] - top[:, 1:]) / top[:, :-1]  # rank k against k + 1
+        left = torch.cat([torch.full_like(gaps[:, :1], float("inf")), gaps[:, :-1]], 1)
+        if bool(d.any()):
+            tie = max(tie, float(torch.minimum(left, gaps)[d].max()))
+        differ.append(d.any(-1))
+    return agree, total, differ, tie
+
+
 def lm_smoke_vs_cpu(dev) -> None:
     """The smoke-size models with the same weights on the card and on the
     CPU: loss_fn, prefill of LM_SMOKE_PROMPT tokens, then LM_SMOKE_STEPS
@@ -2638,19 +2714,25 @@ def lm_smoke_vs_cpu(dev) -> None:
     prompt's positions after the steps, the rest of the caches after the
     steps within the decode tolerance (`caches_close`), and each decode
     step on the card launching its kernels once a layer.  The line reports
-    the largest K / V difference in bf16 steps of the entry."""
+    the largest K / V difference in bf16 steps of the entry.  The MoE
+    models' expert choices are recorded on both devices at every call
+    (`route_diffs`): the line reports the share of (token, k) choices that
+    agree, and one may differ only at a near-tie (SMOKE_ROUTE_TIE); a
+    sequence whose choices differ at a decode step leaves the later logit,
+    token and cache checks (`diverged_sequences`)."""
     import copy
 
     from repro_torch.configs import ARCHS
     from repro_torch.kernels import common
     from repro_torch.models import decode_step, init_model, loss_fn, prefill
     from repro_torch.models.attention import KVCache
+    from repro_torch.models.moe import recording as moe_recording
 
     def bf16_step(mag):
         _, e = torch.frexp(mag)
         return torch.ldexp(torch.ones_like(mag), e - 8)
 
-    def caches_close(card, cpu, prompt: int | None) -> dict:
+    def caches_close(card, cpu, prompt: int | None, rows=slice(None)) -> dict:
         """The largest |card - cpu| over its bound across every cache
         (`of_bound`).  After prefill (`prompt` None) every entry is bound by
         LM_TOL, plus one bf16 step for K and V.  After decode, K and V at
@@ -2661,14 +2743,15 @@ def lm_smoke_vs_cpu(dev) -> None:
         bf16 reads move apart.  Also the readings: the largest K / V
         difference in bf16 steps of the entry at the prompt's and at the
         decode positions, and the largest difference of what decode wrote
-        over the largest CPU value of its tensor."""
+        over the largest CPU value of its tensor.  `rows` selects the
+        sequences compared."""
         out = dict(of_bound=0.0, prompt_kv_bf16_steps=0.0, decode_kv_bf16_steps=0.0,
                    decode_rel=0.0)
         p = prompt
         for c, h in zip(card, cpu):
             kv = isinstance(c, KVCache)
             for a, b in zip(c[:2], h[:2]):
-                a, b = a.cpu().float(), b.float()
+                a, b = a.cpu().float()[rows], b.float()[rows]
                 diff, mag = (a - b).abs(), torch.maximum(a.abs(), b.abs())
                 step = bf16_step(mag) if kv else torch.zeros_like(mag)
                 bound = LM_TOL["atol"] + LM_TOL["rtol"] * mag + step
@@ -2689,70 +2772,117 @@ def lm_smoke_vs_cpu(dev) -> None:
         return out
 
     for arch in LM_SMOKE:
+        t0 = time.perf_counter()
         cfg = ARCHS[arch].smoke()
         cpu = init_model(cfg, seed=0, device="cpu")
         card = copy.deepcopy(cpu).to(dev)
         toks = np.random.default_rng(0).integers(0, cfg.vocab,
                                                  (LM_BATCH, LM_SMOKE_PROMPT + 1))
         batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+        routes = dict(agree=0, total=0, tie=0.0)
+
+        def both(on_cpu, on_card):
+            """Both calls, their expert choices compared (route_diffs)."""
+            with moe_recording(cpu) as rc:
+                out_cpu = on_cpu()
+            with moe_recording(card) as rg:
+                out_card = on_card()
+            agree, total, differ, tie = route_diffs(rg, rc)
+            if tie > SMOKE_ROUTE_TIE:
+                fail(f"lm_decode_vs_cpu {arch}: an expert choice differs from the CPU's at "
+                     f"a tie of {tie}, past {SMOKE_ROUTE_TIE}")
+            routes.update(agree=routes["agree"] + agree, total=routes["total"] + total,
+                          tie=max(routes["tie"], tie))
+            return out_cpu, out_card, differ
+
         with torch.no_grad():
-            loss_cpu, loss_card = loss_fn(cpu, batch)[0], loss_fn(card, batch)[0].cpu()
+            loss_cpu, loss_card, _ = both(lambda: loss_fn(cpu, batch)[0],
+                                          lambda: loss_fn(card, batch)[0].cpu())
         torch.testing.assert_close(loss_card, loss_cpu, **LM_TOL)
         max_len = LM_SMOKE_PROMPT + LM_SMOKE_STEPS
-        lc, cc = prefill(cpu, {"tokens": toks[:, :-1]}, max_len)
-        lg, cg = prefill(card, {"tokens": toks[:, :-1]}, max_len)
+        (lc, cc), (lg, cg), _ = both(lambda: prefill(cpu, {"tokens": toks[:, :-1]}, max_len),
+                                     lambda: prefill(card, {"tokens": toks[:, :-1]}, max_len))
         torch.testing.assert_close(lg.cpu(), lc, **LM_TOL)
         prefill_caches = caches_close(cg, cc, None)
         if prefill_caches["of_bound"] > 1.0:
             fail(f"lm_decode_vs_cpu {arch}: prefill caches past their bound: {prefill_caches}")
         want = lm_kernel_layers(cfg)
         err, equal, near_ties = 0.0, 0, 0
+        diverged = torch.zeros(LM_BATCH, dtype=torch.bool)
         for _ in range(LM_SMOKE_STEPS):
             tc, tg = lc.argmax(-1), lg.argmax(-1).cpu()
             tol = BF16_REL * float(lc.abs().max())
             top2 = lc.topk(2, dim=-1).values
             tie = (top2[:, 0] - top2[:, 1]) <= 2 * tol
-            if bool(((tc != tg) & ~tie).any()):
+            if bool(((tc != tg) & ~tie & ~diverged).any()):
                 fail(f"lm_decode_vs_cpu {arch}: the card's greedy token differs from the CPU's")
             equal += int((tc == tg).sum())
             near_ties += int(tie.sum())
-            common.reset_launch_counts()
-            lg, cg = decode_step(card, tc[:, None], cg)
-            if common.launch_counts() != want:
-                fail(f"lm_decode_vs_cpu {arch}: a decode step launched "
-                     f"{common.launch_counts()}, expected {want}")
-            lc, cc = decode_step(cpu, tc[:, None], cc)
-            step_err = float((lg.cpu() - lc).abs().max())
+
+            def card_step():
+                common.reset_launch_counts()
+                out = decode_step(card, tc[:, None], cg)
+                if common.launch_counts() != want:
+                    fail(f"lm_decode_vs_cpu {arch}: a decode step launched "
+                         f"{common.launch_counts()}, expected {want}")
+                return out
+
+            (lc, cc), (lg, cg), differ = both(lambda: decode_step(cpu, tc[:, None], cc),
+                                              card_step)
+            for d in differ:
+                diverged |= d.cpu()
+            kept = ~diverged
+            step_err = float((lg.cpu() - lc)[kept].abs().max()) if bool(kept.any()) else 0.0
             if step_err > BF16_REL * float(lc.abs().max()):
                 fail(f"lm_decode_vs_cpu {arch}: decode logits {step_err} apart")
             err = max(err, step_err)
-        decoded_caches = caches_close(cg, cc, LM_SMOKE_PROMPT)
+        decoded_caches = caches_close(cg, cc, LM_SMOKE_PROMPT, ~diverged)
         if decoded_caches["of_bound"] > 1.0:
             fail(f"lm_decode_vs_cpu {arch}: caches after decode past their bound: "
                  f"{decoded_caches}")
+        moe = {}
+        if cfg.n_experts:
+            moe = dict(experts=cfg.n_experts, top_k=cfg.moe_top_k,
+                       route_agreement=f"{routes['agree']}/{routes['total']}",
+                       route_share=routes["agree"] / routes["total"],
+                       route_tie_max=routes["tie"], diverged_sequences=int(diverged.sum()),
+                       route_tie_limit=SMOKE_ROUTE_TIE)
         emit(phase="lm_decode_vs_cpu", arch=arch, batch=LM_BATCH, prompt=LM_SMOKE_PROMPT,
              steps=LM_SMOKE_STEPS, window=cfg.window, loss_cpu=float(loss_cpu),
              loss_card=float(loss_card), decode_logits_max_abs_err=err,
              greedy_tokens_equal=f"{equal}/{LM_BATCH * LM_SMOKE_STEPS}",
              cpu_near_ties=near_ties, prefill_caches=prefill_caches,
-             decoded_caches=decoded_caches,
-             tolerance=dict(loss_prefill=LM_TOL, decode_rel=BF16_REL), ok=True)
+             decoded_caches=decoded_caches, **moe,
+             tolerance=dict(loss_prefill=LM_TOL, decode_rel=BF16_REL), ok=True,
+             seconds=time.perf_counter() - t0)
 
 
-def lm_full(dev, arch: str, recorded: dict) -> dict:
-    """One model at full width and depth (random weights, seed 0): loss_fn
-    over the prompt, prefill, then LM_STEPS greedy decode steps, with the
-    launches of each counted; the greedy tokens' logits against
-    unembed(forward) over the prompt and those tokens.  Records the
-    kernels' arguments of the last decode step into `recorded`.  Returns
-    the phase's launches."""
+def lm_full(dev, arch: str, recorded: dict, depth: int | None = None) -> dict:
+    """One model at full width (random weights, seed 0), at full depth or
+    cut to `depth` layers: loss_fn over the prompt, prefill, then LM_STEPS
+    greedy decode steps, with the launches of each counted; the greedy
+    tokens' logits against unembed(forward) over the prompt and those
+    tokens.  Records the kernels' arguments of the last decode step into
+    `recorded`.  A model with MoE layers (phase lm_moe) has their dropped
+    assignments counted in the loss's forward and over the decode steps,
+    its prefill's first flash_attn call recorded too, and `moe_gate` as its
+    decode-vs-forward gate.  Returns the phase's launches."""
+    import dataclasses
+
     from repro_torch.configs import ARCHS
     from repro_torch.kernels import common
     from repro_torch.kernels.flash_attn import ops as flash_ops
     from repro_torch.kernels.ssm_scan import ops as scan_ops
     from repro_torch.models import decode_step, init_model, loss_fn, param_count, prefill
+    from repro_torch.models.lm import layer_kinds
+    from repro_torch.models.moe import capacity
+    from repro_torch.models.moe import recording as moe_recording
 
+    t0 = time.perf_counter()
     cfg = ARCHS[arch]
+    if depth is not None:
+        cfg = dataclasses.replace(cfg, repeats=depth // len(cfg.pattern), n_layers=depth)
+    phase = "lm_moe" if cfg.n_experts else "lm_decode"
     base = torch.cuda.memory_allocated()
     model, init_s = sync_time(lambda: init_model(cfg, seed=0, device=dev))
     param_bytes = torch.cuda.memory_allocated() - base
@@ -2769,7 +2899,7 @@ def lm_full(dev, arch: str, recorded: dict) -> dict:
         out = fn()
         got = common.launch_counts()
         if got != want:
-            fail(f"lm_decode {arch}: {what} launched {got}, expected {want}")
+            fail(f"{phase} {arch}: {what} launched {got}, expected {want}")
         for k in counts:
             counts[k] += got[k]
         return out
@@ -2777,13 +2907,18 @@ def lm_full(dev, arch: str, recorded: dict) -> dict:
     with torch.no_grad(), plain_versions_refused():
         torch.cuda.reset_peak_memory_stats()
         batch = dict(prompt, labels=toks[:, 1:])
-        loss, _ = counted(lambda: loss_fn(model, batch), per_pass, "loss_fn")
+        with moe_recording(model) as routed:
+            loss, _ = counted(lambda: loss_fn(model, batch), per_pass, "loss_fn")
+        loss_drops = sum(int(r.dropped) for r in routed)
         loss_ms = median_ms(lambda: loss_fn(model, batch), 3)
         loss_peak = torch.cuda.max_memory_allocated() - base
         prefill_ms = median_ms(lambda: prefill(model, prompt, max_len), 3)
         torch.cuda.reset_peak_memory_stats()
-        logits, caches = counted(lambda: prefill(model, prompt, max_len), per_pass, "prefill")
-        out, fed, events = [logits], [], []
+        prefill_calls: list = []
+        with recording(flash_ops, "flash_attention", prefill_calls, keep=1):
+            logits, caches = counted(lambda: prefill(model, prompt, max_len), per_pass,
+                                     "prefill")
+        out, fed, events, decode_routed = [logits], [], [], []
         calls = {"flash_attn": [], "ssm_scan": []}
         for i in range(LM_STEPS):
             token = logits.argmax(-1, keepdim=True)
@@ -2797,64 +2932,275 @@ def lm_full(dev, arch: str, recorded: dict) -> dict:
                                f"decode step {i}")
 
             a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            a.record()
-            if i < LM_STEPS - 1:
-                logits, caches = step()
-            else:  # the last step's kernel arguments, for decode_kernels_vs_plain
-                with recording(flash_ops, "flash_attention", calls["flash_attn"]), \
-                        recording(scan_ops, "ssm_scan", calls["ssm_scan"]):
+            with moe_recording(model) as routed:
+                a.record()
+                if i < LM_STEPS - 1:
                     logits, caches = step()
-            b.record()
+                else:  # the last step's kernel arguments, for decode_kernels_vs_plain
+                    with recording(flash_ops, "flash_attention", calls["flash_attn"]), \
+                            recording(scan_ops, "ssm_scan", calls["ssm_scan"]):
+                        logits, caches = step()
+                b.record()
+            decode_routed += routed
             events.append((a, b))
             out.append(logits)
         torch.cuda.synchronize()
         step_ms = [a.elapsed_time(b) for a, b in events]
         decode_peak = torch.cuda.max_memory_allocated() - base
+        decode_drops = sum(int(r.dropped) for r in decode_routed)
         kv = cache_bytes(caches)
         shapes = {}  # one call of each (Skv, window): gemma3-1b's local and global layers
         for args, kw in calls["flash_attn"]:
             shapes.setdefault((args[1].shape[1], kw["window"]), (args, kw))
         if shapes:
             recorded["flash_attn"][arch] = list(shapes.values())
+        if cfg.n_experts:
+            recorded["flash_attn_prefill"][arch] = prefill_calls
         if calls["ssm_scan"]:
             recorded["ssm_scan"][arch] = calls["ssm_scan"][:1]
         decoded = torch.stack(out, 1)  # (B, STEPS + 1, V): positions P - 1 .. P + STEPS - 1
-        seq = torch.cat([toks[:, :-1]] + fed, dim=1)
-        forward = model.unembed(model(seq)[:, LM_PROMPT - 1:])
-    finite = bool(torch.isfinite(decoded).all() and torch.isfinite(forward).all()
-                  and torch.isfinite(loss) and torch.isfinite(logits).all())
-    gap = float((decoded - forward).abs().max() / forward.abs().max())
+        if cfg.n_experts:
+            del caches
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            gate = moe_gate(model, toks[:, :-1], fed, max_len, decoded)
+            gate["peak_mem_over_base_bytes"] = torch.cuda.max_memory_allocated() - base
+            gap, finite = gate["gap"], gate.pop("finite")
+        else:
+            seq = torch.cat([toks[:, :-1]] + fed, dim=1)
+            forward = model.unembed(model(seq)[:, LM_PROMPT - 1:])
+            finite = bool(torch.isfinite(forward).all())
+            gap = float((decoded - forward).abs().max() / forward.abs().max())
+            gate = {}
+    finite = finite and bool(torch.isfinite(decoded).all() and torch.isfinite(loss)
+                             and torch.isfinite(logits).all())
     med = statistics.median(step_ms)
-    emit(phase="lm_decode", arch=arch, n_layers=cfg.n_layers, d_model=cfg.d_model,
-         vocab=cfg.vocab, params=param_count(model), param_bytes=param_bytes,
+    moe = {}
+    if cfg.n_experts:
+        T, n_moe = LM_BATCH * LM_PROMPT, layer_kinds(cfg).count("moe")
+        moe_cfg = model.layers[cfg.pattern.index("moe")].moe.cfg
+        cap = capacity(T, moe_cfg)
+        # what the weights, the loss's logits and prefill's dispatch buffer take
+        reckoning = dict(weights_bytes=4 * param_count(model),
+                         loss_logits_bytes=4 * T * cfg.vocab_padded,
+                         prefill_dispatch_bytes=4 * cfg.n_experts * cap * cfg.d_model)
+        moe = dict(experts=cfg.n_experts, top_k=cfg.moe_top_k,
+                   capacity_factor=cfg.capacity_factor, prefill_capacity=cap,
+                   decode_capacity=capacity(LM_BATCH, moe_cfg), reckoning=reckoning,
+                   dropped=dict(loss=f"{loss_drops}/{T * cfg.moe_top_k * n_moe}",
+                                decode=f"{decode_drops}/"
+                                       f"{LM_STEPS * LM_BATCH * cfg.moe_top_k * n_moe}"),
+                   decode_vs_forward_gate=gate, route_tolerance=MOE_ROUTE_TOL[arch])
+    emit(phase=phase, arch=arch, n_layers=cfg.n_layers, d_model=cfg.d_model,
+         vocab=cfg.vocab, params=param_count(model), param_bytes=param_bytes, base_bytes=base,
          init_seconds=init_s, batch=LM_BATCH, prompt=LM_PROMPT, steps=LM_STEPS,
          window=cfg.window, loss=float(loss), loss_ms=loss_ms, prefill_ms=prefill_ms,
          decode_ms_per_step_median=med, decode_ms_per_step_min=min(step_ms),
          decode_ms_per_step_max=max(step_ms), decode_tokens_per_s=LM_BATCH * 1e3 / med,
          cache_bytes=kv, peak_mem_over_base_bytes=dict(loss=loss_peak, decode=decode_peak),
          launches_per_pass={k: v for k, v in per_pass.items() if v}, launches=counts,
-         decode_vs_forward_rel=gap, tolerance=DECODE_VS_FORWARD_TOL[arch], finite=finite)
+         **moe, decode_vs_forward_rel=gap, tolerance=DECODE_VS_FORWARD_TOL[arch],
+         finite=finite, seconds=time.perf_counter() - t0)
     if not finite:
-        fail(f"lm_decode {arch}: a logit or the loss is not finite")
+        fail(f"{phase} {arch}: a logit or the loss is not finite")
     if gap > DECODE_VS_FORWARD_TOL[arch]:
-        fail(f"lm_decode {arch}: decode logits {gap} (relative) off the forward's, "
+        fail(f"{phase} {arch}: decode logits {gap} (relative) off the forward's, "
              f"tolerance {DECODE_VS_FORWARD_TOL[arch]}")
-    del model, caches, logits, decoded, forward
+    if cfg.n_experts:
+        if gate["route_perturbation"] > MOE_ROUTE_TOL[arch]:
+            fail(f"{phase} {arch}: the router's decode-vs-forward perturbation "
+                 f"{gate['route_perturbation']} past {MOE_ROUTE_TOL[arch]}")
+        if gate["dropped"]:
+            fail(f"{phase} {arch}: {gate['dropped']} assignments dropped at capacity_factor E / K")
+        if not gate["replayed"]:
+            fail(f"{phase} {arch}: decode did not take the forward's expert choices")
+        if gate["flip_tie_over_bound"] > 1.0 + FLIP_BOUND_SLACK:
+            fail(f"{phase} {arch}: a route decode would flip at a tie of "
+                 f"{gate['flip_tie_over_bound']} x twice its perturbation")
+    del model, logits, decoded
     torch.cuda.empty_cache()
     return counts
 
 
+@contextmanager
+def moe_capacity(model, factor: float):
+    """Every MoE layer of `model` at capacity_factor `factor` inside the block."""
+    from repro_torch.models.moe import MoE
+
+    moes = [m for m in model.modules() if isinstance(m, MoE)]
+    saved = [m.cfg for m in moes]
+    for m in moes:
+        m.cfg = m.cfg._replace(capacity_factor=factor)
+    try:
+        yield
+    finally:
+        for m, c in zip(moes, saved):
+            m.cfg = c
+
+
+def moe_gate(model, prompt: torch.Tensor, fed: list, max_len: int, greedy) -> dict:
+    """Phase lm_moe's decode-vs-forward gate, at capacity_factor = E / K on
+    both sides (nothing dropped): unembed(forward) over `prompt` and the
+    greedy tokens `fed`, with its expert choices recorded; then prefill of
+    `prompt` and a teacher-forced decode of `fed` with those choices
+    replayed (`moe_replay`), so that no near-tie which the bf16 cache moves
+    flips a route and every position compares (moe_replay_gap).  The
+    forward and prefill run one sequence at a time: with nothing dropped a
+    token's output does not depend on the batch's other tokens, and at this
+    capacity (a slot a token) one sequence's (E, T, D) dispatch buffer fits
+    beside llama4-maverick's weights where four do not; the caches are
+    joined for the batch's decode.  Also: how far these decode logits are
+    from the greedy run's (`greedy`, at the config's capacity factor), and
+    the drops (0 expected)."""
+    from repro_torch.models import decode_step, prefill
+    from repro_torch.models.moe import recording as moe_recording
+
+    cfg = model.cfg
+    B, P = prompt.shape
+    E, K = cfg.n_experts, cfg.moe_top_k
+    n = sum(layer.kind == "moe" for layer in model.layers)
+
+    def per_layer(recs: list, l: int, rows: int, dim: int):
+        """Layer l's (eidx, probs) of every call in `recs`, (rows, -1, K / E)
+        each, joined along `dim`."""
+        return tuple(torch.cat([t.view(rows, -1, t.shape[-1])
+                                for t in (getattr(r, f) for r in recs[l::n])], dim)
+                     for f in ("eidx", "probs"))
+
+    seq = torch.cat([prompt] + fed, dim=1)
+    with moe_capacity(model, E / K):
+        with moe_recording(model) as fwd:
+            forward = torch.cat([model.unembed(model(seq[b:b + 1])[:, P - 1:])
+                                 for b in range(B)])
+        fwd_routes = [per_layer(fwd, l, 1, 0) for l in range(n)]
+        replay = replay_order([e for e, _ in fwd_routes], P, per_sequence=True)
+        with moe_replay(replay), moe_recording(model) as dec:
+            parts = [prefill(model, {"tokens": prompt[b:b + 1]}, max_len) for b in range(B)]
+            out = [torch.cat([logits for logits, _ in parts])]
+            caches = [type(c)(torch.cat([p[1][i].k for p in parts]),
+                              torch.cat([p[1][i].v for p in parts]), c.length)
+                      for i, c in enumerate(parts[0][1])]
+            del parts
+            for token in fed:
+                logits, caches = decode_step(model, token, caches)
+                out.append(logits)
+        del caches
+    if len(dec) != len(replay):
+        fail(f"lm_moe: {len(dec)} MoE calls in prefill and decode, {len(replay)} replayed")
+    pre, steps = dec[:B * n], dec[B * n:]
+    dec_routes = [tuple(torch.cat(pair, 1) for pair in zip(per_layer(pre, l, 1, 0),
+                                                             per_layer(steps, l, B, 1)))
+                  for l in range(n)]
+    decoded = torch.stack(out, 1)
+    res = moe_replay_gap(decoded, forward, dec_routes, fwd_routes)
+    res.update(capacity_factor=E / K, moe_layers=n,
+               dropped=sum(int(r.dropped) for r in fwd + dec),
+               vs_greedy_run_rel=float((decoded - greedy).abs().max() / greedy.abs().max()),
+               finite=bool(torch.isfinite(decoded).all() and torch.isfinite(forward).all()))
+    return res
+
+
+def replay_order(fwd_eidx: list, prompt: int, per_sequence: bool) -> list:
+    """The forward's expert ids, one (B, L, K) a MoE layer in layer order,
+    in the order in which prefill of the first `prompt` positions (the
+    whole batch in one call, or with `per_sequence` one sequence a call) and
+    then one decode step a later position call the layers."""
+    B, L, K = fwd_eidx[0].shape
+    if per_sequence:
+        pre = [e[b, :prompt] for b in range(B) for e in fwd_eidx]
+    else:
+        pre = [e[:, :prompt].reshape(-1, K) for e in fwd_eidx]
+    return pre + [e[:, i] for i in range(prompt, L) for e in fwd_eidx]
+
+
+@contextmanager
+def moe_replay(routes: list):
+    """Inside the block every MoE layer call takes the next (T, K) expert
+    ids of `routes` (in call order) in place of its own top K; its gates are
+    its own router probabilities at those experts, renormalised as
+    `moe.route` does.  Where its own top K is the same, so are the bits."""
+    from repro_torch.models import moe
+
+    own, queue = moe.route, iter(routes)
+
+    def replayed(xt, router, top_k):
+        _, _, probs = own(xt, router, top_k)
+        eidx = next(queue).to(probs.device)
+        gates = probs.gather(1, eidx)
+        return gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9), eidx, probs
+
+    moe.route = replayed
+    try:
+        yield
+    finally:
+        moe.route = own
+
+
+def moe_replay_gap(decoded, forward, dec_routes, fwd_routes) -> dict:
+    """Decode against the forward of a model with MoE layers, the forward's
+    expert choices replayed in decode (`moe_replay`).  `decoded`, `forward`
+    (B, N, V): logits at the same N positions; `dec_routes`, `fwd_routes`:
+    one (eidx (B, L, K), probs (B, L, E)) a MoE layer in layer order over
+    positions 0 .. L - 1, from prefill and the decode steps, and from the
+    forward.  Returns the logits' gap over every position (`gap`, relative
+    to the largest forward logit) and `replayed`, whether decode's expert
+    ids are the forward's everywhere.  A (token, layer) where decode's own
+    top K set would differ from the forward's is a would-be flip: from
+    there on, unreplayed, the sequence would compute another function.  The
+    router's perturbation, max over experts of |p_decode - p_forward| over
+    the forward's K-th probability p_K, is read at each (token, layer) of a
+    sequence up to its first would-be flip (`route_perturbation`, the
+    reading MOE_ROUTE_TOL was derived on) and over all (`_all`).  At each
+    would-be flip, the forward's tie (p_K - p_{K+1}) / p_K (`flip_tie_max`)
+    is at most twice that (token, layer)'s perturbation, since two experts
+    cross only where each moved by half the gap between them
+    (`flip_tie_over_bound`, at most 1)."""
+    from repro_torch.core.lsh import topk_largest
+
+    B, L = fwd_routes[0][0].shape[:2]
+    pos = torch.arange(L, device=decoded.device)
+    rels, flips = [], []
+    for (_, dp), (fe, fp) in zip(dec_routes, fwd_routes):
+        K = fe.shape[-1]
+        top = fp.topk(K + 1, dim=-1).values
+        rels.append((dp - fp).abs().amax(-1) / top[..., K - 1])
+        own = topk_largest(dp, K)[1]
+        flips.append((own.sort(-1).values != fe.sort(-1).values).any(-1))
+    first = torch.where(torch.stack(flips).any(0), pos, L).amin(-1, keepdim=True)  # (B, 1)
+    seen = torch.zeros((B, L), dtype=torch.bool, device=decoded.device)
+    eps = tie_max = over = 0.0
+    for rel, flip, (fe, fp) in zip(rels, flips, fwd_routes):
+        K = fe.shape[-1]
+        eps = max(eps, float(rel[(pos < first) | ((pos == first) & ~seen)].max()))
+        seen |= flip
+        if bool(flip.any()):
+            top = fp.topk(K + 1, dim=-1).values
+            tie = (top[..., K - 1] - top[..., K]) / top[..., K - 1]
+            tie_max = max(tie_max, float(tie[flip].max()))
+            over = max(over, float((tie / (2 * rel))[flip].max()))
+    rel_gap = (decoded - forward).abs().amax(-1) / forward.abs().max()
+    n_flips = sum(int(f.sum()) for f in flips)
+    return dict(gap=float(rel_gap.max()), positions=rel_gap.numel(),
+                replayed=all(torch.equal(d[0], f[0]) for d, f in zip(dec_routes, fwd_routes)),
+                route_perturbation=eps,
+                route_perturbation_all=float(torch.stack(rels).max()),
+                first_would_flip_positions=first[:, 0].tolist(),
+                token_layers_would_flip=f"{n_flips}/{sum(f.numel() for f in flips)}",
+                flip_tie_max=tie_max, flip_tie_over_bound=over)
+
+
 def run_lm_decode(dev) -> dict:
-    """Phase lm_decode: the smoke models on the card against the CPU, then
-    each full-width model (LM_FULL), one at a time, freed before the next."""
+    """Phases lm_decode and lm_moe: the smoke models on the card against the
+    CPU, then each full-width model of LM_FULL and LM_MOE at its depth,
+    one at a time, freed before the next."""
     from repro_torch.kernels import common
 
     lm_smoke_vs_cpu(dev)
     counts = {k: 0 for k in common.LAUNCHES}
-    recorded: dict = {"flash_attn": {}, "ssm_scan": {}}
+    recorded: dict = {"flash_attn": {}, "ssm_scan": {}, "flash_attn_prefill": {}}
     launches = {}
-    for arch in LM_FULL:
-        launches[arch] = lm_full(dev, arch, recorded)
+    for arch, depth in list(LM_FULL.items()) + list(LM_MOE.items()):
+        launches[arch] = lm_full(dev, arch, recorded, depth)
         for k, v in launches[arch].items():
             counts[k] += v
     return dict(counts=counts, recorded=recorded, launches=launches)
@@ -2865,8 +3211,20 @@ def decode_kernels_vs_plain(kernels: list, lm: dict) -> None:
     shapes (the arguments of each model's last decode step: one call of
     each key count and window), timed beside their bounds (and SDPA for
     flash_attn); each record carries its kernel's launches in that model's
-    run of the phase (loss_fn, prefill, every decode step)."""
+    run of the phase (loss_fn, prefill, every decode step).  flash_attn
+    also at phase lm_moe's prefill shapes (each model's first prefill
+    call: S 640 at its GQA group), under `prefill`."""
     recs = {rec["name"]: rec for rec in kernels}
+    prefill = {}
+    for arch, calls in lm["recorded"]["flash_attn_prefill"].items():
+        for (q, k, v), kw in calls:
+            tag = (f"{arch} prefill, B {q.shape[0]}, S {q.shape[1]}, "
+                   f"Hq {q.shape[2]} / Hkv {k.shape[2]}, dh {q.shape[3]}")
+            prefill[tag] = dict(flash_record(q, k, v, dict(kw)),
+                                launches=lm["launches"][arch]["flash_attn"])
+    if len(prefill) != len(LM_MOE):
+        fail(f"lm_moe: {len(prefill)} prefill flash_attn calls recorded, {len(LM_MOE)} expected")
+    recs["flash_attn"]["prefill"] = prefill
     for kernel in ("flash_attn", "ssm_scan"):
         decode = {}
         for arch, calls in lm["recorded"][kernel].items():
@@ -2880,7 +3238,8 @@ def decode_kernels_vs_plain(kernels: list, lm: dict) -> None:
         if not decode:
             fail(f"lm_decode: no {kernel} call recorded at a decode step")
         recs[kernel]["decode"] = decode
-    emit(phase="kernels_vs_plain", kernels=["flash_attn (decode)", "ssm_scan (decode)"],
+    emit(phase="kernels_vs_plain",
+         kernels=["flash_attn (decode, lm_moe prefill)", "ssm_scan (decode)"],
          tolerance=dict(flash_attn=FLASH_TOL, ssm_scan=SCAN_TOL), ok=True)
 
 

@@ -39,9 +39,10 @@ def init_model(cfg, seed: int = 0, device=None) -> LM:
 
 def loss_fn(model: LM, batch: dict):
     """batch: {"tokens" (B, S), "labels" (B, S)} and optionally "mask"
-    (B, S) -> (scalar loss, {"ce", "aux"}).  Tokens sit at positions
-    0 .. S - 1: the reference's per-token "positions" (its VLM's) are not
-    ported and raise."""
+    (B, S) -> (scalar loss ce + aux_loss_weight * aux, {"ce", "aux"}), aux
+    the MoE layers' load-balancing loss (0 without one).  Tokens sit at
+    positions 0 .. S - 1: the reference's per-token "positions" (its VLM's)
+    are not ported and raise."""
     _decoder_only(model.cfg)
     if "positions" in batch:
         raise NotImplementedError("per-token positions are not ported yet (ROADMAP A11)")

@@ -22,7 +22,7 @@ def layer_kinds(cfg) -> list[str]:
 
 def init_caches(cfg, batch: int, max_len: int, device=None) -> list:
     """Empty caches of every layer, in layer order: a KVCache of `max_len`
-    bf16 slots an attention layer, an SSMCache a Mamba-1 layer."""
+    bf16 slots an attention or MoE layer, an SSMCache a Mamba-1 layer."""
     return [init_block_cache(kind, cfg, batch, max_len, device=device)
             for kind in layer_kinds(cfg)]
 
@@ -84,24 +84,32 @@ class LM(nn.Module):
             logits = cap * torch.tanh(logits / cap)
         return logits
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens: (B, S) int, at positions 0 .. S - 1 -> final hidden
-        states (B, S, D)."""
+    def hidden(self, tokens: torch.Tensor):
+        """tokens: (B, S) int, at positions 0 .. S - 1 -> (final hidden
+        states (B, S, D), the layers' auxiliary losses summed: the MoE
+        layers', 0 without one), the reference's `forward`."""
         x = self.embed_tokens(tokens)
         B, S = x.shape[:2]
         positions = torch.arange(S, device=x.device).expand(B, S)
+        aux = 0.0  # a float until a MoE layer adds its tensor
         for layer in self.layers:
-            x = layer(x, positions)
-        return self.final_norm(x)
+            x, layer_aux = layer(x, positions)
+            aux = aux + layer_aux
+        return self.final_norm(x), torch.as_tensor(aux, dtype=torch.float32, device=x.device)
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        """tokens: (B, S) int, at positions 0 .. S - 1 -> final hidden
+        states (B, S, D)."""
+        return self.hidden(tokens)[0]
 
     def loss(self, tokens: torch.Tensor, labels: torch.Tensor, mask=None):
-        """The mean cross-entropy of `labels` under the logits of `tokens`
-        (over the tokens where `mask` is set).  The ported block kinds have
-        no auxiliary loss, so it is the reference's `ce + aux_loss_weight *
-        aux` at aux 0.  Returns (loss, {"ce": ce, "aux": 0})."""
-        logits = self.unembed(self(tokens))
-        ce = softmax_cross_entropy(logits, labels, mask)
-        return ce, {"ce": ce, "aux": torch.zeros((), device=ce.device)}
+        """The reference's `ce + aux_loss_weight * aux`: the mean
+        cross-entropy of `labels` under the logits of `tokens` (over the
+        tokens where `mask` is set), and the MoE layers' load-balancing loss
+        (0 in a model without one).  Returns (loss, {"ce": ce, "aux": aux})."""
+        hidden, aux = self.hidden(tokens)
+        ce = softmax_cross_entropy(self.unembed(hidden), labels, mask)
+        return ce + self.cfg.aux_loss_weight * aux, {"ce": ce, "aux": aux}
 
     def prefill(self, tokens: torch.Tensor, max_len: int):
         """Run the prompt (B, S) at positions 0 .. S - 1 and build every

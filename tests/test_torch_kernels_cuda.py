@@ -846,6 +846,8 @@ def test_smoke_model_on_card_matches_cpu(dev, arch):
     (4, 512, 4, 1, 256, 512, 0.0),     # gemma3-1b's local layer, a full window
     (3, 40, 8, 2, 256, 16, 50.0),      # window + softcap (gemma2's smoke)
     (2, 1, 4, 1, 64, 0, 30.0),         # the first token
+    (4, 704, 64, 4, 128, 0, 0.0),      # qwen3-moe's last decode step, G 16
+    (4, 704, 40, 8, 128, 0, 0.0),      # llama4-maverick's, G 5
 ])
 def test_flash_attn_kernel_at_one_query(dev, B, Skv, Hq, Hkv, dh, window, softcap):
     """Decode's shape: one query at key position Skv - 1 (the aligned ends)
@@ -861,7 +863,8 @@ def test_flash_attn_kernel_at_one_query(dev, B, Skv, Hq, Hkv, dh, window, softca
     torch.testing.assert_close(out, flash_attention_ref(q, k, v, **kw), rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("arch", ["qwen2-7b", "gemma3-1b", "gemma2-9b", "falcon-mamba-7b"])
+@pytest.mark.parametrize("arch", ["qwen2-7b", "gemma3-1b", "gemma2-9b", "falcon-mamba-7b",
+                                  "qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b"])
 def test_smoke_decode_on_card_matches_cpu(dev, arch):
     """The same smoke-size weights on both devices, with the CPU tests'
     tolerances (tests/test_torch_decode.py): the loss and prefill of 24

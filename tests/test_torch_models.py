@@ -31,7 +31,8 @@ from repro_torch.models.ssm import Mamba1, Mamba1Config
 torch.set_num_threads(2)
 
 TOL = dict(rtol=1e-4, atol=1e-5)
-PORTED = ("gemma-2b", "falcon-mamba-7b", "gemma2-9b", "qwen2-7b", "gemma3-1b")
+PORTED = ("gemma-2b", "falcon-mamba-7b", "gemma2-9b", "qwen2-7b", "gemma3-1b",
+          "qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b")
 
 
 def _set(module: torch.nn.Module, params: dict) -> None:
@@ -125,7 +126,7 @@ def test_config_fields_and_smoke_equal_reference(arch, smoke):
 
 def test_unported_kinds_raise():
     cfg = ARCHS["gemma-2b"].smoke()
-    for kind, item in (("moe", "MoE"), ("m2", "Mamba-2"), ("shared_attn", "zamba")):
+    for kind, item in (("m2", "Mamba-2"), ("shared_attn", "zamba")):
         with pytest.raises(NotImplementedError, match=item):
             Block(kind, cfg)
     with pytest.raises(ValueError, match="pattern"):
@@ -199,3 +200,41 @@ def test_caches_from_reference_follows_the_layer_order():
     assert [float(c.k[0, 0, 0, 0]) for c in got] == list(range(cfg.n_layers))
     assert [c.length for c in got] == [5 + i // n_pat for i in range(cfg.n_layers - 1)] + [9]
     assert all(c.k.dtype == torch.bfloat16 for c in got)
+
+
+def test_attn_kinds_are_the_references_minus_the_unported():
+    from repro.models.blocks import ATTN_KINDS as REF_ATTN_KINDS
+    from repro_torch.models.blocks import ATTN_KINDS, UNPORTED
+
+    assert ATTN_KINDS == tuple(k for k in REF_ATTN_KINDS if k not in UNPORTED)
+    assert "moe" not in UNPORTED
+    block = Block("moe", ARCHS["qwen3-moe-235b-a22b"].smoke())
+    assert hasattr(block, "moe") and not hasattr(block, "mlp")
+
+
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b"])
+def test_params_from_reference_carries_the_moe_tensors(arch):
+    """Every MoE tensor of every MoE layer, the shared expert's too, from
+    the stacked pattern slot at its repeat; a key the port does not read
+    inside the MoE subtree is refused."""
+    ref_cfg, cfg = REF_ARCHS[arch].smoke(), ARCHS[arch].smoke()
+    params = jax.tree.map(np.asarray, ref_api.init_model(jax.random.key(0), ref_cfg))
+    model = params_from_reference(cfg, params, "cpu")
+    n_pat, seen = len(cfg.pattern), 0
+    for i, layer in enumerate(model.layers):
+        if layer.kind != "moe":
+            continue
+        ref = params["pattern"][f"slot{i % n_pat}"]["moe"]
+        names = ["router", "e_gate", "e_up", "e_down"]
+        if cfg.shared_expert_ff:
+            names += [f"shared.{w}" for w in ("w_gate", "w_up", "w_down")]
+        for name in names:
+            want = ref["shared"][name[7:]] if name.startswith("shared.") else ref[name]
+            got = layer.moe.get_parameter(name)
+            assert np.array_equal(got.numpy(), want[i // n_pat]), name
+            seen += 1
+    assert seen == len(names) * cfg.repeats
+    slot = next(j for j, kind in enumerate(cfg.pattern) if kind == "moe")
+    params["pattern"][f"slot{slot}"]["moe"]["e_bias"] = np.zeros((cfg.repeats, 8), np.float32)
+    with pytest.raises(KeyError, match="no place"):
+        params_from_reference(cfg, params, "cpu")

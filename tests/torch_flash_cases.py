@@ -10,7 +10,9 @@ not a multiple of the MMA's k of 8 (100, 200), lengths off its 32-key,
 64-row and 128-row tiles, shapes that take its 128-row tiles (where they
 give every SM a block) beside the rest, which take 64-row tiles, Sq > Skv
 under the causal mask (the leading rows see no key and are 0), GQA groups
-of 1, 2 and 8 heads packed into a row tile, a window narrower than a key
+of 1, 2, 5 (not a power of two), 8 and 16 heads packed into a row tile
+(qwen3-moe's G 16 and llama4-maverick's G 5 also at their head counts,
+causal and at one query), a window narrower than a key
 tile, the softcap at scores of magnitude ~100, and inputs scaled by 30: q (scores of ~30, so that most exps of a row
 flush to 0) or v (a large P V).  q, k and v all scaled by 30 give scores of
 ~900, where the float32 plain version itself is 0.02 off the float64 result
@@ -34,7 +36,13 @@ FLASH_CASES = {
     **{f"dh {dh}": (2, 77, 77, 4, 2, dh, True, 0, 0.0, 1, 1) for dh in (8, 64, 100, 128, 200, 256)},
     "Sq, Skv off the tiles": (2, 97, 131, 4, 1, 64, True, 0, 0.0, 1, 1),
     "Sq > Skv": (2, 150, 70, 4, 2, 64, True, 0, 0.0, 1, 1),
-    **{f"group {G}": (1, 65, 65, 2 * G, 2, 128, True, 0, 0.0, 1, 1) for G in (1, 2, 8)},
+    **{f"group {G}": (1, 65, 65, 2 * G, 2, 128, True, 0, 0.0, 1, 1) for G in (1, 2, 5, 8, 16)},
+    # qwen3-moe's heads (64 over 4) and llama4-maverick's (40 over 8) at one
+    # query over a longer cache (decode), and at their prefill's causal rows
+    "group 16, Sq 1": (4, 1, 300, 64, 4, 128, True, 0, 0.0, 1, 1),
+    "group 5, Sq 1": (4, 1, 300, 40, 8, 128, True, 0, 0.0, 1, 1),
+    "group 16, causal": (1, 140, 140, 64, 4, 128, True, 0, 0.0, 1, 1),
+    "group 5, causal": (1, 140, 140, 40, 8, 128, True, 0, 0.0, 1, 1),
     "window 5": (2, 100, 100, 4, 2, 128, True, 5, 0.0, 1, 1),
     "softcap, scores ~100": (2, 70, 70, 4, 2, 256, True, 0, 50.0, 10, 1),
     "128-row tiles": (4, 300, 300, 16, 8, 256, True, 0, 0.0, 1, 1),
