@@ -10,10 +10,11 @@ from .gemma_2b import CONFIG as gemma_2b
 from .llama4_maverick_400b_a17b import CONFIG as llama4_maverick_400b_a17b
 from .qwen2_7b import CONFIG as qwen2_7b
 from .qwen3_moe_235b_a22b import CONFIG as qwen3_moe_235b_a22b
+from .zamba2_7b import CONFIG as zamba2_7b
 
 ARCHS: dict[str, ModelConfig] = {
     c.name: c for c in [gemma_2b, gemma3_1b, gemma2_9b, qwen2_7b, falcon_mamba_7b,
-                        qwen3_moe_235b_a22b, llama4_maverick_400b_a17b]
+                        qwen3_moe_235b_a22b, llama4_maverick_400b_a17b, zamba2_7b]
 }
 
 

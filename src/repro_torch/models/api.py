@@ -1,6 +1,8 @@
 """Model entry points (port of `repro.models.api`): init, loss, prefill,
-cache init and one-token decode of the decoder LM.  Encoder-decoder and
-VLM configurations raise (ROADMAP A11).  Each runs on the model's device;
+cache init and one-token decode of the decoder LM -- dense, MoE, Mamba-1
+and the hybrid family (zamba2-7b: Mamba-2 layers and one shared attention
+block applied at every repeat, with a KV cache a place).  Encoder-decoder
+and VLM configurations raise (ROADMAP A11).  Each runs on the model's device;
 `init_model` and `init_caches` take theirs, CUDA by default (raising
 without it)."""
 from __future__ import annotations
@@ -62,7 +64,9 @@ def prefill(model: LM, batch: dict, max_len: int):
 
 def init_caches(cfg, batch: int, max_len: int, device=None) -> list:
     """Empty caches of every layer on `device` (None = CUDA; raises without
-    it): bf16 KV caches of `max_len` slots, float32 Mamba-1 state."""
+    it): bf16 KV caches of `max_len` slots (one a place of zamba's shared
+    block), float32 Mamba-1 state (B, d_inner, N) and Mamba-2 state (B, H,
+    N, head_dim)."""
     _decoder_only(cfg)
     return lm.init_caches(cfg, batch, max_len, device=resolve_device(device))
 
@@ -76,4 +80,6 @@ def decode_step(model: LM, token, caches: list):
 
 
 def param_count(model: LM) -> int:
+    """The parameters, each tensor once (zamba's shared block once, not a
+    place), as the reference's `param_count`."""
     return sum(p.numel() for p in model.parameters())

@@ -1,8 +1,10 @@
 """Layer blocks (port of `repro.models.blocks`): the kinds attn / global /
-local / dense (attention + MLP), moe (attention + the MoE FFN) and m1
-(Mamba-1), each in the reference's three modes -- the full-sequence
-forward, prefill (which also builds the layer's cache) and one-token decode
-against it.  The reference's other kinds are not ported yet and raise."""
+local / dense (attention + MLP), moe (attention + the MoE FFN), m1 / m2
+(Mamba-1 / Mamba-2) and shared_attn (zamba's shared transformer block: an
+attention + MLP layer whose one set of weights the LM applies at every
+repeat), each in the reference's three modes -- the full-sequence forward,
+prefill (which also builds the layer's cache) and one-token decode against
+it."""
 from __future__ import annotations
 
 import torch
@@ -12,14 +14,11 @@ from .attention import Attention, AttnConfig, init_cache
 from .common import layer_norm, rms_norm
 from .ffn import MLP
 from .moe import MoE, MoEConfig
-from .ssm import Mamba1, Mamba1Config, init_mamba1_cache
+from .ssm import (Mamba1, Mamba1Config, Mamba2, Mamba2Config, init_mamba1_cache,
+                  init_mamba2_cache)
 
-ATTN_KINDS = ("attn", "global", "local", "dense", "moe")
-# block kinds of the reference that the port does not run yet
-UNPORTED = {
-    "m2": "Mamba-2 (ROADMAP A11)",
-    "shared_attn": "zamba's shared attention block (ROADMAP A11)",
-}
+ATTN_KINDS = ("attn", "global", "local", "dense", "moe", "shared_attn")
+SSM_KINDS = ("m1", "m2")
 
 
 def attn_cfg_for(cfg, kind: str) -> AttnConfig:
@@ -52,6 +51,13 @@ def m1_cfg_for(cfg) -> Mamba1Config:
     )
 
 
+def m2_cfg_for(cfg) -> Mamba2Config:
+    return Mamba2Config(
+        d_model=cfg.d_model, d_inner=cfg.ssm_d_inner, d_state=cfg.ssm_state,
+        head_dim=cfg.ssm_head_dim, d_conv=cfg.ssm_conv,
+    )
+
+
 class Block(nn.Module):
     """One layer.  Norm parameters are named as in the reference
     ({ln1, ln2, ln1p, ln2p}_{scale, bias}); the attention, MLP, MoE and SSM
@@ -59,8 +65,6 @@ class Block(nn.Module):
 
     def __init__(self, kind: str, cfg, device=None):
         super().__init__()
-        if kind in UNPORTED:
-            raise NotImplementedError(f"block kind {kind!r}: {UNPORTED[kind]} is not ported yet")
         if cfg.attn_bf16_probs or cfg.ssm_bf16_acts:
             raise NotImplementedError("the bf16 activation knobs are not ported (ROADMAP A11)")
         self.kind = kind
@@ -76,6 +80,9 @@ class Block(nn.Module):
         elif kind == "m1":
             norms = ["ln1"]
             self.ssm = Mamba1(m1_cfg_for(cfg), device=device)
+        elif kind == "m2":
+            norms = ["ln1"]
+            self.ssm = Mamba2(m2_cfg_for(cfg), cfg.ssm_chunk, device=device)
         else:
             raise ValueError(f"unknown block kind {kind!r}")
         self.norms = tuple(norms)
@@ -106,7 +113,7 @@ class Block(nn.Module):
         maps the normed x to (out, cache).  Returns (x, cache, aux): the MoE
         FFN's auxiliary loss, 0 for every other kind."""
         h, cache = mix(self._norm(x, "ln1"))
-        if self.kind == "m1":
+        if self.kind in SSM_KINDS:
             return x + h, cache, 0.0
         if self.cfg.post_norms:
             h = self._norm(h, "ln1p")
@@ -122,7 +129,7 @@ class Block(nn.Module):
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor):
         """Returns (x, aux)."""
-        if self.kind == "m1":
+        if self.kind in SSM_KINDS:
             x, _, aux = self._residual(x, lambda h: (self.ssm(h), None))
         else:
             x, _, aux = self._residual(x, lambda h: (self.attn(h, positions), None))
@@ -132,7 +139,7 @@ class Block(nn.Module):
         """The forward, and the layer's cache (a KVCache of `max_len` slots,
         or an SSMCache).  Returns (x, cache); the aux is dropped, as the
         reference drops it."""
-        if self.kind == "m1":
+        if self.kind in SSM_KINDS:
             return self._residual(x, self.ssm.prefill)[:2]
         return self._residual(x, lambda h: self.attn.prefill(h, positions, max_len))[:2]
 
@@ -140,7 +147,7 @@ class Block(nn.Module):
         """One token, x (B, 1, D), against the layer's cache; `position` (B, 1)
         holds the cache's length (an attention layer's RoPE reads it).
         Returns (x, the new cache)."""
-        if self.kind == "m1":
+        if self.kind in SSM_KINDS:
             return self._residual(x, lambda h: self.ssm.decode(h, cache))[:2]
         return self._residual(x, lambda h: self.attn.decode(h, cache, position))[:2]
 
@@ -148,10 +155,10 @@ class Block(nn.Module):
 def init_block_cache(kind: str, cfg, batch: int, max_len: int, device=None):
     """An empty cache of a layer of `kind` (port of
     `repro.models.blocks.init_block_cache`)."""
-    if kind in UNPORTED:
-        raise NotImplementedError(f"block kind {kind!r}: {UNPORTED[kind]} is not ported yet")
     if kind in ATTN_KINDS:
         return init_cache(attn_cfg_for(cfg, kind), batch, max_len, device=device)
     if kind == "m1":
         return init_mamba1_cache(m1_cfg_for(cfg), batch, device=device)
+    if kind == "m2":
+        return init_mamba2_cache(m2_cfg_for(cfg), batch, device=device)
     raise ValueError(f"unknown block kind {kind!r}")

@@ -43,9 +43,11 @@ def params_from_reference(cfg, params_np, device=None) -> LM:
     leading axis = repeats) are unstacked into layer r * len(pattern) + j,
     the tail blocks (`tailp/tail{j}`) follow, `embed/embedding`,
     `final_norm/fn_*` and the untied `head/lm_head` map to the same names.
-    Raises when a port parameter is missing from the tree, a shape differs,
-    or the tree has a top-level key the port does not read (such as
-    zamba's `shared`)."""
+    zamba's one shared block (`shared`) fills the LM's `shared`, read only
+    for a config whose pattern has a `shared_attn` slot; that slot's
+    `pattern/slot{j}` is empty.  Raises when a port parameter is missing
+    from the tree, a shape differs, or the tree has a top-level key the
+    port does not read (such as `shared` for any other config)."""
     model = LM(cfg, device=resolve_device(device))
     todo = dict(model.named_parameters())
 
@@ -60,6 +62,8 @@ def params_from_reference(cfg, params_np, device=None) -> LM:
             t.copy_(torch.from_numpy(np.array(a)))
 
     read = {"embed", "final_norm", "pattern", "tailp", "head"}
+    if model.shared is not None:
+        read.add("shared")
     extra = sorted(set(params_np) - read)
     if extra:
         raise KeyError(f"reference tree keys the port does not read: {extra}")
@@ -68,6 +72,9 @@ def params_from_reference(cfg, params_np, device=None) -> LM:
         put(key, arr)
     for key, arr in params_np["final_norm"].items():
         put(key, arr)
+    if model.shared is not None:
+        for path, arr in _flatten(params_np["shared"], "shared."):
+            put(path, arr)
     for i, (tree, slot, r) in enumerate(_layer_sources(cfg)):
         for path, arr in _flatten(params_np["tailp" if tree == "tail" else tree][slot]):
             put(f"layers.{i}.{path}", arr if r is None else np.asarray(arr)[r])
@@ -81,7 +88,8 @@ def caches_from_reference(cfg, caches_np, device=None) -> list:
     repeats}, "tail": {"tail{j}": ...}}, each a KVCache (k, v, length) or
     an SSMCache (conv_tail, state, length), as numpy arrays, e.g.
     `jax.tree.map(np.asarray, caches)`) as the port's list, one a layer in
-    layer order, on `device` (None = CUDA; raises without it).  K and V
+    layer order (zamba's shared block: its KV cache of repeat r at each
+    place r), on `device` (None = CUDA; raises without it).  K and V
     stay bf16 (their values are bf16 already), the lengths become ints."""
     dev = resolve_device(device)
 

@@ -6,7 +6,13 @@ The reference scans the repeated layer pattern over stacked parameters and
 stacks its caches alike ({"pattern": {"slot{j}": ...}, "tail": ...}); the
 port holds the layers as a flat `ModuleList` in the order they run, and
 their caches as a list in the same order: repeat r, pattern slot j is layer
-r * len(pattern) + j, then the tail blocks."""
+r * len(pattern) + j, then the tail blocks.
+
+zamba's `shared_attn` pattern slot is one block applied at every repeat, as
+the reference's one `params["shared"]`: the LM registers it once, as
+`shared`, and each of its places in `layers` is a `SharedPlace` that calls
+it, so every place runs the same tensors while each keeps its own KV cache
+in the list."""
 from __future__ import annotations
 
 import torch
@@ -22,14 +28,44 @@ def layer_kinds(cfg) -> list[str]:
 
 def init_caches(cfg, batch: int, max_len: int, device=None) -> list:
     """Empty caches of every layer, in layer order: a KVCache of `max_len`
-    bf16 slots an attention or MoE layer, an SSMCache a Mamba-1 layer."""
+    bf16 slots an attention, MoE or shared-attention layer (one a place of
+    the shared block), an SSMCache a Mamba-1 or Mamba-2 layer."""
     return [init_block_cache(kind, cfg, batch, max_len, device=device)
             for kind in layer_kinds(cfg)]
 
 
+class SharedPlace(nn.Module):
+    """A place of the LM's shared block in the layer order.  It has no
+    parameters of its own: the block is held in a tuple, so that it is not
+    registered again here and `parameters()` and `state_dict()` hold its
+    tensors once, under the LM's `shared`."""
+
+    def __init__(self, block: Block):
+        super().__init__()
+        self._shared = (block,)
+        self.kind = block.kind
+
+    @property
+    def block(self) -> Block:
+        return self._shared[0]
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        """Nothing: the LM resets its shared block once."""
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor):
+        return self.block(x, positions)
+
+    def prefill(self, x: torch.Tensor, positions: torch.Tensor, max_len: int):
+        return self.block.prefill(x, positions, max_len)
+
+    def decode(self, x: torch.Tensor, cache, position: torch.Tensor | None):
+        return self.block.decode(x, cache, position)
+
+
 class LM(nn.Module):
     """Parameters: `embedding` (vocab_padded, D), `lm_head` (D, vocab_padded)
-    where the embeddings are not tied, `layers`, and the final norm
+    where the embeddings are not tied, `layers`, zamba's `shared` block
+    where the pattern has a `shared_attn` slot, and the final norm
     `fn_scale` (+ `fn_bias` for layer norms).  Built with uninitialised
     storage on `device`; `reset_parameters` fills it (see `api.init_model`)."""
 
@@ -44,7 +80,12 @@ class LM(nn.Module):
         self.lm_head = (None if cfg.tie_embeddings
                         else nn.Parameter(torch.empty((cfg.d_model, cfg.vocab_padded),
                                                       device=device)))
-        self.layers = nn.ModuleList(Block(kind, cfg, device=device) for kind in layer_kinds(cfg))
+        self.shared = (Block("shared_attn", cfg, device=device)
+                       if "shared_attn" in cfg.pattern else None)
+        n_pat = len(cfg.pattern) * cfg.repeats  # the tail's blocks are its own
+        self.layers = nn.ModuleList(
+            SharedPlace(self.shared) if kind == "shared_attn" and i < n_pat
+            else Block(kind, cfg, device=device) for i, kind in enumerate(layer_kinds(cfg)))
         self.attends = any(kind in ATTN_KINDS for kind in layer_kinds(cfg))
         self.fn_scale = nn.Parameter(torch.empty(cfg.d_model, device=device))
         self.fn_bias = (None if cfg.norm == "rms"
@@ -63,6 +104,8 @@ class LM(nn.Module):
             dense_init_(self.lm_head, generator)
         for layer in self.layers:
             layer.reset_parameters(generator)
+        if self.shared is not None:
+            self.shared.reset_parameters(generator)
 
     def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
         x = self.embedding[tokens]

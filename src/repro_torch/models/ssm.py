@@ -1,5 +1,6 @@
-"""State-space blocks (port of `repro.models.ssm`: Mamba-1, its forward,
-prefill and one-token decode with the conv tail and scan state cached).
+"""State-space blocks (port of `repro.models.ssm`: Mamba-1 and Mamba-2,
+each with its forward, prefill and one-token decode with the conv tail and
+state cached).
 
 The input projection, the depthwise causal conv, the dt/B/C projections,
 the `+ x D` skip and the `silu(z)` gate are plain torch; the selective scan
@@ -8,7 +9,13 @@ tensors, its plain version on CPU tensors.  It computes what the
 reference's `_mamba1_fused` and `_mamba1_scan` paths both compute, on the
 (B, L, d_inner) layout the projections produce; prefill and decode carry
 the state through it as h0 and h_fin, decode as one launch at L = 1.
-Mamba-2 is not ported yet."""
+
+Mamba-2 (SSD) is plain torch throughout, as the reference computes it in
+jnp outside any Pallas kernel: the chunked form -- the intra-chunk term as
+masked matmuls over `_segsum`'s decays, the chunk-final states, a
+recurrence over the chunks, the inter-chunk term -- in the reference's
+order of operations.  Decode is the same function at L = 1 (one chunk of
+one step)."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -18,7 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.ssm_scan import ops as scan_ops
-from .common import dense_init_
+from .common import dense_init_, rms_norm
 
 
 class Mamba1Config(NamedTuple):
@@ -29,10 +36,24 @@ class Mamba1Config(NamedTuple):
     d_conv: int = 4
 
 
+class Mamba2Config(NamedTuple):
+    d_model: int
+    d_inner: int
+    d_state: int
+    head_dim: int = 64
+    d_conv: int = 4
+
+    @property
+    def n_heads(self) -> int:
+        return self.d_inner // self.head_dim
+
+
 class SSMCache(NamedTuple):
-    """A Mamba-1 layer's decode state: the conv's last k - 1 inputs
-    (B, k - 1, d_inner), the scan state (B, d_inner, N) float32, and the
-    tokens seen (a Python int)."""
+    """An SSM layer's decode state: the conv's last k - 1 inputs
+    (B, k - 1, C), the state in float32, and the tokens seen (a Python
+    int).  Mamba-1: C = d_inner, state (B, d_inner, N); Mamba-2: C =
+    d_inner + 2 N (x, B and C go through the conv), state (B, H, N,
+    head_dim)."""
     conv_tail: torch.Tensor
     state: torch.Tensor
     length: int
@@ -103,6 +124,109 @@ class Mamba1(nn.Module):
     def prefill(self, x: torch.Tensor):
         """The forward over a prompt and the cache after it."""
         return self.decode(x, init_mamba1_cache(self.cfg, x.shape[0], device=x.device))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """x: (B, L, D) -> (B, L, D)."""
+        return self.prefill(x)[0]
+
+
+def init_mamba2_cache(cfg: Mamba2Config, batch: int, device=None) -> SSMCache:
+    return SSMCache(
+        torch.zeros((batch, cfg.d_conv - 1, cfg.d_inner + 2 * cfg.d_state), dtype=torch.float32,
+                    device=device),
+        torch.zeros((batch, cfg.n_heads, cfg.d_state, cfg.head_dim), dtype=torch.float32,
+                    device=device), 0)
+
+
+def segsum(dA: torch.Tensor) -> torch.Tensor:
+    """dA (..., c) -> (..., c, c): seg[t, j] = sum_{i = j+1 .. t} dA_i for
+    j <= t, -inf above the diagonal.  As the reference: a difference of
+    cumulative sums, cs[t] - cs[j]."""
+    c = dA.shape[-1]
+    cs = torch.cumsum(dA, dim=-1)
+    seg = cs[..., :, None] - cs[..., None, :]
+    mask = torch.ones((c, c), dtype=torch.bool, device=dA.device).tril()
+    return seg.masked_fill(~mask, -torch.inf)
+
+
+class Mamba2(nn.Module):
+    """Parameters as the reference names them: in_proj (D, 2 Di + 2 N + H),
+    conv_w (k, Di + 2 N), conv_b, dt_bias_h, A_log_h, D_h (H,), norm_scale
+    (Di,), out_proj (Di, D).  `chunk` is the SSD's chunk length over a
+    sequence (the config's `ssm_chunk`)."""
+
+    def __init__(self, cfg: Mamba2Config, chunk: int, device=None):
+        super().__init__()
+        self.cfg, self.chunk = cfg, chunk
+        D, Di, N, H = cfg.d_model, cfg.d_inner, cfg.d_state, cfg.n_heads
+        shapes = {"in_proj": (D, 2 * Di + 2 * N + H), "conv_w": (cfg.d_conv, Di + 2 * N),
+                  "conv_b": (Di + 2 * N,), "dt_bias_h": (H,), "A_log_h": (H,), "D_h": (H,),
+                  "norm_scale": (Di,), "out_proj": (Di, D)}
+        for name, shape in shapes.items():
+            setattr(self, name, nn.Parameter(torch.empty(shape, device=device)))
+
+    def reset_parameters(self, generator: torch.Generator) -> None:
+        for name in ("in_proj", "conv_w", "out_proj"):
+            dense_init_(getattr(self, name), generator)
+        with torch.no_grad():
+            for name in ("conv_b", "dt_bias_h", "A_log_h", "norm_scale"):
+                getattr(self, name).zero_()
+            self.D_h.fill_(1.0)
+
+    def decode(self, x: torch.Tensor, cache: SSMCache):
+        """x (B, L, D) after `cache` -> (out (B, L, D), the cache after x),
+        in chunks of min(chunk, L): a decode step (L = 1) is one chunk of
+        one step from the cached state."""
+        cfg = self.cfg
+        B, L, _ = x.shape
+        Di, N, H, hd = cfg.d_inner, cfg.d_state, cfg.n_heads, cfg.head_dim
+        z, xbc, dt = torch.split(x @ self.in_proj, [Di, Di + 2 * N, H], dim=-1)
+        xbc, tail = causal_conv(xbc, self.conv_w, self.conv_b, cache.conv_tail)
+        xs, Bc, Cc = torch.split(F.silu(xbc), [Di, N, N], dim=-1)
+        dt = F.softplus(dt.to(torch.float32) + self.dt_bias_h)  # (B, L, H)
+        A = -torch.exp(self.A_log_h.to(torch.float32))  # (H,)
+        dA = dt * A
+
+        chunk = min(self.chunk, L)
+        nc = -(-L // chunk)
+        pad = nc * chunk - L
+        if pad:
+            xs, Bc, Cc, dA, dt = (F.pad(t, (0, 0, 0, pad)) for t in (xs, Bc, Cc, dA, dt))
+        Xc = xs.reshape(B, nc, chunk, H, hd).to(torch.float32)
+        Bm = Bc.reshape(B, nc, chunk, N).to(torch.float32)
+        Cm = Cc.reshape(B, nc, chunk, N).to(torch.float32)
+        dAc = dA.reshape(B, nc, chunk, H)
+        dtc = dt.reshape(B, nc, chunk, H)
+
+        # intra-chunk: M[t, j] = (C_t . B_j) exp(seg[t, j]) dt_j
+        seg = segsum(dAc.transpose(2, 3))  # (B, k, H, c, c)
+        CB = torch.einsum("bktn,bkjn->bktj", Cm, Bm)
+        M = CB[:, :, None] * torch.exp(seg) * dtc.transpose(2, 3)[:, :, :, None, :]
+        Y_intra = torch.einsum("bkhtj,bkjhd->bkthd", M, Xc)
+
+        # chunk-final states: S_k = sum_j exp(cum_last - cum_j) dt_j B_j (x) X_j
+        cum = torch.cumsum(dAc, dim=2)  # (B, k, c, H)
+        decay_to_end = torch.exp(cum[:, :, -1:, :] - cum)
+        Sk = torch.einsum("bkcn,bkchd->bkhnd", Bm, (decay_to_end * dtc)[..., None] * Xc)
+
+        # the state before each chunk, through the recurrence over chunks
+        chunk_decay = torch.exp(torch.sum(dAc, dim=2))  # (B, k, H)
+        S, S_prevs = cache.state, []
+        for k in range(nc):
+            S_prevs.append(S)
+            S = S * chunk_decay[:, k, :, None, None] + Sk[:, k]
+        S_prev = torch.stack(S_prevs, dim=1)  # (B, k, H, N, hd)
+        Y_inter = torch.einsum("bkcn,bkhnd->bkchd", Cm, S_prev) * torch.exp(cum)[..., None]
+
+        y = (Y_intra + Y_inter).reshape(B, nc * chunk, H, hd)[:, :L]
+        y = y + Xc.reshape(B, nc * chunk, H, hd)[:, :L] * self.D_h[:, None]
+        y = y.reshape(B, L, Di).to(x.dtype) * F.silu(z)
+        y = rms_norm(y, self.norm_scale)
+        return y @ self.out_proj, SSMCache(tail, S, cache.length + L)
+
+    def prefill(self, x: torch.Tensor):
+        """The forward over a prompt and the cache after it."""
+        return self.decode(x, init_mamba2_cache(self.cfg, x.shape[0], device=x.device))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: (B, L, D) -> (B, L, D)."""

@@ -7,7 +7,9 @@ across by `params_from_reference` and inputs from a seeded numpy generator.
 Tolerances:
   * TOL, rtol 1e-4 / atol 1e-5: float32 in another summation order -- the
     loss, prefill's logits (its attention reads the float32 keys and
-    values), the Mamba-1 conv tail and scan state.
+    values), the Mamba-1 conv tail and scan state, the Mamba-2 conv tail
+    and state (zamba2-7b's within ZAMBA_TOL, 4 x TOL: its 13-layer smoke
+    model turns rounding into more than TOL, tests/test_torch_zamba.py).
   * K and V caches: within one bf16 step (`_bf16_step`) plus TOL of each
     other: both round float32 values that are within TOL, so an entry near
     a rounding boundary lands one step apart (and near 0, where TOL's atol
@@ -52,7 +54,9 @@ from repro_torch.models import (
     prefill,
 )
 from repro_torch.models.attention import KVCache
+from repro_torch.models.lm import layer_kinds
 from repro_torch.models.ssm import SSMCache
+from test_torch_zamba import ZAMBA_TOL
 
 torch.set_num_threads(2)
 
@@ -60,7 +64,7 @@ ROOT = Path(__file__).resolve().parent.parent
 TOL = dict(rtol=1e-4, atol=1e-5)
 BF16_REL = 2.0 ** -8
 DECODE_ARCHS = ("qwen2-7b", "gemma3-1b", "gemma-2b", "gemma2-9b", "falcon-mamba-7b",
-                "qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b")
+                "qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b", "zamba2-7b")
 # the MoE layers' load-balancing loss: float32 means over another order
 AUX_TOL = 1e-6
 # a prompt longer than the smoke window (16), then 8 steps: decode crosses it
@@ -115,7 +119,8 @@ def _assert_caches(cfg, got: list, want_np, decoded_from: int | None) -> None:
             elif decoded:
                 assert bool(((a - b).abs() <= BF16_REL * float(b.abs().max())).all())
             else:
-                torch.testing.assert_close(a, b, **TOL)
+                torch.testing.assert_close(a, b, **(ZAMBA_TOL if cfg.name == "zamba2-7b"
+                                                    else TOL))
 
 
 @functools.lru_cache(maxsize=None)
@@ -207,13 +212,16 @@ def test_init_caches_shapes_and_dtypes(arch):
     caches = init_caches(s.cfg, 2, 12, device="cpu")
     want = jax.tree.map(np.asarray, ref_api.init_caches(s.ref_cfg, 2, 12))
     assert len(caches) == s.cfg.n_layers
-    for got, ref in zip(caches, caches_from_reference(s.cfg, want, "cpu")):
+    for kind, got, ref in zip(layer_kinds(s.cfg), caches,
+                              caches_from_reference(s.cfg, want, "cpu")):
         assert type(got) is type(ref) and got.length == ref.length == 0
         for a, b in zip(got[:2], ref[:2]):
             assert a.shape == b.shape and a.dtype == b.dtype and not bool(a.any())
         if isinstance(got, SSMCache):
             assert got.state.dtype == torch.float32
-            assert got.state.shape == (2, s.cfg.ssm_d_inner, s.cfg.ssm_state)
+            assert got.state.shape == ((2, s.cfg.ssm_d_inner, s.cfg.ssm_state) if kind == "m1"
+                                       else (2, s.cfg.ssm_d_inner // s.cfg.ssm_head_dim,
+                                             s.cfg.ssm_state, s.cfg.ssm_head_dim))
         else:
             assert got.k.shape == (2, 12, s.cfg.n_kv, s.cfg.head_dim)
     # a first token decoded against the empty caches, as the reference does
@@ -265,7 +273,7 @@ def test_loss_refuses_per_token_positions():
 
 
 def test_param_count_matches_reference():
-    for arch in ("qwen2-7b", "falcon-mamba-7b"):
+    for arch in ("qwen2-7b", "falcon-mamba-7b", "zamba2-7b"):
         s = _setup(arch)
         assert param_count(s.model) == ref_api.param_count(s.params)
 
@@ -274,9 +282,11 @@ def test_param_count_matches_reference():
 # few widths, fitted as a power of the width and extrapolated to the full
 # width: (widths, full width).  The width w widens a smoke config: an SSM's
 # d_inner w, d_model w / 2, dt_rank max(8, w / 32); an attention model's
-# d_model w, d_ff 2 w, head_dim min(w / 4, 256).  The first is smoke width.
+# d_model w, d_ff 2 w, head_dim min(w / 4, 256); a hybrid's as an attention
+# model's, with d_inner 2 w at the config's own SSM heads, state and chunk
+# (64, 64, 64: the card's).  The first is smoke width.
 GAP_WIDTHS = {"qwen2-7b": ((64, 256, 1024), 3584), "gemma3-1b": ((64, 256, 1024), 1152),
-              "falcon-mamba-7b": ((128, 512, 2048), 8192)}
+              "falcon-mamba-7b": ((128, 512, 2048), 8192), "zamba2-7b": ((64, 256, 512), 3584)}
 GAP_MARGIN = 8
 
 
@@ -287,6 +297,9 @@ def _full_depth(cfg, width: int):
         wide = dict(d_model=width // 2, ssm_d_inner=width, ssm_dt_rank=max(8, width // 32))
     else:
         wide = dict(d_model=width, d_ff=2 * width, head_dim=min(width // 4, 256))
+    if small.family == "hybrid":
+        wide.update(ssm_d_inner=2 * width, ssm_head_dim=cfg.ssm_head_dim,
+                    ssm_state=cfg.ssm_state, ssm_chunk=cfg.ssm_chunk)
     return dataclasses.replace(small, repeats=cfg.repeats, tail=cfg.tail,
                                n_layers=cfg.n_layers, **wide)
 
@@ -313,7 +326,7 @@ def _reference_gap(ref_cfg, toks: np.ndarray, prompt: int):
     return _relative_gap(np.stack(ref_out, 1), forward), params
 
 
-@pytest.mark.parametrize("arch", ["qwen2-7b", "gemma3-1b", "falcon-mamba-7b"])
+@pytest.mark.parametrize("arch", ["qwen2-7b", "gemma3-1b", "falcon-mamba-7b", "zamba2-7b"])
 def test_reference_decode_gap_is_under_the_card_tolerance(arch):
     """chip_smoke.py holds teacher-forced decode logits at full width (at
     full depth, qwen2-7b at 7 layers) to `unembed(forward(...))` within

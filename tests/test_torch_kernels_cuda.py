@@ -848,6 +848,7 @@ def test_smoke_model_on_card_matches_cpu(dev, arch):
     (2, 1, 4, 1, 64, 0, 30.0),         # the first token
     (4, 704, 64, 4, 128, 0, 0.0),      # qwen3-moe's last decode step, G 16
     (4, 704, 40, 8, 128, 0, 0.0),      # llama4-maverick's, G 5
+    (4, 704, 32, 32, 112, 0, 0.0),     # zamba2-7b's shared block, G 1, dh 112
 ])
 def test_flash_attn_kernel_at_one_query(dev, B, Skv, Hq, Hkv, dh, window, softcap):
     """Decode's shape: one query at key position Skv - 1 (the aligned ends)
@@ -864,7 +865,8 @@ def test_flash_attn_kernel_at_one_query(dev, B, Skv, Hq, Hkv, dh, window, softca
 
 
 @pytest.mark.parametrize("arch", ["qwen2-7b", "gemma3-1b", "gemma2-9b", "falcon-mamba-7b",
-                                  "qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b"])
+                                  "qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b",
+                                  "zamba2-7b"])
 def test_smoke_decode_on_card_matches_cpu(dev, arch):
     """The same smoke-size weights on both devices, with the CPU tests'
     tolerances (tests/test_torch_decode.py): the loss and prefill of 24
@@ -873,7 +875,8 @@ def test_smoke_decode_on_card_matches_cpu(dev, arch):
     the largest CPU logit (a cache entry may round one bf16 step apart) and
     the card's greedy token the CPU's unless the CPU's top two are closer
     than that; each step on the card launched the model's kernel once a
-    layer.  After the steps, K and V at the prompt's positions within one
+    layer that runs it (zamba2-7b: flash_attn at its two shared places, its
+    Mamba-2 layers plain torch).  After the steps, K and V at the prompt's positions within one
     bf16 step + rtol 1e-4 / atol 1e-5 (prefill's bound: decode must leave
     them as they were); at the decode positions, and the conv tail and
     state, within 2^-8 of the largest CPU value (+ one bf16 step for K and
@@ -882,6 +885,7 @@ def test_smoke_decode_on_card_matches_cpu(dev, arch):
     from repro_torch.configs import ARCHS
     from repro_torch.models import decode_step, init_model, loss_fn, prefill
     from repro_torch.models.attention import KVCache
+    from repro_torch.models.blocks import ATTN_KINDS
 
     tol, rel = dict(rtol=1e-4, atol=1e-5), 2.0 ** -8
     cfg = ARCHS[arch].smoke()
@@ -889,6 +893,8 @@ def test_smoke_decode_on_card_matches_cpu(dev, arch):
     card = init_model(cfg, seed=0, device="cpu").to(dev)
     toks = np.random.default_rng(0).integers(0, cfg.vocab, (3, 25))
     kernel = "ssm_scan" if cfg.family == "ssm" else "flash_attn"
+    kinds = [layer.kind for layer in card.layers]
+    layers = kinds.count("m1") if kernel == "ssm_scan" else sum(k in ATTN_KINDS for k in kinds)
     batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
     with torch.no_grad():
         torch.testing.assert_close(loss_fn(card, batch)[0].cpu(), loss_fn(cpu, batch)[0], **tol)
@@ -902,7 +908,7 @@ def test_smoke_decode_on_card_matches_cpu(dev, arch):
         assert bool(((tc == lg.argmax(-1, keepdim=True).cpu())[:, 0] | near_tie).all())
         before = common.launch_counts()[kernel]
         lg, cg = decode_step(card, tc, cg)
-        assert common.launch_counts()[kernel] - before == cfg.n_layers
+        assert common.launch_counts()[kernel] - before == layers
         lc, cc = decode_step(cpu, tc, cc)
         torch.testing.assert_close(lg.cpu(), lc, rtol=0, atol=rel * float(lc.abs().max()))
     prompt = toks.shape[1] - 1

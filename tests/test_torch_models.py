@@ -3,7 +3,8 @@ the reference's weights are carried across (`params_from_reference`, or the
 same arrays set on one block), the same numpy inputs go through both, and
 the outputs agree within rtol 1e-4 / atol 1e-5 (float32 through a few
 layers: matmul summation order, and the port's attention and scan run their
-plain versions, which sum in another order than the reference's scans)."""
+plain versions, which sum in another order than the reference's scans);
+zamba2-7b's 13-layer smoke LM within ZAMBA_TOL (tests/test_torch_zamba.py)."""
 import dataclasses
 
 import jax
@@ -27,12 +28,13 @@ from repro_torch.models.attention import Attention, AttnConfig
 from repro_torch.models.blocks import Block
 from repro_torch.models.ffn import MLP
 from repro_torch.models.ssm import Mamba1, Mamba1Config
+from test_torch_zamba import ZAMBA_TOL
 
 torch.set_num_threads(2)
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 PORTED = ("gemma-2b", "falcon-mamba-7b", "gemma2-9b", "qwen2-7b", "gemma3-1b",
-          "qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b")
+          "qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b", "zamba2-7b")
 
 
 def _set(module: torch.nn.Module, params: dict) -> None:
@@ -109,7 +111,8 @@ def test_lm_forward_matches_reference(arch):
     toks = np.random.default_rng(5).integers(0, cfg.vocab, (3, 21)).astype(np.int32)
     want, _ = ref_lm.forward(params, jnp.asarray(toks), ref_cfg)
     got = model(torch.from_numpy(toks).long())
-    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               **(ZAMBA_TOL if arch == "zamba2-7b" else TOL))
 
 
 @pytest.mark.parametrize("arch", PORTED)
@@ -126,9 +129,6 @@ def test_config_fields_and_smoke_equal_reference(arch, smoke):
 
 def test_unported_kinds_raise():
     cfg = ARCHS["gemma-2b"].smoke()
-    for kind, item in (("m2", "Mamba-2"), ("shared_attn", "zamba")):
-        with pytest.raises(NotImplementedError, match=item):
-            Block(kind, cfg)
     with pytest.raises(ValueError, match="pattern"):
         dataclasses.replace(cfg, n_layers=cfg.n_layers + 1)
 
@@ -203,13 +203,19 @@ def test_caches_from_reference_follows_the_layer_order():
 
 
 def test_attn_kinds_are_the_references_minus_the_unported():
+    """Every block kind of the reference is ported: the attention kinds are
+    the reference's, and the moe, m2 and shared_attn blocks hold what the
+    reference's do."""
     from repro.models.blocks import ATTN_KINDS as REF_ATTN_KINDS
-    from repro_torch.models.blocks import ATTN_KINDS, UNPORTED
+    from repro_torch.models.blocks import ATTN_KINDS
 
-    assert ATTN_KINDS == tuple(k for k in REF_ATTN_KINDS if k not in UNPORTED)
-    assert "moe" not in UNPORTED
+    assert ATTN_KINDS == REF_ATTN_KINDS
     block = Block("moe", ARCHS["qwen3-moe-235b-a22b"].smoke())
     assert hasattr(block, "moe") and not hasattr(block, "mlp")
+    zamba = ARCHS["zamba2-7b"].smoke()
+    block = Block("shared_attn", zamba)
+    assert hasattr(block, "attn") and hasattr(block, "mlp") and block.attn.cfg.window == 0
+    assert type(Block("m2", zamba).ssm).__name__ == "Mamba2"
 
 
 @pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "llama4-maverick-400b-a17b"])

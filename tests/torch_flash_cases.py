@@ -12,7 +12,8 @@ give every SM a block) beside the rest, which take 64-row tiles, Sq > Skv
 under the causal mask (the leading rows see no key and are 0), GQA groups
 of 1, 2, 5 (not a power of two), 8 and 16 heads packed into a row tile
 (qwen3-moe's G 16 and llama4-maverick's G 5 also at their head counts,
-causal and at one query), a window narrower than a key
+causal and at one query; zamba2-7b's G 1 at dh 112, padded to 128 columns,
+likewise), a window narrower than a key
 tile, the softcap at scores of magnitude ~100, and inputs scaled by 30: q (scores of ~30, so that most exps of a row
 flush to 0) or v (a large P V).  q, k and v all scaled by 30 give scores of
 ~900, where the float32 plain version itself is 0.02 off the float64 result
@@ -43,6 +44,9 @@ FLASH_CASES = {
     "group 5, Sq 1": (4, 1, 300, 40, 8, 128, True, 0, 0.0, 1, 1),
     "group 16, causal": (1, 140, 140, 64, 4, 128, True, 0, 0.0, 1, 1),
     "group 5, causal": (1, 140, 140, 40, 8, 128, True, 0, 0.0, 1, 1),
+    # zamba2-7b's shared block: 32 heads of 112, MHA
+    "dh 112, group 1, Sq 1": (4, 1, 300, 32, 32, 112, True, 0, 0.0, 1, 1),
+    "dh 112, group 1, causal": (1, 140, 140, 32, 32, 112, True, 0, 0.0, 1, 1),
     "window 5": (2, 100, 100, 4, 2, 128, True, 5, 0.0, 1, 1),
     "softcap, scores ~100": (2, 70, 70, 4, 2, 256, True, 0, 50.0, 10, 1),
     "128-row tiles": (4, 300, 300, 16, 8, 256, True, 0, 0.0, 1, 1),
