@@ -6,9 +6,12 @@ over a corpus of token documents (port of `repro.launch.serve`).
         [--shards 4] [--build-chunk-rows 4096] [--async --replicas 2 --slo-ms 500]
 
 Serves from random-init weights (`init_model`, seed 0) on the card unless
-`--device cpu`.  `--arch` names any architecture of the port's registry
-(gemma-2b, gemma3-1b, gemma2-9b, qwen2-7b, falcon-mamba-7b); `--smoke`
-takes its reduced configuration.
+`--device cpu`.  `--arch` names an architecture of the port's registry
+(gemma-2b, gemma3-1b, gemma2-9b, qwen2-7b, falcon-mamba-7b,
+qwen3-moe-235b-a22b, llama4-maverick-400b-a17b, zamba2-7b; qwen2-vl-7b and
+whisper-tiny are refused, since the engine embeds token ids through a
+decoder LM's forward: `serve.engine.check_servable`); `--smoke` takes its
+reduced configuration.
 `--dynamic` serves a SegmentedLCCSIndex and interleaves an insert / delete /
 compact burst into the request stream.  `--shards N` partitions the static
 index into N row shards on the one device (`repro_torch.shard`: shard-local
@@ -46,6 +49,7 @@ from ..core.params import _suppress_width_warning
 from ..data.synthetic import lm_token_batches
 from ..models import init_model
 from ..serve import RetrievalEngine
+from ..serve.engine import check_servable
 from ..store import available_stores
 
 
@@ -258,6 +262,7 @@ def main(argv: list[str] | None = None) -> None:
     cfg = ARCHS[args.arch]
     if args.smoke:
         cfg = cfg.smoke()
+    check_servable(cfg)
     model = init_model(cfg, seed=0, device=args.device)
 
     # observability front: metrics endpoint + periodic log line + tracing

@@ -1,11 +1,16 @@
 """Model substrate of the port (PyTorch counterpart of `repro.models`): the
 decoder LM with attention (through the `flash_attn` kernel), MoE FFN,
 Mamba-1 (through the `ssm_scan` kernel), Mamba-2 (plain torch, as the
-reference's jnp) and zamba's shared attention blocks -- its forward, loss,
-and prefill and one-token decode with KV and SSM caches."""
+reference's jnp) and zamba's shared attention blocks; the VLM (patch
+embeddings spliced ahead of the text, M-RoPE); the whisper encoder-decoder
+(cross attention through `flash_attn`) -- their forward, loss, and prefill
+and one-token decode with KV, SSM and cross-attention caches."""
 from .api import decode_step, init_caches, init_model, loss_fn, param_count, prefill
 from .convert import caches_from_reference, params_from_reference
 from .lm import LM
+from .vlm import mrope_positions, splice_patches
+from .whisper import Whisper, WhisperCache
 
-__all__ = ["LM", "caches_from_reference", "decode_step", "init_caches", "init_model",
-           "loss_fn", "param_count", "params_from_reference", "prefill"]
+__all__ = ["LM", "Whisper", "WhisperCache", "caches_from_reference", "decode_step",
+           "init_caches", "init_model", "loss_fn", "mrope_positions", "param_count",
+           "params_from_reference", "prefill", "splice_patches"]

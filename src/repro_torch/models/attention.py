@@ -1,11 +1,12 @@
 """Attention substrate (port of `repro.models.attention`): GQA/MQA
-projections, RoPE, the full-sequence forward, and prefill and one-token
-decode with a KV cache.  The attention itself runs through the
+projections, RoPE and M-RoPE, the full-sequence forward, prefill and
+one-token decode with a KV cache, and whisper's cross attention over an
+encoder's keys and values.  The attention itself runs through the
 `flash_attn` wrapper -- the hand-written kernel on CUDA tensors, its plain
 version on CPU tensors --, which computes the reference's
-`chunked_attention` (causal with the ends aligned, sliding window, logit
-soft-capping) and, at Sq = 1 over the cache's live keys, its
-`attention_decode`."""
+`chunked_attention` (causal with the ends aligned, or not causal;
+sliding window, logit soft-capping) and, at Sq = 1 over the cache's live
+keys, its `attention_decode`."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -14,7 +15,7 @@ import torch
 from torch import nn
 
 from ..kernels.flash_attn import ops as flash_ops
-from .common import apply_rope, dense_init_
+from .common import apply_mrope, apply_rope, dense_init_
 
 
 class AttnConfig(NamedTuple):
@@ -55,8 +56,6 @@ class Attention(nn.Module):
 
     def __init__(self, cfg: AttnConfig, device=None):
         super().__init__()
-        if cfg.mrope:
-            raise NotImplementedError("M-RoPE (qwen2-vl) is not ported yet: ROADMAP A11")
         self.cfg = cfg
         qd, kvd = cfg.n_heads * cfg.head_dim, cfg.n_kv * cfg.head_dim
         shapes = {"wq": (cfg.d_model, qd), "wk": (cfg.d_model, kvd),
@@ -74,18 +73,28 @@ class Attention(nn.Module):
                 for name in ("bq", "bk", "bv"):
                     getattr(self, name).zero_()
 
-    def project_qkv(self, x: torch.Tensor, positions: torch.Tensor):
+    def _project(self, x: torch.Tensor, name: str, heads: int) -> torch.Tensor:
+        """x (B, S, D) @ w{name} (+ b{name}) -> (B, S, heads, dh)."""
+        out = x @ getattr(self, f"w{name}")
+        if self.cfg.qkv_bias:
+            out = out + getattr(self, f"b{name}")
+        return out.reshape(x.shape[0], x.shape[1], heads, self.cfg.head_dim)
+
+    def project_qkv(self, x: torch.Tensor, positions: torch.Tensor | None):
+        """q, k, v of x (B, S, D), rotated at `positions`: (B, S, 3) streams
+        with `mrope`, else (B, S) (or the first of three streams, as the
+        reference reads them); None where the layer has no rotary."""
         cfg = self.cfg
-        B, S, _ = x.shape
-        q, k, v = x @ self.wq, x @ self.wk, x @ self.wv
-        if cfg.qkv_bias:
-            q, k, v = q + self.bq, k + self.bk, v + self.bv
-        q = q.reshape(B, S, cfg.n_heads, cfg.head_dim)
-        k = k.reshape(B, S, cfg.n_kv, cfg.head_dim)
-        v = v.reshape(B, S, cfg.n_kv, cfg.head_dim)
-        if cfg.rope_theta > 0:
-            q = apply_rope(q, positions, cfg.rope_theta)
-            k = apply_rope(k, positions, cfg.rope_theta)
+        q = self._project(x, "q", cfg.n_heads)
+        k = self._project(x, "k", cfg.n_kv)
+        v = self._project(x, "v", cfg.n_kv)
+        if cfg.mrope:
+            q = apply_mrope(q, positions, cfg.rope_theta)
+            k = apply_mrope(k, positions, cfg.rope_theta)
+        elif cfg.rope_theta > 0:
+            pos1 = positions if positions.ndim == 2 else positions[..., 0]
+            q = apply_rope(q, pos1, cfg.rope_theta)
+            k = apply_rope(k, pos1, cfg.rope_theta)
         return q, k, v
 
     def _attend(self, q, k, v) -> torch.Tensor:
@@ -95,11 +104,23 @@ class Attention(nn.Module):
                                         softcap=cfg.softcap)
         return out.reshape(q.shape[0], q.shape[1], -1) @ self.wo
 
-    def forward(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
-        """x: (B, S, D), positions (B, S) -> (B, S, D)."""
+    def forward(self, x: torch.Tensor, positions: torch.Tensor | None) -> torch.Tensor:
+        """x: (B, S, D), positions as `project_qkv` -> (B, S, D)."""
         return self._attend(*self.project_qkv(x, positions))
 
-    def prefill(self, x: torch.Tensor, positions: torch.Tensor, max_len: int):
+    def project_ctx_kv(self, ctx: torch.Tensor):
+        """The keys and values of an encoder's states ctx (B, S_enc, D), no
+        rotary: (B, S_enc, Hkv, dh) each (the reference's `project_ctx_kv`)."""
+        return self._project(ctx, "k", self.cfg.n_kv), self._project(ctx, "v", self.cfg.n_kv)
+
+    def cross(self, x: torch.Tensor, ctx_k: torch.Tensor, ctx_v: torch.Tensor) -> torch.Tensor:
+        """Cross attention of x (B, S, D) over an encoder's keys and values
+        (`project_ctx_kv`), causal as the layer's config (whisper builds its
+        cross attention not causal), as the reference's `cross_attention`
+        -> (B, S, D)."""
+        return self._attend(self._project(x, "q", self.cfg.n_heads), ctx_k, ctx_v)
+
+    def prefill(self, x: torch.Tensor, positions: torch.Tensor | None, max_len: int):
         """The forward over a prompt, and a cache of `max_len` slots holding
         its keys and values.  The attention reads them in float32; only the
         cache holds them rounded to bf16.  Returns (out (B, S, D), KVCache)."""
@@ -113,9 +134,10 @@ class Attention(nn.Module):
         cache.v[:, :S] = v
         return out, cache._replace(length=S)
 
-    def decode(self, x: torch.Tensor, cache: KVCache, position: torch.Tensor):
+    def decode(self, x: torch.Tensor, cache: KVCache, position: torch.Tensor | None):
         """One token, x (B, 1, D), at position `cache.length`, which
-        `position` (B, 1) holds (built once a step by the caller).  Its key and
+        `position` (B, 1), or (B, 1, 3) with `mrope`, holds (built once a
+        step by the caller; None without rotary).  Its key and
         value are written into the cache first (in place: the slot beyond
         the given cache's length), then the live keys are read back as
         float32, so the token's own key is seen rounded, as in the

@@ -1,5 +1,6 @@
 """Shared model components (port of `repro.models.common`): norms, rotary
-embeddings, the dense initialiser, the cross-entropy."""
+embeddings (RoPE, M-RoPE), whisper's sinusoidal positions, the dense
+initialiser, the cross-entropy."""
 from __future__ import annotations
 
 import math
@@ -54,6 +55,37 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0)
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor, theta: float = 10000.0,
+                sections: tuple[float, float, float] = (0.25, 0.375, 0.375)) -> torch.Tensor:
+    """Qwen2-VL's multimodal RoPE.  x: (B, S, H, dh); positions: (B, S, 3)
+    int, the (temporal, height, width) streams.  The dh/2 frequency slots
+    fall into three sections, int(half * 0.25) driven by t and int(half *
+    0.375) by h, the rest by w (16 / 24 / 24 at dh 128).  Where the three
+    streams are equal (text) this is `apply_rope`."""
+    dh = x.shape[-1]
+    half = dh // 2
+    n_t = int(half * sections[0])
+    n_h = int(half * sections[1])
+    sec_pos = torch.cat([positions[..., i:i + 1].expand(*positions.shape[:-1], n)
+                         for i, n in enumerate((n_t, n_h, half - n_t - n_h))], dim=-1)
+    ang = sec_pos.to(torch.float32) * rope_freqs(dh, theta, device=x.device)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
+def sinusoidal_positions(max_len: int, d_model: int, device=None) -> torch.Tensor:
+    """Whisper's fixed position table (max_len, d_model) float32: [sin |
+    cos] of pos / 10000^(2i / d_model), the two halves concatenated (not
+    interleaved)."""
+    pos = torch.arange(max_len, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(0, d_model, 2, dtype=torch.float32, device=device)[None, :]
+    ang = pos / (10000.0 ** (dim / d_model))
+    return torch.cat([torch.sin(ang), torch.cos(ang)], dim=-1)
 
 
 def softmax_cross_entropy(logits: torch.Tensor, labels: torch.Tensor,

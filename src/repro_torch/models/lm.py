@@ -12,7 +12,10 @@ zamba's `shared_attn` pattern slot is one block applied at every repeat, as
 the reference's one `params["shared"]`: the LM registers it once, as
 `shared`, and each of its places in `layers` is a `SharedPlace` that calls
 it, so every place runs the same tensors while each keeps its own KV cache
-in the list."""
+in the list.
+
+The VLM (qwen2-vl-7b) is this LM fed `inputs_embeds`, the patch embeddings
+spliced ahead of the text's, at M-RoPE position streams (`models/vlm.py`)."""
 from __future__ import annotations
 
 import torch
@@ -71,9 +74,8 @@ class LM(nn.Module):
 
     def __init__(self, cfg, device=None):
         super().__init__()
-        if cfg.enc_dec or cfg.vlm:
-            raise NotImplementedError(
-                f"{cfg.name}: encoder-decoder and VLM models are not ported yet (ROADMAP A11)")
+        if cfg.enc_dec:
+            raise ValueError(f"{cfg.name} is an encoder-decoder: it is a `Whisper`, not an LM")
         self.cfg = cfg
         self.embedding = nn.Parameter(torch.empty((cfg.vocab_padded, cfg.d_model),
                                                   device=device))
@@ -127,40 +129,52 @@ class LM(nn.Module):
             logits = cap * torch.tanh(logits / cap)
         return logits
 
-    def hidden(self, tokens: torch.Tensor):
-        """tokens: (B, S) int, at positions 0 .. S - 1 -> (final hidden
-        states (B, S, D), the layers' auxiliary losses summed: the MoE
-        layers', 0 without one), the reference's `forward`."""
-        x = self.embed_tokens(tokens)
-        B, S = x.shape[:2]
-        positions = torch.arange(S, device=x.device).expand(B, S)
+    def _inputs(self, tokens, positions, inputs_embeds):
+        """The first layer's input (B, S, D), `inputs_embeds` where given
+        (the VLM's splice) else the tokens' embeddings, and the positions:
+        as given ((B, S), or (B, S, 3) M-RoPE streams), else 0 .. S - 1."""
+        x = self.embed_tokens(tokens) if inputs_embeds is None else inputs_embeds
+        if positions is None:
+            B, S = x.shape[:2]
+            positions = torch.arange(S, device=x.device).expand(B, S)
+        return x, positions
+
+    def hidden(self, tokens: torch.Tensor | None, positions: torch.Tensor | None = None,
+               inputs_embeds: torch.Tensor | None = None):
+        """tokens: (B, S) int -> (final hidden states (B, S, D), the layers'
+        auxiliary losses summed: the MoE layers', 0 without one), the
+        reference's `forward`; `positions` and `inputs_embeds` as `_inputs`."""
+        x, positions = self._inputs(tokens, positions, inputs_embeds)
         aux = 0.0  # a float until a MoE layer adds its tensor
         for layer in self.layers:
             x, layer_aux = layer(x, positions)
             aux = aux + layer_aux
         return self.final_norm(x), torch.as_tensor(aux, dtype=torch.float32, device=x.device)
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
-        """tokens: (B, S) int, at positions 0 .. S - 1 -> final hidden
-        states (B, S, D)."""
-        return self.hidden(tokens)[0]
+    def forward(self, tokens: torch.Tensor | None, positions: torch.Tensor | None = None,
+                inputs_embeds: torch.Tensor | None = None) -> torch.Tensor:
+        """tokens: (B, S) int -> final hidden states (B, S, D), as `hidden`."""
+        return self.hidden(tokens, positions, inputs_embeds)[0]
 
-    def loss(self, tokens: torch.Tensor, labels: torch.Tensor, mask=None):
+    def loss(self, tokens: torch.Tensor | None, labels: torch.Tensor, mask=None,
+             positions: torch.Tensor | None = None, inputs_embeds: torch.Tensor | None = None):
         """The reference's `ce + aux_loss_weight * aux`: the mean
         cross-entropy of `labels` under the logits of `tokens` (over the
         tokens where `mask` is set), and the MoE layers' load-balancing loss
         (0 in a model without one).  Returns (loss, {"ce": ce, "aux": aux})."""
-        hidden, aux = self.hidden(tokens)
+        hidden, aux = self.hidden(tokens, positions, inputs_embeds)
         ce = softmax_cross_entropy(self.unembed(hidden), labels, mask)
         return ce + self.cfg.aux_loss_weight * aux, {"ce": ce, "aux": aux}
 
-    def prefill(self, tokens: torch.Tensor, max_len: int):
-        """Run the prompt (B, S) at positions 0 .. S - 1 and build every
-        layer's cache (attention caches of `max_len` slots).  Returns (the
-        last position's logits (B, vocab_padded), caches in layer order)."""
-        x = self.embed_tokens(tokens)
-        B, S = x.shape[:2]
-        positions = torch.arange(S, device=x.device).expand(B, S)
+    def prefill(self, tokens: torch.Tensor | None, max_len: int,
+                positions: torch.Tensor | None = None,
+                inputs_embeds: torch.Tensor | None = None):
+        """Run the prompt (B, S) and build every layer's cache (attention
+        caches of `max_len` slots); `positions` and `inputs_embeds` as
+        `_inputs`.  Decode continues at position S (the VLM's text streams
+        continue there too).  Returns (the last position's logits (B,
+        vocab_padded), caches in layer order)."""
+        x, positions = self._inputs(tokens, positions, inputs_embeds)
         caches = []
         for layer in self.layers:
             x, cache = layer.prefill(x, positions, max_len)
@@ -171,15 +185,18 @@ class LM(nn.Module):
         """One token a sequence, token (B, 1) int, against `caches`.  Returns
         (logits (B, vocab_padded), the new caches).  An attention cache's
         tensors are written in place at the slot of its length, which is
-        the token's position (one for the whole step, built once)."""
+        the token's position (one for the whole step, built once: (B, 1),
+        or (B, 1, 3), the length on all three streams, with M-RoPE)."""
         if len(caches) != len(self.layers):
             raise ValueError(f"{len(caches)} caches for {len(self.layers)} layers")
         lengths = {cache.length for cache in caches}
         if len(lengths) > 1:
             raise ValueError(f"caches of lengths {sorted(lengths)} in one step")
         x = self.embed_tokens(token)
-        position = (torch.full(token.shape, caches[0].length, dtype=torch.long, device=x.device)
-                    if self.attends else None)
+        position = None
+        if self.attends:
+            shape = (*token.shape, 3) if self.cfg.mrope else token.shape
+            position = torch.full(shape, caches[0].length, dtype=torch.long, device=x.device)
         new = []
         for layer, cache in zip(self.layers, caches):
             x, cache = layer.decode(x, cache, position)

@@ -46,6 +46,19 @@ from ..obs.trace import span as _span
 DEFAULT_PARAMS = SearchParams(k=5, lam=64)
 
 
+def check_servable(cfg) -> None:
+    """Raise ValueError for a model the engine cannot embed with.  The
+    engine embeds token ids through the decoder LM's forward (the
+    reference's `lm.forward`): a VLM's forward needs patch embeddings
+    beside the text, and a whisper's runs an encoder over audio frames, so
+    neither is served (the reference's engine fails inside the model on
+    both)."""
+    if cfg.vlm or cfg.enc_dec:
+        kind = "a VLM" if cfg.vlm else "an encoder-decoder"
+        raise ValueError(f"{cfg.name} is {kind}: the retrieval engine embeds token ids "
+                         "through a decoder LM's forward, and serves no such model")
+
+
 @dataclass
 class ServeStats:
     requests: int = 0
@@ -133,6 +146,7 @@ class RetrievalEngine:
                  max_batch: int = 32, search_params: SearchParams = DEFAULT_PARAMS,
                  store: str = "fp32", shards: int | None = None, device=None,
                  name: str | None = None, instrument: bool = False):
+        check_servable(cfg)
         dev = resolve_device(device)
         if dev.type == "cuda" and dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())

@@ -41,13 +41,12 @@ import torch
 from repro.configs import ARCHS as REF_ARCHS
 from repro.models import api as ref_api
 from repro.models import lm as ref_lm
-from repro_torch.configs import ARCHS, ModelConfig
+from repro_torch.configs import ARCHS
 from repro_torch.kernels import common
 from repro_torch.models import (
     caches_from_reference,
     decode_step,
     init_caches,
-    init_model,
     loss_fn,
     param_count,
     params_from_reference,
@@ -233,19 +232,6 @@ def test_init_caches_shapes_and_dtypes(arch):
     _assert_caches(s.cfg, caches, jax.tree.map(np.asarray, want_caches), 0)
 
 
-@pytest.mark.parametrize("arch", ["whisper-tiny", "qwen2-vl-7b"])
-def test_enc_dec_and_vlm_raise(arch):
-    cfg = ModelConfig(**dataclasses.asdict(REF_ARCHS[arch]).copy())
-    stub = SimpleNamespace(cfg=cfg)
-    for call in (lambda: init_caches(cfg, 1, 8, device="cpu"),
-                 lambda: init_model(cfg, device="cpu"),
-                 lambda: loss_fn(stub, {}),
-                 lambda: prefill(stub, {}, 8),
-                 lambda: decode_step(stub, None, [])):
-        with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-            call()
-
-
 def test_decode_refuses_a_full_cache_and_a_long_prompt():
     s = _setup("gemma-2b")
     with pytest.raises(ValueError, match="does not fit"):
@@ -261,15 +247,23 @@ def test_decode_refuses_a_full_cache_and_a_long_prompt():
         decode_step(s.model, s.toks[:, PROMPT:PROMPT + 1], short[:1] + caches[1:])
 
 
-def test_loss_refuses_per_token_positions():
-    """Tokens sit at 0 .. S - 1; the reference's per-token positions (its
-    VLM's) are not ported, so a batch that carries them is refused rather
-    than read at the default positions."""
+def test_loss_reads_per_token_positions_as_the_reference():
+    """A batch's per-token "positions" are read, as the reference's
+    `loss_fn` reads them, and no longer refused: positions 0 .. S - 1 give
+    the default loss, spread ones (RoPE sees only differences) the
+    reference's loss at those positions."""
     s = _setup("gemma-2b")
-    batch = {"tokens": s.toks[:, :PROMPT], "labels": s.toks[:, 1:PROMPT + 1],
-             "positions": np.broadcast_to(np.arange(PROMPT), (B, PROMPT))}
-    with pytest.raises(NotImplementedError, match="ROADMAP A11"):
-        loss_fn(s.model, batch)
+    batch = {"tokens": s.toks[:, :PROMPT], "labels": s.toks[:, 1:PROMPT + 1]}
+    base, _ = loss_fn(s.model, batch)
+    same, _ = loss_fn(s.model, dict(batch, positions=np.tile(np.arange(PROMPT), (B, 1))))
+    assert float(same) == float(base)
+    shifted = dict(batch, positions=(np.arange(PROMPT)[None] * (2 + np.arange(B)[:, None])
+                                     ).astype(np.int32))
+    want, _ = ref_api.loss_fn(s.params, {k: jnp.asarray(v) for k, v in shifted.items()},
+                              s.ref_cfg)
+    got, _ = loss_fn(s.model, shifted)
+    assert float(got) != float(base)
+    np.testing.assert_allclose(float(got), float(want), **TOL)
 
 
 def test_param_count_matches_reference():

@@ -228,6 +228,41 @@ print("BAD", bad)
     assert "BAD []" in out.stdout, out.stdout
 
 
+@pytest.mark.parametrize("arch", ["qwen2-vl-7b", "whisper-tiny"])
+def test_cpu_vlm_and_whisper_load_no_jax_or_reference(arch):
+    code = f"""
+import sys
+import numpy as np
+import torch
+torch.set_num_threads(2)
+from repro_torch.configs import ARCHS
+from repro_torch.models import decode_step, init_model, loss_fn, prefill
+cfg = ARCHS[{arch!r}].smoke()
+model = init_model(cfg, seed=0, device="cpu")
+rng = np.random.default_rng(0)
+toks = rng.integers(0, cfg.vocab, (2, 12))
+if cfg.vlm:
+    batch = {{"tokens": toks, "patch_embeds": rng.normal(size=(2, cfg.n_patches, cfg.d_model))}}
+    labels = rng.integers(0, cfg.vocab, (2, cfg.n_patches + 12))
+else:
+    batch = {{"tokens": toks, "frames": rng.normal(size=(2, cfg.n_audio_frames, cfg.d_model))}}
+    labels = toks
+loss, _ = loss_fn(model, dict(batch, labels=labels))
+assert bool(torch.isfinite(loss))
+logits, caches = prefill(model, batch, 32)
+for _ in range(3):
+    logits, caches = decode_step(model, logits.argmax(-1, keepdim=True), caches)
+assert logits.shape == (2, cfg.vocab_padded) and bool(torch.isfinite(logits).all())
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
+             or m == "repro" or m.startswith("repro."))
+print("BAD", bad)
+"""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=300, env=ENV)
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+
+
 def test_decode_entry_points_default_to_cuda_and_raise_without_it():
     if torch.cuda.is_available():
         pytest.skip("a card is present: the default device resolves to CUDA")

@@ -13,7 +13,8 @@ under the causal mask (the leading rows see no key and are 0), GQA groups
 of 1, 2, 5 (not a power of two), 8 and 16 heads packed into a row tile
 (qwen3-moe's G 16 and llama4-maverick's G 5 also at their head counts,
 causal and at one query; zamba2-7b's G 1 at dh 112, padded to 128 columns,
-likewise), a window narrower than a key
+likewise; whisper-tiny's 6 heads of 64 not causal, at Sq < Skv, over its
+encoder's 1,500 frames and at one query over them), a window narrower than a key
 tile, the softcap at scores of magnitude ~100, and inputs scaled by 30: q (scores of ~30, so that most exps of a row
 flush to 0) or v (a large P V).  q, k and v all scaled by 30 give scores of
 ~900, where the float32 plain version itself is 0.02 off the float64 result
@@ -47,6 +48,12 @@ FLASH_CASES = {
     # zamba2-7b's shared block: 32 heads of 112, MHA
     "dh 112, group 1, Sq 1": (4, 1, 300, 32, 32, 112, True, 0, 0.0, 1, 1),
     "dh 112, group 1, causal": (1, 140, 140, 32, 32, 112, True, 0, 0.0, 1, 1),
+    # whisper-tiny's heads (6 of 64, G 1), not causal: the encoder over its
+    # 1,500 frames, the cross attention of a prompt over them (Sq < Skv) and
+    # of one decode step
+    "non-causal, Sq < Skv": (2, 40, 150, 6, 6, 64, False, 0, 0.0, 1, 1),
+    "whisper encoder": (1, 1500, 1500, 6, 6, 64, False, 0, 0.0, 1, 1),
+    "whisper cross decode, Sq 1": (4, 1, 1500, 6, 6, 64, False, 0, 0.0, 1, 1),
     "window 5": (2, 100, 100, 4, 2, 128, True, 5, 0.0, 1, 1),
     "softcap, scores ~100": (2, 70, 70, 4, 2, 256, True, 0, 50.0, 10, 1),
     "128-row tiles": (4, 300, 300, 16, 8, 256, True, 0, 0.0, 1, 1),
