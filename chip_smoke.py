@@ -95,7 +95,22 @@ Drives the port's paths on one NVIDIA card at the paper's SIFT size
     decoder layer a pass, twice a decoder layer a step (the encoder's and
     the cross attention not causal, Sq != Skv); decode against the full
     forward (the VLM's over the spliced sequence, whisper's
-    decode_train(encode(frames))) within DECODE_VS_FORWARD_TOL.
+    decode_train(encode(frames))) within DECODE_VS_FORWARD_TOL;
+  * training (phases `train_full`, `profile_train_step`,
+    `train_smoke_vs_cpu`, `train_resume`, `train_refused`): gemma-2b at full
+    width and depth (18 layers, 2.506 B parameters, seed 0) takes 10 steps
+    of the port's train step (bf16 compute over float32 masters, clip,
+    cosine-scheduled AdamW with float32 moments) on the train launcher's
+    batches (8 x 64 tokens) through `DataPipeline` and the LCCS near-dup
+    filter (its history check on the circrun kernels), every attention
+    layer launching the flash_attn forward (with its log-sum-exp) and the
+    hand-written flash_attn backward once a step: losses finite and
+    falling, launches exact, peak memory beside the state's bytes, one step
+    profiled; the smoke gemma-2b, qwen3-moe and whisper-tiny on the card
+    against the CPU for 3 steps; the Trainer resumed at step 6 against an
+    uninterrupted run, then `launch.train --ckpt-dir D` and `launch.serve
+    --ckpt-dir D` (restores the trained step); a falcon-mamba-7b step
+    refused by ssm_scan (its backward is not ported).
 
 Each search QPS of the index paths is the median of QPS_PASSES passes over
 its queries, with the passes' min, max and spread beside it (C10).
@@ -112,7 +127,10 @@ L 4096; both also at the last decode step's shapes of phases lm_decode and
 lm_moe, flash_attn also at the prefill shapes of lm_moe (GQA groups 16 and 5),
 of zamba2-7b (dh 112, G 1), of qwen2-vl-7b (S 896) and whisper-tiny's three,
 not causal at dh 64 over 1,500 keys among them, and at its cross-attention
-decode, Sq 1 over the 1,500 frames),
+decode, Sq 1 over the 1,500 frames; flash_attn_bwd at gemma-2b's training
+shape, the long causal shape, gemma2-9b's window with softcap, whisper's
+cross attention and rows that see no key, beside SDPA's float32 backward,
+bit for bit from one run to the next),
 hash_rp and hash_xp also at the GIST width d = 960 and over one query batch, pool_topk also at a multiprobe-skip pool of
 several tiles and at the serving pool (each with its device time and a
 `pool_stats` line: the cut lcp and the ids and entries at or above it) and
@@ -345,6 +363,30 @@ ANGULAR_BASELINES = (("E2LSH", dict(K=1, L=16)), ("E2LSH", dict(K=2, L=32)),
                      ("FALCONNLike", dict(K=2, L=32, n_probes=8)))
 # untimed runs of a profiled function in each torch.profiler session, before
 # its marker kernel
+# training: gemma-2b at full width and depth, the train launcher's
+# defaults (global batch 8, seq 64, peak lr 1e-3, warmup 10 of its 100
+# steps, clip 1.0, bf16 compute, float32 AdamW moments, the near-dup filter
+# at threshold 30), TRAIN_STEPS steps; smoke models card vs CPU; the trainer's
+# resume; the backward kernel of flash_attn against its plain version
+TRAIN_ARCH = "gemma-2b"
+TRAIN_STEPS = 10
+TRAIN = dict(global_batch=8, seq_len=64, peak_lr=1e-3, warmup=10, total=100, clip=1.0,
+             dedup_threshold=30)
+TRAIN_SMOKE = ("gemma-2b", "qwen3-moe-235b-a22b", "whisper-tiny")
+TRAIN_SMOKE_STEPS = 3
+# card vs CPU in float32 compute: loss and grad norm (the 3xTF32 attention
+# and both backward orders of summation), parameters after one step at lr
+# 1e-3 (the reference's own microbatch bound); the resumed run's losses
+TRAIN_SMOKE_RTOL = 1e-4
+TRAIN_PARAM_ATOL = 5e-4
+RESUME_RTOL = 1e-4
+# the backward kernel against its plain version: each of dq, dk and dv
+# within this share of the tensor's largest entry (the forward's 3xTF32
+# output and lse, float32 sums in another order, ex2 / rcp ulps)
+FLASH_BWD_REL_TOL = 2e-4
+# kernels one launch of a wrapper runs on the card (the backward: delta,
+# the dK / dV pass, the dQ pass); every other wrapper runs one
+KERNELS_PER_LAUNCH = {"flash_attn_bwd": 3}
 PROFILE_PAD = 32
 # tiny kernels launched first in each torch.profiler session, one entry a
 # try: the profiler drops the first kernels of a session, the more of them
@@ -901,12 +943,14 @@ def run(dev: torch.device, t_start: float) -> None:
     torch.cuda.empty_cache()
     serve = run_serving(dev)
     lm = run_lm_decode(dev)
+    train = run_training(dev)
     for k in launches:
-        launches[k] += serve["counts"][k] + lm["counts"][k]
+        launches[k] += serve["counts"][k] + lm["counts"][k] + train["counts"][k]
     for rec in kernels:
         rec["launches"] = launches[rec["name"]]
     kernels += serve_kernels_vs_plain(serve, launches)
     decode_kernels_vs_plain(kernels, lm)
+    kernels.append(flash_bwd_kernels_vs_plain(launches))
     pool_rec = next(rec for rec in kernels if rec["name"] == "pool_topk")
     pool_rec["pool"]["serving"] = pool_record("serving", serve["recorded"]["pool_topk"][0],
                                               dedupe_topk_scatter)
@@ -2619,14 +2663,21 @@ def serve_async_cli() -> None:
 
 
 # kernel-name fragments -> the part of a served batch they belong to
-KERNEL_GROUPS = (("flash_attn_kernel", "flash_attn"), ("ssm_scan_kernel", "ssm_scan"),
+# a kernel's group: the first fragment its lower-cased name holds ("nvjet":
+# cuBLAS's bf16 GEMMs on Hopper; the elementwise and reduction groups are
+# torch's own kernels, the train step's casts, clip and AdamW among them)
+KERNEL_GROUPS = (("flash_attn_kernel", "flash_attn"), ("flash_attn_bwd", "flash_attn_bwd"),
+                 ("ssm_scan_kernel", "ssm_scan"),
                  ("gemm", "matmul (cuBLAS)"), ("gemv", "matmul (cuBLAS)"),
+                 ("nvjet", "matmul (cuBLAS)"),
                  ("splitkreduce", "matmul (cuBLAS)"), ("csa_probe_kernel", "index kernels"),
                  ("pool_topk_kernel", "index kernels"),
                  ("gather_scan_kernel", "index kernels"), ("gather_topk_kernel", "index kernels"),
                  ("gather_merge", "index kernels"), ("gather_emit_kernel", "index kernels"),
                  ("circrun_kernel", "index kernels"),
-                 ("circrun_topk_kernel", "index kernels"))
+                 ("circrun_topk_kernel", "index kernels"),
+                 ("elementwise_kernel", "elementwise (torch)"),
+                 ("reduce_kernel", "reductions (torch)"))
 
 
 def profile_call(run, phase: str, **fields) -> None:
@@ -2634,8 +2685,9 @@ def profile_call(run, phase: str, **fields) -> None:
     one call, after an untimed call and a marker kernel in the same session;
     device time and kernels summed by kernel group, and the share of the
     call's wall time in which no kernel ran (measured under the profiler,
-    which adds host time).  The flash_attn and ssm_scan kernels seen must
-    equal their launches (`common.LAUNCHES`) over the call: a session that
+    which adds host time).  The flash_attn, flash_attn_bwd (three kernels a
+    launch) and ssm_scan kernels seen must equal their launches
+    (`common.LAUNCHES`) over the call: a session that
     saw fewer is run again with more lead kernels (PROFILE_LEAD_KERNELS),
     and after three the run fails.  Emits one line of `phase` with
     `fields`."""
@@ -2658,7 +2710,8 @@ def profile_call(run, phase: str, **fields) -> None:
             g = next((grp for frag, grp in KERNEL_GROUPS if frag in e.name.lower()), "other")
             groups[g] = groups.get(g, 0.0) + e.time_range.elapsed_us() / 1e3
             seen[g] = seen.get(g, 0) + 1
-        expected = {k: out["counts"][k] for k in ("flash_attn", "ssm_scan")}
+        expected = {k: out["counts"][k] * KERNELS_PER_LAUNCH.get(k, 1)
+                    for k in ("flash_attn", "flash_attn_bwd", "ssm_scan")}
         if any(seen.get(k, 0) > n for k, n in expected.items()):
             fail(f"{phase}: the profiler saw {seen}, more than the launches {expected}")
         if all(seen.get(k, 0) == n for k, n in expected.items()):
@@ -3558,6 +3611,384 @@ def serve_kernels_vs_plain(serve: dict, launches: dict) -> list:
     emit(phase="kernels_vs_plain", kernels=["flash_attn", "ssm_scan"],
          tolerance=dict(flash_attn=FLASH_TOL, ssm_scan=SCAN_TOL), ok=True)
     return kernels
+
+
+def run_training(dev) -> dict:
+    """Phases train_full, train_smoke_vs_cpu, train_resume and
+    train_refused (after the LM phases have freed their models); returns
+    the launches of the training paths."""
+    from repro_torch.kernels import common
+
+    counts = {k: 0 for k in common.LAUNCHES}
+    for part in (train_full(dev), train_smoke_vs_cpu(dev), train_resume(dev)):
+        for k in counts:
+            counts[k] += part[k]
+    train_refused(dev)
+    return dict(counts=counts)
+
+
+def train_batch(cfg, step: int, B: int = 4, S: int = 32) -> dict:
+    """A smoke training batch: the pipeline's tokens and labels at `step`,
+    a mask with the last row dropped, whisper's frames N(0, 1) from a seed."""
+    from repro_torch.data import lm_token_batches
+
+    toks, labels = lm_token_batches(cfg.vocab, seed=0)(step, B, S)
+    mask = np.ones(toks.shape, np.float32)
+    mask[-1] = 0.0
+    out = {"tokens": toks, "labels": labels, "mask": mask}
+    if cfg.enc_dec:
+        out["frames"] = np.random.default_rng(step).normal(
+            size=(B, cfg.n_audio_frames, cfg.d_model)).astype(np.float32)
+    return out
+
+
+def train_full(dev) -> dict:
+    """Phase train_full: gemma-2b at full width and depth (18 layers, 2.506 B
+    parameters, seed 0) takes TRAIN_STEPS steps of `make_train_step` (bf16
+    compute over float32 masters, clip, cosine-scheduled AdamW with float32
+    moments) on batches of a `DataPipeline` through the near-dup filter, as
+    the Trainer drives them, without the checkpoint (a full-width state is
+    30 GB of host disk).  Gates: every loss finite, the last below the
+    first, exactly one flash_attn and one flash_attn_bwd launch an attention
+    layer a step and nothing else in a step, the filter's circrun and
+    circrun_topk launches; no plain version runs.  Reports the step times
+    (host clock fenced by the metrics' read), tokens/s, peak device memory
+    beside the state's bytes, one profiled step, the dropped rows."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import DataPipeline, lm_token_batches
+    from repro_torch.data.dedup import NearDupFilter
+    from repro_torch.kernels import common
+    from repro_torch.models import param_count
+    from repro_torch.optim import cosine_schedule
+    from repro_torch.train import init_train_state, make_train_step
+
+    cfg = ARCHS[TRAIN_ARCH]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    state, init_s = sync_time(lambda: init_train_state(cfg, 0, dev))
+    n_params = param_count(state.model)
+    dedup = NearDupFilter(threshold=TRAIN["dedup_threshold"], device=dev)
+    pipe = DataPipeline(lm_token_batches(cfg.vocab, seed=0), global_batch=TRAIN["global_batch"],
+                        seq_len=TRAIN["seq_len"], dedup=dedup)
+    step = make_train_step(cfg, lambda s: cosine_schedule(
+        s, peak_lr=TRAIN["peak_lr"], warmup=TRAIN["warmup"], total=TRAIN["total"]),
+        clip_norm=TRAIN["clip"])
+    n_attn = lm_kernel_layers(cfg)[0]["flash_attn"]
+    want = {k: 0 for k in common.LAUNCHES}
+    want.update(flash_attn=n_attn, flash_attn_bwd=n_attn)
+    history, secs = [], []
+    common.reset_launch_counts()
+    with plain_versions_refused():
+        for i in range(TRAIN_STEPS):
+            batch = next(pipe)
+            before = common.launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            metrics = {k: float(v) for k, v in metrics.items()}  # waits for the step
+            secs.append(time.perf_counter() - t0)
+            after = common.launch_counts()
+            got = {k: after[k] - before[k] for k in after}
+            if got != want:
+                fail(f"train_full: step {i} launched {got}, expected {want}")
+            history.append(dict(step=i + 1, **metrics))
+    counts = common.launch_counts()
+    peak = torch.cuda.max_memory_allocated() - base
+    losses = [h["loss"] for h in history]
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        fail(f"train_full: losses {losses} not finite and falling")
+    if counts["circrun"] == 0 or counts["circrun_topk"] == 0:
+        fail(f"train_full: the near-dup filter launched no circrun kernel: {counts}")
+    med = statistics.median(secs)
+    tokens = TRAIN["global_batch"] * TRAIN["seq_len"]
+    gb = 4 * n_params / 1e9
+    emit(phase="train_full", arch=cfg.name, layers=cfg.n_layers, params=n_params,
+         steps=TRAIN_STEPS,
+         config=dict(TRAIN, compute_dtype="bfloat16", opt_dtype="float32"), init_s=init_s,
+         step_ms_median=med * 1e3, step_ms=[t * 1e3 for t in secs], tokens_per_s=tokens / med,
+         losses=losses, history=history, launches=counts, launches_per_step=want,
+         dropped_rows=dedup.n_dropped, peak_mem_over_base_bytes=peak,
+         state_gb=dict(params_m_v=3 * gb, grads=gb, bf16_copies=gb / 2))
+    last = next(pipe)
+    profile_call(lambda: step(state, last), "profile_train_step", arch=cfg.name,
+                 tokens=tokens)
+    del state, pipe, dedup, step, last
+    torch.cuda.empty_cache()
+    return counts
+
+
+def train_smoke_vs_cpu(dev) -> dict:
+    """Phase train_smoke_vs_cpu: smoke gemma-2b, qwen3-moe (the aux loss)
+    and whisper-tiny (frames, cross attention) take TRAIN_SMOKE_STEPS steps
+    in float32 compute on the card and on the CPU from the same weights and
+    batches: losses and grad norms within TRAIN_SMOKE_RTOL every step, the
+    parameters within TRAIN_PARAM_ATOL after the first."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.kernels import common
+    from repro_torch.train import init_train_state, make_train_step
+
+    counts = {k: 0 for k in common.LAUNCHES}
+    for arch in TRAIN_SMOKE:
+        cfg = ARCHS[arch].smoke()
+        cpu = init_train_state(cfg, 0, "cpu")
+        card = init_train_state(cfg, 0, dev)
+        with torch.no_grad():
+            for a, b in zip(card.model.parameters(), cpu.model.parameters()):
+                a.copy_(b)
+        step = make_train_step(cfg, lambda s: 1e-3, compute_dtype=torch.float32)
+        common.reset_launch_counts()
+        rows, param_diff = [], None
+        for i in range(TRAIN_SMOKE_STEPS):
+            batch = train_batch(cfg, i)
+            card, mc = step(card, batch)
+            cpu, mp = step(cpu, batch)
+            mc, mp = ({k: float(v) for k, v in m.items()} for m in (mc, mp))
+            rows.append(dict(step=i + 1, card=mc, cpu=mp))
+            for key in ("loss", "grad_norm"):
+                if abs(mc[key] - mp[key]) > TRAIN_SMOKE_RTOL * abs(mp[key]):
+                    fail(f"train_smoke_vs_cpu: {arch} step {i + 1} {key} card {mc[key]} "
+                         f"cpu {mp[key]}")
+            if i == 0:
+                param_diff = max(float((a.detach().cpu() - b.detach()).abs().max())
+                                 for a, b in zip(card.model.parameters(),
+                                                 cpu.model.parameters()))
+                if param_diff > TRAIN_PARAM_ATOL:
+                    fail(f"train_smoke_vs_cpu: {arch} parameters {param_diff} apart after "
+                         "one step")
+        part = common.launch_counts()
+        n_attn = lm_kernel_layers(cfg)[0]["flash_attn"]
+        if part["flash_attn"] != TRAIN_SMOKE_STEPS * n_attn or part["flash_attn_bwd"] != \
+                TRAIN_SMOKE_STEPS * n_attn:
+            fail(f"train_smoke_vs_cpu: {arch} launched {part}, {n_attn} a step expected")
+        for k in counts:
+            counts[k] += part[k]
+        emit(phase="train_smoke_vs_cpu", arch=arch, steps=rows,
+             param_max_abs_diff_after_step_1=param_diff, launches=part,
+             tolerance=dict(rtol=TRAIN_SMOKE_RTOL, param_atol=TRAIN_PARAM_ATOL))
+    return counts
+
+
+def train_resume(dev) -> dict:
+    """Phase train_resume: the Trainer on the card at smoke size on the
+    reference test's schedule (6 steps, stop, resume to 12) against an
+    uninterrupted 12, losses at steps 9 and 12 within RESUME_RTOL; then one
+    run each of `launch.train --smoke --dedup --ckpt-dir D` and
+    `launch.serve --smoke --ckpt-dir D`, which must print `restored step`."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import DataPipeline, lm_token_batches
+    from repro_torch.kernels import common
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = ARCHS[TRAIN_ARCH].smoke()
+    common.reset_launch_counts()
+    root = Path(__file__).resolve().parent
+    env = {**os.environ, "PYTHONPATH": str(root / "src")}
+    with tempfile.TemporaryDirectory() as tmp:
+        def trainer(steps, d):
+            pipe = DataPipeline(lm_token_batches(cfg.vocab, seed=1), global_batch=4, seq_len=16)
+            return Trainer(cfg, pipe, TrainerConfig(steps=steps, total_steps=12, ckpt_every=3,
+                                                    ckpt_dir=str(Path(tmp) / d), log_every=3,
+                                                    warmup=2), device=dev)
+
+        first = trainer(6, "a").run()
+        resumed = trainer(12, "a").run()
+        straight = trainer(12, "b").run()
+        h_res = {h["step"]: h["loss"] for h in resumed["history"]}
+        h_str = {h["step"]: h["loss"] for h in straight["history"]}
+        for s in (9, 12):
+            if abs(h_res[s] - h_str[s]) > RESUME_RTOL * abs(h_str[s]):
+                fail(f"train_resume: step {s} loss {h_res[s]} resumed, {h_str[s]} straight")
+        counts = common.launch_counts()
+        ck = str(Path(tmp) / "cli")
+        cli = {}
+        for name, args in (("train", ["repro_torch.launch.train", "--arch", TRAIN_ARCH,
+                                      "--smoke", "--dedup", "--steps", "10", "--ckpt-dir", ck]),
+                           ("serve", ["repro_torch.launch.serve", "--arch", TRAIN_ARCH,
+                                      "--smoke", "--corpus", "64", "--requests", "16", "--m",
+                                      "16", "--ckpt-dir", ck])):
+            t0 = time.perf_counter()
+            out = subprocess.run([sys.executable, "-m", *args], capture_output=True, text=True,
+                                 timeout=600, cwd=root, env=env)
+            if out.returncode != 0:
+                fail(f"train_resume: launch.{name} exit {out.returncode}\n"
+                     f"{out.stdout[-3000:]}\n{out.stderr[-3000:]}")
+            cli[name] = dict(seconds=time.perf_counter() - t0,
+                             stdout=[ln for ln in out.stdout.splitlines()
+                                     if ln.startswith("[")][-3:])
+        if "restored step 10" not in out.stdout:
+            fail(f"train_resume: launch.serve did not restore the trained step:\n"
+                 f"{out.stdout[-2000:]}")
+    emit(phase="train_resume", arch=cfg.name, first=first["final_step"],
+         resumed=resumed["final_step"], losses_resumed=h_res, losses_straight=h_str,
+         rtol=RESUME_RTOL, cli=cli)
+    return counts
+
+
+def train_refused(dev) -> None:
+    """Phase train_refused: a falcon-mamba-7b smoke train step on the card
+    raises from ssm_scan's forward_only (its backward is not ported): no
+    fallback to the plain scan, no gradient that stops silently."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.train import init_train_state, make_train_step
+
+    cfg = ARCHS["falcon-mamba-7b"].smoke()
+    state = init_train_state(cfg, 0, dev)
+    step = make_train_step(cfg, lambda s: 1e-3, compute_dtype=torch.float32)
+    try:
+        step(state, train_batch(cfg, 0))
+    except RuntimeError as e:
+        if "ssm_scan" not in str(e) or "no backward" not in str(e):
+            fail(f"train_refused: falcon-mamba-7b raised another error: {e}")
+        emit(phase="train_refused", arch=cfg.name, error=str(e).splitlines()[0])
+    else:
+        fail("train_refused: a falcon-mamba-7b train step ran on the card")
+
+
+def flash_bwd_kernels_vs_plain(launches: dict) -> dict:
+    """The kernels line's record of flash_attn_bwd: the backward kernel
+    against its plain version (flash_attn_bwd_record) at gemma-2b's
+    training shape and, under `long`, at the long causal shape, gemma2-9b's
+    window with softcap, whisper's cross attention and a shape with rows
+    that see no key."""
+    dev = torch.device("cuda", torch.cuda.current_device())
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    causal = dict(causal=True, window=0, softcap=0.0)
+    shapes = (
+        ("gemma-2b training, B 8, S 64, Hq 8 / Hkv 1, dh 256, causal", (8, 64, 64, 8, 1, 256),
+         causal),
+        ("B 4, S 2048, Hq 16 / Hkv 8, dh 256, causal", (4, 2048, 2048, 16, 8, 256), causal),
+        ("gemma2-9b, B 4, S 2048, window 1024, softcap 50", (4, 2048, 2048, 16, 8, 256),
+         dict(causal=True, window=1024, softcap=50.0)),
+        ("whisper-tiny cross, B 4, Sq 640 over 1,500, 6 heads of 64, not causal",
+         (4, 640, 1500, 6, 6, 64), dict(causal=False, window=0, softcap=0.0)),
+        ("rows with no key, B 2, Sq 150 > Skv 70, Hq 4 / Hkv 2, dh 64, causal",
+         (2, 150, 70, 4, 2, 64), causal))
+    recs = {}
+    for tag, (B, Sq, Skv, Hq, Hkv, dh), kw in shapes:
+        q = torch.randn((B, Sq, Hq, dh), generator=g, device=dev)
+        k, v = (torch.randn((B, Skv, Hkv, dh), generator=g, device=dev) for _ in range(2))
+        do = torch.randn((B, Sq, Hq, dh), generator=g, device=dev)
+        recs[tag] = flash_bwd_record(q, k, v, do, kw)
+        del q, k, v, do
+        torch.cuda.empty_cache()
+    main_tag = shapes[0][0]
+    rec = dict(name="flash_attn_bwd", route="cuda",
+               source="src/repro_torch/kernels/csrc/flash_attn_bwd.cu",
+               replaces="src/repro/models/attention.py:72 (jax.value_and_grad of "
+                        "chunked_attention, src/repro/train/step.py:47-53; "
+                        "src/repro/kernels/flash_attn/flash_attn.py:88 has no backward)",
+               launches=launches["flash_attn_bwd"], **recs.pop(main_tag),
+               library_call="autograd of scaled_dot_product_attention, float32 (same mask, "
+                            "no softcap, enable_gqa)",
+               long=recs)
+    emit(phase="kernels_vs_plain", kernels=["flash_attn_bwd"],
+         tolerance=dict(flash_attn_bwd=f"{FLASH_BWD_REL_TOL} of each gradient's largest "
+                                       "entry; lse within FLASH_TOL; bit-identical reruns"),
+         ok=True)
+    return rec
+
+
+def sdpa_backward(q, k, v, do, kw):
+    """SDPA's float32 backward on the same inputs (the same mask as
+    flash_record's; no softcap), as a timed call, and the name of the first
+    backend, in SDPA's order, that runs it."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    from repro_torch.kernels.flash_attn import attn_mask
+
+    Sq, Skv = q.shape[1], k.shape[1]
+    mask = attn_mask(Sq, Skv, causal=kw["causal"], window=kw["window"], device=q.device)
+    sdpa_mask = None if kw["window"] == 0 and (Sq == Skv or not kw["causal"]) else mask
+    ins = [t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v)]
+    dot = do.transpose(1, 2).contiguous()
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        try:
+            with sdpa_kernel([backend]):
+                out = torch.nn.functional.scaled_dot_product_attention(
+                    *ins, attn_mask=sdpa_mask, is_causal=kw["causal"] and sdpa_mask is None,
+                    enable_gqa=True)
+                torch.autograd.grad(out, ins, dot, retain_graph=True)
+            torch.cuda.synchronize()
+        except RuntimeError:
+            continue
+
+        def run(out=out):
+            return torch.autograd.grad(out, ins, dot, retain_graph=True)
+
+        return run, backend.name
+    fail("flash_attn_bwd: no SDPA backend ran the float32 backward")
+
+
+def flash_bwd_record(q, k, v, do, kw: dict) -> dict:
+    """flash_attn_bwd against its plain version on one input: the forward
+    kernel's o and lse (written when autograd needs them), then the backward
+    kernel twice (bit-identical, or the run fails), against
+    flash_attention_bwd_ref on the plain forward's o and lse: each of dq,
+    dk, dv within FLASH_BWD_REL_TOL of its largest entry, the lse within
+    FLASH_TOL where a row sees a key and +inf where it sees none.  Times:
+    CUDA events around one call, the mean device time of a call's three
+    kernels under torch.profiler, the plain version's, SDPA's float32
+    backward (`sdpa_backward`, its backend named).  Bound: the largest of
+    the bytes (q, k, v, o, dO, lse read once, dq, dk, dv written once), the
+    five products (2 dh operations each for every unmasked pair: 2.5 times
+    the forward's two) at the 3xTF32 rate as the forward's bound takes
+    them, and one exp a pair; the float32 pipe's time for the products
+    (`fp32`, the bound of this design's FMAs) beside them."""
+    from repro_torch.kernels import common
+    from repro_torch.kernels.flash_attn import (attn_mask, flash_attention_bwd,
+                                                flash_attention_bwd_ref, flash_attention_ref)
+    from repro_torch.kernels.flash_attn import ops as flash_ops
+
+    B, Sq, Hq, dh = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    o, lse = flash_ops._forward(q, k, v, kw["causal"], kw["window"], kw["softcap"], True)
+    before = common.launch_counts()["flash_attn_bwd"]
+    got = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    again = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    if common.launch_counts()["flash_attn_bwd"] != before + 2:
+        fail("flash_attn_bwd: a call did not launch its kernels once")
+    if not all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(got, again)):
+        fail(f"flash_attn_bwd: two runs differ at {tuple(q.shape)} {kw}")
+    o_ref, lse_ref = flash_attention_ref(q, k, v, return_lse=True, **kw)
+    ref = flash_attention_bwd_ref(q, k, v, o_ref, lse_ref, do, **kw)
+    errs = {}
+    for tag, a, b in zip(("dq", "dk", "dv"), got, ref):
+        scale = max(float(b.abs().max()), 1e-30)
+        errs[tag] = dict(max_abs_err=float((a - b).abs().max()), largest=scale)
+        if (not bool(torch.isfinite(a).all())
+                or errs[tag]["max_abs_err"] > FLASH_BWD_REL_TOL * scale):
+            fail(f"flash_attn_bwd: {tag} off its plain version at {tuple(q.shape)} {kw}: {errs}")
+    finite = torch.isfinite(lse_ref)
+    if not torch.equal(torch.isfinite(lse), finite) or not bool(torch.isinf(lse[~finite]).all()):
+        fail("flash_attn_bwd: the forward's lse is not +inf exactly where a row sees no key")
+    torch.testing.assert_close(lse[finite], lse_ref[finite], **FLASH_TOL)
+    lse_err = float((lse[finite] - lse_ref[finite]).abs().max())
+    del ref, o_ref, lse_ref, again
+    mask = attn_mask(Sq, Skv, causal=kw["causal"], window=kw["window"], device=q.device)
+    pairs = int(mask.sum()) * B * Hq
+    nbytes = 4 * (4 * B * Sq * Hq * dh + 4 * B * Skv * Hkv * dh + B * Sq * Hq)
+    flops = 10 * dh * pairs
+    terms = dict(bytes=nbytes / HBM_BYTES_PER_S * 1e3, tf32x3=3 * flops / TF32_FLOPS * 1e3,
+                 exp=pairs / SFU_EXP_PER_S * 1e3)
+    term = max(terms, key=terms.get)
+    call = lambda: flash_attention_bwd(q, k, v, o, lse, do, **kw)  # noqa: E731
+    sdpa, backend = sdpa_backward(q, k, v, do, kw)
+    rec = dict(max_abs_err=max(e["max_abs_err"] for e in errs.values()), errors=errs,
+               lse_max_abs_err=lse_err, ms=median_ms(call, 10),
+               **device_ms(call, 10, KERNELS_PER_LAUNCH["flash_attn_bwd"], "flash_attn_bwd"),
+               plain_ms=median_ms(lambda: flash_attention_bwd_ref(q, k, v, o, lse, do, **kw), 3),
+               bound_ms=terms[term], bound_by="bytes" if term == "bytes" else "operations",
+               bound_term=term, bound_terms_ms=dict(terms, fp32=flops / FP32_FLOPS * 1e3),
+               library_ms=median_ms(sdpa, 10), **device_ms(sdpa, 10, key="library_device"),
+               library_backend=backend, bit_identical_reruns=True,
+               shape=dict(B=B, Sq=Sq, Skv=Skv, Hq=Hq, Hkv=Hkv, dh=dh, **kw,
+                          unmasked_pairs=pairs))
+    return rec
 
 
 if __name__ == "__main__":

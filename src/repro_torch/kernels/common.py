@@ -65,8 +65,13 @@ SIGNATURES = {
     "circrun_score_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # lens, hist, vals, rows, n, m, B, k, ld, stream
     "circrun_topk_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _P),
-    # q, k, v, o, B, Sq, Skv, Hq, Hkv, dh, causal, window, softcap, stream
-    "flash_attn_launch": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    # q, k, v, o, lse (nullptr: none), B, Sq, Skv, Hq, Hkv, dh, causal, window, softcap,
+    # stream
+    "flash_attn_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    # q, k, v, o, lse, dO, dq, dk, dv, delta, B, Sq, Skv, Hq, Hkv, dh, causal, window,
+    # softcap, stream
+    "flash_attn_bwd_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                              _I, _I, _F, _P),
     # dt, x, Bc, Cc, A, h0, y, h_out, B, L, D, N, stream
     "ssm_scan_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }
@@ -77,7 +82,7 @@ SIGNATURES = {
 LAUNCHES: dict[str, int] = {"csa_probe": 0, "pool_topk": 0, "gather_l2": 0, "gather_q": 0,
                             "gather_l2_topk": 0, "gather_q_topk": 0, "hash_rp": 0,
                             "hash_xp": 0, "circrun": 0, "circrun_topk": 0, "flash_attn": 0,
-                            "ssm_scan": 0}
+                            "flash_attn_bwd": 0, "ssm_scan": 0}
 
 _lock = threading.Lock()
 _count_lock = threading.Lock()
@@ -219,14 +224,21 @@ def check(name: str, t: torch.Tensor, *, device: torch.device, dtype: torch.dtyp
         raise ValueError(f"{name}: must be contiguous")
 
 
-def forward_only(kernel: str, *tensors: torch.Tensor) -> None:
+def needs_grad(*tensors: torch.Tensor) -> bool:
+    """Whether autograd would record through a call on `tensors`: grad mode
+    is on and one of them requires grad."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+def forward_only(kernel: str, *tensors: torch.Tensor, todo: str = "") -> None:
     """Raise when autograd would record through a kernel that has no
-    backward: grad mode is on and an input requires grad.  The kernel writes
-    its output through raw pointers, so the output would carry no grad_fn
-    and the gradient would stop there without an error."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+    backward (`needs_grad`).  The kernel writes its output through raw
+    pointers, so the output would carry no grad_fn and the gradient would
+    stop there without an error.  `todo` names the work that ports the
+    backward."""
+    if needs_grad(*tensors):
         raise RuntimeError(
-            f"{kernel}: the CUDA kernel has no backward; call it under torch.no_grad() or "
-            "torch.inference_mode(), or on inputs that do not require grad (the plain "
-            "version on CPU tensors is differentiable)"
+            f"{kernel}: the CUDA kernel has no backward{f' ({todo})' if todo else ''}; call "
+            "it under torch.no_grad() or torch.inference_mode(), or on inputs that do not "
+            "require grad (the plain version on CPU tensors is differentiable)"
         )

@@ -6,6 +6,12 @@
 // aligned: query i sits at position i + Skv - Sq; causal keeps keys j <= that
 // position, a window w > 0 keeps keys j > position - w; cap(s) = c tanh(s / c)
 // when the softcap c > 0.  A row with no key left is written as 0.
+// Given an lse pointer (B, Sq, Hq) float32 (the backward's, csrc/
+// flash_attn_bwd.cu, needs it), the kernel also writes each row's
+// log-sum-exp in base 2 of the scores it exponentiates: lse = log2 sum_j
+// 2^x_j, x_j = cap(s_j) log2(e), so that the row's probabilities are
+// 2^(x_j - lse); a row with no key holds +inf (every 2^(x - lse) is then 0).
+// A null lse pointer writes nothing else: the serving and decode launches.
 //
 // Replaces: src/repro/kernels/flash_attn/flash_attn.py, flash_attn_pallas (and
 // the per-(batch, head) vmap of src/repro/kernels/flash_attn/ops.py).  Unlike
@@ -98,6 +104,7 @@ struct Args {
   const float* k;
   const float* v;
   float* o;
+  float* lse;  // nullptr: no row statistics
   int Sq, Skv, Hq, Hkv, dh;
   int G;     // query heads a kv head
   int rows;  // Sq * G rows a (batch row, kv head)
@@ -451,6 +458,11 @@ __global__ void __launch_bounds__(kSlabs * KS * 32, 1) flash_attn_kernel(const A
     const float inv = 1.f / fmaxf(l, 1e-30f);
     const int r = r0 + 16 * slab + g + 8 * u;
     if (r >= a.rows) continue;
+    if (a.lse != nullptr && part == 0 && t == 0) {  // m_run and l: the same in the row's lanes
+      const long long i = r / a.G;
+      a.lse[(long long)b * a.Sq * a.Hq + (long long)kvh * a.G + i * a.Hq + (r - i * a.G)] =
+          m_run[u] == -INFINITY ? INFINITY : m_run[u] + log2f(l);
+    }
     float* orow = ob + row_off(r) + DW * part;
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
@@ -498,9 +510,9 @@ bool aligned(const void* p, uintptr_t n) { return reinterpret_cast<uintptr_t>(p)
 
 }  // namespace
 
-extern "C" int flash_attn_launch(const void* q, const void* k, const void* v, void* o, int B,
-                                 int Sq, int Skv, int Hq, int Hkv, int dh, int causal,
-                                 int window, float softcap, void* stream) {
+extern "C" int flash_attn_launch(const void* q, const void* k, const void* v, void* o,
+                                 void* lse, int B, int Sq, int Skv, int Hq, int Hkv, int dh,
+                                 int causal, int window, float softcap, void* stream) {
   if (B < 0 || Sq < 0 || Skv < 0 || Hq < 1 || Hkv < 1 || Hq % Hkv != 0 || dh < 1 || dh > 256)
     return (int)cudaErrorInvalidValue;
   const long long rows = (long long)Sq * (Hq / Hkv);
@@ -513,8 +525,8 @@ extern "C" int flash_attn_launch(const void* q, const void* k, const void* v, vo
   if (err != cudaSuccess) return (int)err;
   const float scale = 1.f / sqrtf((float)dh);
   Args a{static_cast<const float*>(q), static_cast<const float*>(k),
-         static_cast<const float*>(v), static_cast<float*>(o), Sq, Skv, Hq, Hkv, dh,
-         Hq / Hkv, (int)rows, causal, window, softcap, scale * kLog2e,
+         static_cast<const float*>(v), static_cast<float*>(o), static_cast<float*>(lse), Sq,
+         Skv, Hq, Hkv, dh, Hq / Hkv, (int)rows, causal, window, softcap, scale * kLog2e,
          softcap > 0.f ? 2.f * kLog2e * scale / softcap : 0.f, softcap * kLog2e,
          dh % 4 == 0 && aligned(q, 16) && aligned(k, 16) && aligned(v, 16),
          dh % 2 == 0 && aligned(o, 8)};

@@ -34,7 +34,8 @@ def ssm_scan(dt, x, Bc, Cc, A, h0, *, seq_chunk: int = SEQ_CHUNK):
         return (torch.cat(ys, dim=1) if ys else dt.new_zeros(dt.shape)), h
     if dt.device.type != "cuda":
         raise ValueError(f"ssm_scan: unsupported device {dt.device}")
-    common.forward_only("ssm_scan", dt, x, Bc, Cc, A, h0)
+    common.forward_only("ssm_scan", dt, x, Bc, Cc, A, h0,
+                        todo="ROADMAP A11 step 6: the scan's backward kernel")
     N = Bc.shape[2]
     dev = dt.device
     for name, t, shape in (("dt", dt, (B, L, D)), ("x", x, (B, L, D)), ("Bc", Bc, (B, L, N)),

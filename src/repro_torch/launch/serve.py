@@ -3,7 +3,8 @@ over a corpus of token documents (port of `repro.launch.serve`).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch gemma-2b --smoke \\
         --corpus 512 --requests 128 [--dynamic] [--store int8] [--device cpu] \\
-        [--shards 4] [--build-chunk-rows 4096] [--async --replicas 2 --slo-ms 500]
+        [--shards 4] [--build-chunk-rows 4096] [--async --replicas 2 --slo-ms 500] \
+        [--ckpt-dir DIR]
 
 Serves from random-init weights (`init_model`, seed 0) on the card unless
 `--device cpu`.  `--arch` names an architecture of the port's registry
@@ -34,7 +35,9 @@ staged, per-stage-timed plans (the same bits); --drift-probe N replays N
 pinned corpus queries against brute-force ground truth after serving and
 reports the recall (the repro_recall_drift gauge).
 
-Not offered yet: `--ckpt-dir` (ROADMAP A11).
+--ckpt-dir DIR serves the weights of the latest checkpoint in DIR (a train
+state that `repro_torch.launch.train --ckpt-dir DIR` or the reference's
+launcher wrote) in place of the random ones, as the reference does.
 """
 from __future__ import annotations
 
@@ -43,6 +46,7 @@ import time
 
 import numpy as np
 
+from ..checkpoint import CheckpointManager
 from ..configs import ARCHS
 from ..core import SearchParams, available_sources
 from ..core.params import _suppress_width_warning
@@ -195,6 +199,9 @@ def build_parser() -> argparse.ArgumentParser:
                          "global top-k merge); on one card the shards run in "
                          "turn, so this is slower than the monolithic index "
                          "and is not a speed option")
+    ap.add_argument("--ckpt-dir", default=None,
+                    help="serve the latest checkpoint a training run wrote there "
+                         "(`repro_torch.launch.train --ckpt-dir`, or the reference's)")
     ap.add_argument("--device", default="cuda",
                     help="device of the model and the index (cuda or cpu)")
     ap.add_argument("--async", dest="async_serve", action="store_true",
@@ -264,6 +271,12 @@ def main(argv: list[str] | None = None) -> None:
         cfg = cfg.smoke()
     check_servable(cfg)
     model = init_model(cfg, seed=0, device=args.device)
+    if args.ckpt_dir:
+        mgr = CheckpointManager(args.ckpt_dir)
+        if mgr.latest_step() is not None:
+            meta = mgr.restore_model(model)
+            print(f"[launch.serve] restored step {meta['step']} from {args.ckpt_dir}",
+                  flush=True)
 
     # observability front: metrics endpoint + periodic log line + tracing
     metrics_srv, stats_log = None, None

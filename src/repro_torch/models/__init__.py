@@ -6,11 +6,13 @@ embeddings spliced ahead of the text, M-RoPE); the whisper encoder-decoder
 (cross attention through `flash_attn`) -- their forward, loss, and prefill
 and one-token decode with KV, SSM and cross-attention caches."""
 from .api import decode_step, init_caches, init_model, loss_fn, param_count, prefill
-from .convert import caches_from_reference, params_from_reference
+from .convert import (caches_from_reference, params_from_reference, params_to_reference,
+                      train_state_from_reference, train_state_to_reference)
 from .lm import LM
 from .vlm import mrope_positions, splice_patches
 from .whisper import Whisper, WhisperCache
 
 __all__ = ["LM", "Whisper", "WhisperCache", "caches_from_reference", "decode_step",
            "init_caches", "init_model", "loss_fn", "mrope_positions", "param_count",
-           "params_from_reference", "prefill", "splice_patches"]
+           "params_from_reference", "params_to_reference", "prefill", "splice_patches",
+           "train_state_from_reference", "train_state_to_reference"]

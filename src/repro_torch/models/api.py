@@ -33,8 +33,9 @@ def init_model(cfg, seed: int = 0, device=None) -> LM | Whisper:
     encoder-decoder, else an `LM`) on `device` (None = CUDA; raises without
     it).  The weights are drawn on the device itself from a
     `torch.Generator` seeded with `seed`, so a full-width model is never
-    built on the host and copied.  Returned in eval mode without gradients
-    (the port serves; it does not train yet)."""
+    built on the host and copied.  Returned in eval mode without gradients,
+    as serving runs it; `train.init_train_state` makes the parameters
+    trainable."""
     dev = resolve_device(device)
     model = Whisper(cfg, device=dev) if cfg.enc_dec else LM(cfg, device=dev)
     gen = torch.Generator(device=dev)

@@ -98,11 +98,15 @@ class Attention(nn.Module):
         return q, k, v
 
     def _attend(self, q, k, v) -> torch.Tensor:
-        """q (B, S, Hq, dh) over k, v -> the output projection (B, S, D)."""
+        """q (B, S, Hq, dh) over k, v -> the output projection (B, S, D).  The
+        attention runs in float32 and its output is cast back to q's dtype,
+        as the reference's (a bf16 training forward reaches the float32
+        kernel; float32 serving is unchanged)."""
         cfg = self.cfg
-        out = flash_ops.flash_attention(q, k, v, causal=cfg.causal, window=cfg.window,
-                                        softcap=cfg.softcap)
-        return out.reshape(q.shape[0], q.shape[1], -1) @ self.wo
+        f32 = torch.float32
+        out = flash_ops.flash_attention(q.to(f32), k.to(f32), v.to(f32), causal=cfg.causal,
+                                        window=cfg.window, softcap=cfg.softcap)
+        return out.to(q.dtype).reshape(q.shape[0], q.shape[1], -1) @ self.wo
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor | None) -> torch.Tensor:
         """x: (B, S, D), positions as `project_qkv` -> (B, S, D)."""

@@ -1,9 +1,13 @@
 """Carrying a reference model across: the JAX package's parameter tree (as
 numpy arrays, e.g. `jax.tree.map(np.asarray, params)`) into the port's
-`LM` or `Whisper`, so both packages run the same weights; and the
-reference's decode caches into the port's caches, so either can continue
-the other's decode."""
+`LM` or `Whisper`, so both packages run the same weights, and back
+(`params_to_reference`); a train state (parameters, AdamW moments, step)
+both ways (`train_state_from_reference`, `train_state_to_reference`), so
+either package restores the other's checkpoint; and the reference's decode
+caches into the port's caches, so either can continue the other's decode."""
 from __future__ import annotations
+
+from typing import TYPE_CHECKING
 
 import numpy as np
 import torch
@@ -14,6 +18,9 @@ from .blocks import ATTN_KINDS
 from .lm import LM, layer_kinds
 from .ssm import SSMCache
 from .whisper import Whisper, WhisperCache
+
+if TYPE_CHECKING:
+    from ..train.step import TrainState
 
 
 def _flatten(tree, prefix: str = ""):
@@ -117,6 +124,140 @@ def params_from_reference(cfg, params_np, device=None) -> LM | Whisper:
         model = LM(cfg, device=dev)
         _put_all(model, _lm_pairs(cfg, model, params_np))
     return model.eval().requires_grad_(False)
+
+
+def reference_path(cfg, name: str) -> tuple[tuple[str, ...], int | None]:
+    """Where the port's parameter `name` lives in the reference's tree: (the
+    path of keys, the repeat index where the reference stacks it, else
+    None).  The inverse of the pairs `params_from_reference` reads: an LM's
+    `layers.{i}` is `pattern/slot{j}` at repeat r (i = r * len(pattern) +
+    j) or `tailp/tail{j}` past the pattern; zamba's `shared` is `shared`;
+    whisper's `enc.{i}` and `dec.{i}` are `enc` and `dec` at layer i."""
+    head, _, rest = name.partition(".")
+    tail = tuple(rest.split(".")) if rest else ()
+    if cfg.enc_dec:
+        if name == "embedding":
+            return ("embed", "embedding"), None
+        if name == "pos_embedding":
+            return ("dec_pos", "pos_embedding"), None
+        if head in ("enc", "dec"):
+            i, _, path = rest.partition(".")
+            return (head, *path.split(".")), int(i)
+        return (head, *tail), None
+    if name == "embedding":
+        return ("embed", "embedding"), None
+    if name == "lm_head":
+        return ("head", "lm_head"), None
+    if name in ("fn_scale", "fn_bias"):
+        return ("final_norm", name), None
+    if head == "shared":
+        return ("shared", *tail), None
+    if head != "layers":
+        raise KeyError(f"port parameter {name!r} has no place in the reference's tree")
+    i, _, path = rest.partition(".")
+    i, n_pat = int(i), len(cfg.pattern)
+    if i < cfg.repeats * n_pat:
+        return ("pattern", f"slot{i % n_pat}", *path.split(".")), i // n_pat
+    return ("tailp", f"tail{i - cfg.repeats * n_pat}", *path.split(".")), None
+
+
+def reference_ndim(cfg, model: LM | Whisper) -> dict[str, int]:
+    """The rank of each port parameter's leaf in the reference's tree: its
+    own, plus one where the reference stacks it over repeats or layers (a
+    pattern slot's norm scale is (repeats, D) there)."""
+    return {name: p.dim() + (reference_path(cfg, name)[1] is not None)
+            for name, p in model.named_parameters()}
+
+
+def host_array(t: torch.Tensor) -> np.ndarray:
+    """A copy of `t` on the host as numpy (bf16 as float32: numpy has no
+    bf16, and the values are exact); a copy also of a CPU tensor, so that a
+    later in-place update does not reach it."""
+    dtype = torch.float32 if t.dtype == torch.bfloat16 else t.dtype
+    return t.detach().to("cpu", dtype=dtype, copy=True).numpy()
+
+
+def _nest(paths: dict[tuple, np.ndarray]) -> dict:
+    tree: dict = {}
+    for path, arr in paths.items():
+        node = tree
+        for key in path[:-1]:
+            node = node.setdefault(key, {})
+        node[path[-1]] = arr
+    return tree
+
+
+def named_to_reference(cfg, named: dict[str, torch.Tensor]) -> dict:
+    """A dict of port tensors keyed by parameter name (the parameters, or an
+    AdamW moment of each) as the reference's nested tree of numpy arrays,
+    the stacked leaves stacked over repeats or layers; a `shared_attn`
+    pattern slot is an empty dict, as in the reference.  Values are
+    `host_array` copies."""
+    stacks: dict[tuple, dict[int, np.ndarray]] = {}
+    paths: dict[tuple, np.ndarray] = {}
+    for name, t in named.items():
+        a = host_array(t)
+        path, r = reference_path(cfg, name)
+        if r is None:
+            paths[path] = a
+        else:
+            stacks.setdefault(path, {})[r] = a
+    for path, by_r in stacks.items():
+        paths[path] = np.stack([by_r[r] for r in range(len(by_r))])
+    tree = _nest(paths)
+    if not cfg.enc_dec:
+        for j, kind in enumerate(cfg.pattern):
+            if kind == "shared_attn":
+                tree.setdefault("pattern", {})[f"slot{j}"] = {}
+    return tree
+
+
+def named_from_reference(cfg, model: LM | Whisper, tree_np) -> dict[str, np.ndarray]:
+    """The reference's nested tree (`named_to_reference`'s form) as numpy
+    arrays keyed by the port's parameter names of `model`."""
+    pairs = (_whisper_pairs(tree_np) if cfg.enc_dec else _lm_pairs(cfg, model, tree_np))
+    return {name: np.asarray(a) for name, a in pairs}
+
+
+def params_to_reference(cfg, model: LM | Whisper) -> dict:
+    """The model's parameters as the reference's tree of float32 numpy
+    arrays (`params_from_reference` inverted)."""
+    return named_to_reference(cfg, dict(model.named_parameters()))
+
+
+def train_state_to_reference(state: TrainState):
+    """A port `TrainState` as the reference's, flattened as `jax.tree_util`
+    flattens its `TrainState(params, AdamWState(m, v, step))`: (params, (m,
+    v, step)), each tree `named_to_reference`'s, step an int32 scalar."""
+    cfg = state.model.cfg
+    return (params_to_reference(cfg, state.model),
+            (named_to_reference(cfg, state.opt.m), named_to_reference(cfg, state.opt.v),
+             host_array(state.opt.step).astype(np.int32)))
+
+
+def train_state_from_reference(cfg, state_np, device=None, *, opt_dtype=None) -> TrainState:
+    """A port `TrainState` on `device` (None = CUDA; raises without it) from
+    the reference's (its `TrainState` with numpy leaves, e.g.
+    `jax.tree.map(np.asarray, state)`, or `train_state_to_reference`'s
+    tuple): the model holds the parameters, trainable; the moments keep the
+    arrays' dtype unless `opt_dtype` is given."""
+    from ..optim.adamw import AdamWState
+    from ..train.step import TrainState
+
+    params_np, (m_np, v_np, step) = state_np[0], state_np[1]
+    dev = resolve_device(device)
+    model = params_from_reference(cfg, params_np, dev).train().requires_grad_(True)
+
+    def moments(tree):
+        out = {}
+        for name, a in named_from_reference(cfg, model, tree).items():
+            dtype = opt_dtype or (torch.bfloat16 if str(a.dtype) == "bfloat16" else torch.float32)
+            out[name] = torch.from_numpy(np.array(a, dtype=np.float32)).to(dev, dtype)
+        return out
+
+    return TrainState(model, AdamWState(moments(m_np), moments(v_np),
+                                        torch.tensor(int(np.asarray(step)), dtype=torch.int32,
+                                                     device=dev)))
 
 
 def caches_from_reference(cfg, caches_np, device=None) -> list | WhisperCache:

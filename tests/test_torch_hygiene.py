@@ -1,9 +1,10 @@
 """Port hygiene: `repro_torch` (and chip_smoke.py) never import JAX or the
 reference package -- neither the index path, nor the serving engine, nor the
 serve CLI, synchronous or behind the async router with its metrics
-endpoint, nor the LM's loss, prefill and decode --, entry points default to
-CUDA and refuse to fall back to the CPU, and the kernel loader fails clearly
-without nvcc."""
+endpoint, nor the LM's loss, prefill and decode, nor the train CLI and
+its trainer --, entry points default to CUDA and refuse to fall back to the
+CPU, the serve CLI restores what the train CLI wrote, and the kernel loader
+fails clearly without nvcc."""
 import os
 import re
 import subprocess
@@ -274,6 +275,71 @@ def test_decode_entry_points_default_to_cuda_and_raise_without_it():
                  lambda: caches_from_reference(cfg, {})):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
+
+
+def test_train_cli_and_trainer_load_no_jax_or_reference(tmp_path):
+    """`launch.train --device cpu --smoke --dedup` (the Trainer, the
+    pipeline with the near-dup filter, the train step, AdamW and the
+    checkpoint manager) loads neither JAX nor the reference package."""
+    code = f"""
+import sys
+import torch
+torch.set_num_threads(2)
+from repro_torch.launch.train import main
+out = main(["--arch", "gemma-2b", "--smoke", "--device", "cpu", "--steps", "3",
+            "--global-batch", "4", "--seq-len", "16", "--ckpt-every", "2", "--dedup",
+            "--ckpt-dir", {str(tmp_path / "ck")!r}])
+assert out["final_step"] == 3
+bad = sorted(m for m in sys.modules if m == "jax" or m.startswith("jax.")
+             or m == "repro" or m.startswith("repro."))
+print("BAD", bad)
+"""
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
+                         timeout=300, env=ENV)
+    assert out.returncode == 0, out.stderr
+    assert "[launch.train] gemma-2b: step=3" in out.stdout, out.stdout
+    assert "BAD []" in out.stdout, out.stdout
+
+
+def test_train_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device resolves to CUDA")
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import DataPipeline, lm_token_batches
+    from repro_torch.data.dedup import NearDupFilter
+    from repro_torch.launch.train import main
+    from repro_torch.train import init_train_state
+    from repro_torch.train.trainer import Trainer, TrainerConfig
+
+    cfg = ARCHS["gemma-2b"].smoke()
+    pipe = DataPipeline(lm_token_batches(cfg.vocab), global_batch=2, seq_len=8)
+    tcfg = TrainerConfig(steps=1, ckpt_dir=str(tmp_path / "ck"))
+    for call in (lambda: init_train_state(cfg), lambda: init_train_state(cfg, 0, "cuda"),
+                 lambda: Trainer(cfg, pipe, tcfg), lambda: NearDupFilter(),
+                 lambda: main(["--smoke", "--steps", "1", "--ckpt-dir", str(tmp_path / "c")])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    with pytest.raises(NotImplementedError, match="A12"):
+        main(["--smoke", "--device", "cpu", "--mesh", "2x1"])
+
+
+def test_serve_restores_what_train_wrote(tmp_path):
+    """`launch.serve --ckpt-dir` on the CPU serves the latest step that
+    `launch.train --device cpu` wrote there, and says so."""
+    ck = str(tmp_path / "ck")
+    train = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.train", "--arch", "gemma-2b", "--smoke",
+         "--device", "cpu", "--steps", "4", "--ckpt-every", "3", "--global-batch", "4",
+         "--seq-len", "16", "--ckpt-dir", ck], capture_output=True, text=True, timeout=300,
+        env=ENV)
+    assert train.returncode == 0, train.stderr
+    serve = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--arch", "gemma-2b", "--smoke",
+         "--device", "cpu", "--corpus", "32", "--requests", "8", "--m", "8", "--ckpt-dir", ck],
+        capture_output=True, text=True, timeout=300, env=ENV)
+    assert serve.returncode == 0, serve.stderr
+    assert f"restored step 4 from {ck}" in serve.stdout, serve.stdout
+    assert "self-retrieval" in serve.stdout, serve.stdout
 
 
 def test_loader_raises_clearly_without_nvcc(monkeypatch, tmp_path):

@@ -8,7 +8,10 @@ tests/torch_verify_cases.py; hash_rp and hash_xp may differ only at a
 bucket boundary or a near tie, see `_rp_boundary` and `_xp_near_tie`;
 flash_attn within rtol/atol 1e-4 (its 3xTF32 products and the float32
 summation order, ex2 and rcp ulps; also on tests/torch_flash_cases.py, and
-bit for bit from one launch to the next) and ssm_scan within rtol/atol 1e-5,
+bit for bit from one launch to the next), its backward kernel within 2e-4
+of each gradient's largest entry (BWD_CASES and a few forward cases, bit
+for bit from one launch to the next; a smoke model's train step on the card
+against the CPU) and ssm_scan within rtol/atol 1e-5,
 fp32 summation order and ex2 ulps; ssm_scan also on
 tests/torch_scan_cases.py and against the plain mirror of its lanes).  They
 need a card and skip without one; `python3 chip_smoke.py` is the
@@ -16,7 +19,7 @@ authoritative on-card run."""
 import numpy as np
 import pytest
 import torch
-from torch_flash_cases import FLASH_CASES
+from torch_flash_cases import BWD_CASES, FLASH_CASES, make_bwd_case
 from torch_flash_cases import make_case as make_flash_case
 from torch_pool_cases import POOL_CASES, make_pool
 from torch_probe_cases import PROBE_CASES, make_case
@@ -33,7 +36,9 @@ from repro_torch.exec import stages
 from repro_torch.kernels import common
 from repro_torch.kernels.circrun import circrun, circrun_ref, circrun_topk, circrun_topk_plain
 from repro_torch.kernels.circrun import ops as circrun_ops
-from repro_torch.kernels.flash_attn import flash_attention, flash_attention_ref
+from repro_torch.kernels.flash_attn import (flash_attention, flash_attention_bwd,
+                                            flash_attention_bwd_ref, flash_attention_ref)
+from repro_torch.kernels.flash_attn import ops as flash_ops
 from repro_torch.kernels.csa_probe import (
     csa_probe,
     csa_probe_plain,
@@ -729,15 +734,139 @@ def test_flash_attn_kernel_rejects_what_it_does_not_take(dev):
 
 @pytest.mark.parametrize("grad_input", [0, 1, 2])
 def test_flash_attn_kernel_refuses_grad(dev, grad_input):
-    """The kernel has no backward: with grad mode on and an input that
-    requires grad it raises rather than return an output without grad_fn."""
+    """The kernel no longer refuses grad: with grad mode on and an input
+    that requires grad, the call goes through `FlashAttention` (one forward
+    launch that also writes the log-sum-exp), its output carries a grad_fn,
+    and backward launches the backward kernel once and fills only the
+    inputs that require grad; under no_grad it is the plain launch."""
     q, k, v = (torch.randn((1, 4, 2, 8), device=dev) for _ in range(3))
     ins = [q, k[:, :, :1].contiguous(), v[:, :, :1].contiguous()]
     ins[grad_input].requires_grad_()
-    with pytest.raises(RuntimeError, match="no backward"):
-        flash_attention(*ins)
+    before = common.launch_counts()
+    out = flash_attention(*ins)
+    assert out.grad_fn is not None
+    out.sum().backward()
+    torch.cuda.synchronize()
+    after = common.launch_counts()
+    assert after["flash_attn"] == before["flash_attn"] + 1
+    assert after["flash_attn_bwd"] == before["flash_attn_bwd"] + 1
+    assert [t.grad is not None for t in ins] == [i == grad_input for i in range(3)]
     with torch.no_grad():
-        flash_attention(*ins)
+        assert flash_attention(*ins).grad_fn is None
+    assert common.launch_counts()["flash_attn_bwd"] == after["flash_attn_bwd"]
+
+
+# the backward on the card against its plain version: each of dq, dk and dv
+# within 2e-4 of that tensor's largest entry (the forward's 3xTF32 output
+# and lse, float32 sums in the kernel's order, ex2 and rcp ulps); the lse
+# within FLASH_TOL where a row sees a key, +inf exactly where it sees none
+BWD_REL_TOL = 2e-4
+BWD_CUDA_CASES = {**{n: ("bwd", n) for n in BWD_CASES},
+                  **{n: ("fwd", n) for n in ("128-row tiles", "128-row tiles, window + softcap",
+                                             "dh 200", "whisper encoder", "Sq > Skv",
+                                             "gemma-2b serving")}}
+
+
+def _bwd_case(dev, name):
+    kind, key = BWD_CUDA_CASES[name]
+    if kind == "bwd":
+        q, k, v, do, kw = make_bwd_case(key)
+    else:
+        q, k, v, kw = make_flash_case(key)
+        do = np.random.default_rng(1).normal(size=q.shape).astype(np.float32)
+    return (*(torch.from_numpy(t).to(dev) for t in (q, k, v, do)), kw)
+
+
+@pytest.mark.parametrize("name", list(BWD_CUDA_CASES))
+def test_flash_attn_bwd_kernel_matches_plain(dev, name):
+    q, k, v, do, kw = _bwd_case(dev, name)
+    qa, ka, va = (t.clone().requires_grad_() for t in (q, k, v))
+    before = common.launch_counts()
+    out = flash_attention(qa, ka, va, **kw)
+    out.backward(do)
+    torch.cuda.synchronize()
+    after = common.launch_counts()
+    assert after["flash_attn"] == before["flash_attn"] + 1
+    assert after["flash_attn_bwd"] == before["flash_attn_bwd"] + 1
+    o_ref, lse_ref = flash_attention_ref(q, k, v, return_lse=True, **kw)
+    torch.testing.assert_close(out.detach(), o_ref, rtol=1e-4, atol=1e-4)
+    _, lse = flash_ops._forward(q, k, v, kw["causal"], kw["window"], kw["softcap"], True)
+    finite = torch.isfinite(lse_ref)
+    assert torch.equal(torch.isfinite(lse), finite) and bool(torch.isinf(lse[~finite]).all())
+    torch.testing.assert_close(lse[finite], lse_ref[finite], rtol=1e-4, atol=1e-4)
+    ref = flash_attention_bwd_ref(q, k, v, o_ref, lse_ref, do, **kw)
+    for got, want, tag in zip((qa.grad, ka.grad, va.grad), ref, ("dq", "dk", "dv")):
+        assert bool(torch.isfinite(got).all()), tag
+        err = float((got - want).abs().max())
+        assert err <= BWD_REL_TOL * max(float(want.abs().max()), 1e-30), (tag, err)
+
+
+@pytest.mark.parametrize("name", ["causal", "window + softcap", "128-row tiles", "dh 200"])
+def test_flash_attn_bwd_kernel_is_deterministic(dev, name):
+    """No atomics, every sum in one order: two backward launches give the
+    same bits."""
+    q, k, v, do, kw = _bwd_case(dev, name)
+    o, lse = flash_ops._forward(q, k, v, kw["causal"], kw["window"], kw["softcap"], True)
+    a = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    b = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    for x, y in zip(a, b):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+
+
+def test_flash_attn_forward_lse_leaves_serving_unchanged(dev):
+    """The null lse pointer: the serving launch writes the same bits as
+    the launch that also writes the lse."""
+    q, k, v, kw = make_flash_case("gemma-2b serving")
+    q, k, v = (torch.from_numpy(t).to(dev) for t in (q, k, v))
+    plain = flash_attention(q, k, v, **kw)
+    with_lse, _ = flash_ops._forward(q, k, v, kw["causal"], kw["window"], kw["softcap"], True)
+    torch.cuda.synchronize()
+    assert torch.equal(plain.view(torch.int32), with_lse.view(torch.int32))
+
+
+@pytest.mark.parametrize("arch", ["gemma-2b", "gemma2-9b", "qwen3-moe-235b-a22b"])
+def test_train_step_smoke_card_matches_cpu(dev, arch):
+    """One float32 train step of a smoke model on the card (flash_attn and
+    its backward kernel once an attention layer) against the same step on
+    the CPU from the same weights and batch: loss and grad norm rtol 1e-4,
+    the parameters within 5e-4."""
+    from repro_torch.configs import ARCHS
+    from repro_torch.data import lm_token_batches
+    from repro_torch.models.convert import params_to_reference
+    from repro_torch.train import init_train_state, make_train_step
+    from repro_torch.train.step import TrainState
+
+    cfg = ARCHS[arch].smoke()
+    cpu = init_train_state(cfg, seed=0, device="cpu")
+    card = init_train_state(cfg, seed=0, device=dev)
+    with torch.no_grad():
+        for p, c in zip(card.model.parameters(), cpu.model.parameters()):
+            p.copy_(c)
+    toks, labels = lm_token_batches(cfg.vocab, seed=0)(0, 4, 32)
+    b = {"tokens": toks, "labels": labels}
+    step = make_train_step(cfg, lambda s: 1e-3, compute_dtype=torch.float32)
+    before = common.launch_counts()
+    card2, mc = step(card, b)
+    torch.cuda.synchronize()
+    n_attn = sum(kind in ("attn", "global", "local", "dense", "moe") for kind in
+                 list(cfg.pattern) * cfg.repeats + list(cfg.tail))
+    after = common.launch_counts()
+    assert after["flash_attn"] - before["flash_attn"] == n_attn
+    assert after["flash_attn_bwd"] - before["flash_attn_bwd"] == n_attn
+    cpu2, mp = step(cpu, b)
+    for key in ("loss", "grad_norm"):
+        assert float(mc[key]) == pytest.approx(float(mp[key]), rel=1e-4), key
+    pc, pp = params_to_reference(cfg, card2.model), params_to_reference(cfg, cpu2.model)
+    for a, c in zip(jax_free_leaves(pc), jax_free_leaves(pp)):
+        np.testing.assert_allclose(a, c, rtol=0, atol=5e-4)
+    assert isinstance(card2, TrainState)
+
+
+def jax_free_leaves(tree):
+    if isinstance(tree, dict):
+        return [x for key in sorted(tree) for x in jax_free_leaves(tree[key])]
+    return [tree]
 
 
 @pytest.mark.parametrize("B,L,D,N,seq_chunk", [

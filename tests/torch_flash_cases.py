@@ -153,3 +153,95 @@ def kernel_mirror(q, k, v, *, causal: bool = True, window: int = 0,
         m = m_new
     out = o * (1 / torch.clamp(l, min=1e-30))
     return out.reshape(B, Hkv, Sq, G, dh).permute(0, 2, 1, 3, 4).reshape(B, Sq, Hq, dh)
+
+
+# The backward's cases: name -> a FLASH_CASES entry's fields.  Causal,
+# window, softcap, GQA groups, Sq != Skv both ways, rows with no key (Sq >
+# Skv under the causal mask), a width off the 64-column steps, and the
+# training shapes the card runs: gemma-2b's (MQA, 8 heads of 256) and
+# whisper-tiny's cross attention (not causal, dh 64) cut to CPU size.
+BWD_CASES = {
+    "causal": (2, 40, 40, 4, 2, 32, True, 0, 0.0, 1, 1),
+    "non-causal": (2, 33, 33, 3, 3, 16, False, 0, 0.0, 1, 1),
+    "window": (1, 70, 70, 4, 2, 24, True, 9, 0.0, 1, 1),
+    "non-causal window": (1, 50, 50, 2, 2, 20, False, 7, 0.0, 1, 1),
+    "softcap": (2, 45, 45, 4, 1, 32, True, 0, 5.0, 3, 1),
+    "window + softcap": (2, 64, 64, 6, 3, 40, True, 17, 50.0, 1, 1),
+    "group 5": (1, 37, 37, 10, 2, 16, True, 0, 0.0, 1, 1),
+    "Sq < Skv": (2, 20, 53, 4, 2, 32, True, 0, 0.0, 1, 1),
+    "Sq < Skv, not causal": (2, 19, 61, 6, 6, 64, False, 0, 0.0, 1, 1),
+    "Sq > Skv (empty rows)": (2, 50, 21, 4, 2, 32, True, 0, 0.0, 1, 1),
+    "dh 100": (1, 35, 35, 2, 1, 100, True, 0, 0.0, 1, 1),
+    "gemma-2b training, cut": (2, 24, 24, 8, 1, 256, True, 0, 0.0, 1, 1),
+}
+
+
+def make_bwd_case(name: str):
+    """(q, k, v, do, kw) of backward case `name`: float32 numpy arrays, dO
+    standard normal."""
+    B, Sq, Skv, Hq, Hkv, dh, causal, window, softcap, qs, vs = BWD_CASES[name]
+    rng = np.random.default_rng(7 * Sq + dh + Hq)
+    q, k, v, do = (rng.normal(size=(B, S, H, dh)).astype(np.float32)
+                   for S, H in ((Sq, Hq), (Skv, Hkv), (Skv, Hkv), (Sq, Hq)))
+    return (q * np.float32(qs), k, v * np.float32(vs), do,
+            dict(causal=causal, window=window, softcap=softcap))
+
+
+def empty_rows(Sq: int, Skv: int, kw: dict) -> int:
+    """The leading query rows that see no key (causal, Sq > Skv)."""
+    return max(0, Sq - Skv) if kw["causal"] else 0
+
+
+def bwd_tile_mirror(q, k, v, o, lse, do, *, causal: bool, window: int, softcap: float,
+                    tile: int):
+    """The backward kernel's walk over tiles, in plain torch: the dK / dV
+    pass takes a key tile at a time and only the packed rows from its r_lo
+    to its r_hi, the dQ pass a row tile at a time and only the keys from its
+    kv_lo to its kv_hi (the kernel's bounds, csrc/flash_attn_bwd.cu); inside
+    a tile pair the backward's formulas densely.  Equal to the dense
+    backward exactly where those bounds skip no pair that a mask keeps."""
+    B, Sq, Hq, dh = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G, R, off = Hq // Hkv, Sq * (Hq // Hkv), Skv - Sq
+    scale = 1.0 / math.sqrt(dh)
+    pack = lambda t: t.reshape(B, Sq, Hkv, G, -1).permute(0, 2, 1, 3, 4).reshape(B, Hkv, R, -1)
+    qg, og, dog = pack(q), pack(o), pack(do)
+    lg = pack(lse[..., None])[..., 0]
+    kt, vt = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
+    delta = (dog * og).sum(-1)
+    qp = torch.arange(R) // G + off
+    hi = torch.clamp(qp + 1, max=Skv) if causal else torch.full_like(qp, Skv)
+    lo = torch.clamp(qp - window + 1, min=0) if window > 0 else torch.zeros_like(qp)
+
+    def pair(r0, r1, j0, j1):
+        s = qg[:, :, r0:r1] @ kt[:, :, j0:j1].transpose(-1, -2)
+        if softcap > 0:
+            th = torch.tanh(s * scale / softcap)
+            x, dcap = softcap * th, (1 - th * th) * scale
+        else:
+            x, dcap = s * scale, scale
+        j = torch.arange(j0, j1)
+        keep = (j[None, :] >= lo[r0:r1, None]) & (j[None, :] < hi[r0:r1, None])
+        p = torch.where(keep, torch.exp2(x * LOG2E - lg[:, :, r0:r1, None]), 0.0)
+        dp = dog[:, :, r0:r1] @ vt[:, :, j0:j1].transpose(-1, -2)
+        return p, p * (dp - delta[:, :, r0:r1, None]) * dcap
+
+    dk, dv, dq = torch.zeros_like(kt), torch.zeros_like(vt), torch.zeros_like(qg)
+    for j0 in range(0, Skv, tile):
+        j1 = min(Skv, j0 + tile)
+        r_lo = max(0, j0 - off) * G if causal else 0
+        r_hi = min(R, max(0, j1 - 1 + window - off) * G) if window > 0 else R
+        for r0 in range(r_lo, r_hi, tile):
+            r1 = min(R, r0 + tile)
+            p, ds = pair(r0, r1, j0, j1)
+            dv[:, :, j0:j1] += p.transpose(-1, -2) @ dog[:, :, r0:r1]
+            dk[:, :, j0:j1] += ds.transpose(-1, -2) @ qg[:, :, r0:r1]
+    for r0 in range(0, R, tile):
+        r1 = min(R, r0 + tile)
+        kv_hi = min(Skv, (r1 - 1) // G + off + 1) if causal else Skv
+        kv_lo = max(0, r0 // G + off - window + 1) if window > 0 else 0
+        for j0 in range(kv_lo, kv_hi, tile):
+            _, ds = pair(r0, r1, j0, min(kv_hi, j0 + tile))
+            dq[:, :, r0:r1] += ds @ kt[:, :, j0:min(kv_hi, j0 + tile)]
+    unpack = lambda t: t.reshape(B, Hkv, Sq, G, dh).permute(0, 2, 1, 3, 4).reshape(B, Sq, Hq, dh)
+    return unpack(dq), dk.permute(0, 2, 1, 3), dv.permute(0, 2, 1, 3)

@@ -56,6 +56,8 @@ FLUSH_BYTES = 128 << 20  # written between launches: more than the H100's 50 MB 
 TOL = dict(rtol=1e-4, atol=1e-4)
 PAD = 32  # untimed calls in each profiler session, before the marker and the timed ones
 BUILD = ROOT / ".scratch" / "flash_variants"
+# a parent source with the same `flash_attn_launch` signature (the lse pointer
+# after o, passed null here)
 PARENT = ROOT / ".scratch" / "flash_attn_parent.cu"
 SMALL_BIG = "mma(s[n], as[st], bb[n][2 * st], bb[n][2 * st + 1]);"
 BIG_SMALL = "mma(s[n], ab[st], bs[n][2 * st], bs[n][2 * st + 1]);"
@@ -196,7 +198,7 @@ def main() -> None:
             if gemm is not None:  # as in the model: a projection's GEMM just ran
                 torch.matmul(*gemm)
             err = lib.flash_attn_launch(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                                        out.data_ptr(), B, S, S, Hq, Hkv, dh,
+                                        out.data_ptr(), None, B, S, S, Hq, Hkv, dh,
                                         int(kw["causal"]), kw["window"], kw["softcap"],
                                         stream())
             assert err == 0, err
