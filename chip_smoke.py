@@ -384,8 +384,10 @@ RESUME_RTOL = 1e-4
 # within this share of the tensor's largest entry (the forward's 3xTF32
 # output and lse, float32 sums in another order, ex2 / rcp ulps)
 FLASH_BWD_REL_TOL = 2e-4
-# kernels one launch of a wrapper runs on the card (the backward: delta,
-# the dK / dV pass, the dQ pass); every other wrapper runs one
+# kernels one launch of a wrapper runs on the card (the backward at the
+# training step's shape: the dQ pass with delta, the dK / dV pass cut into
+# row chunks, the chunks' reduce; flash_bwd_record counts each of its
+# shapes' own, `bwd_kernels`); every other wrapper runs one
 KERNELS_PER_LAUNCH = {"flash_attn_bwd": 3}
 PROFILE_PAD = 32
 # tiny kernels launched first in each torch.profiler session, one entry a
@@ -2685,8 +2687,8 @@ def profile_call(run, phase: str, **fields) -> None:
     one call, after an untimed call and a marker kernel in the same session;
     device time and kernels summed by kernel group, and the share of the
     call's wall time in which no kernel ran (measured under the profiler,
-    which adds host time).  The flash_attn, flash_attn_bwd (three kernels a
-    launch) and ssm_scan kernels seen must equal their launches
+    which adds host time).  The flash_attn, flash_attn_bwd (KERNELS_PER_LAUNCH
+    kernels a launch) and ssm_scan kernels seen must equal their launches
     (`common.LAUNCHES`) over the call: a session that
     saw fewer is run again with more lead kernels (PROFILE_LEAD_KERNELS),
     and after three the run fails.  Emits one line of `phase` with
@@ -3930,14 +3932,15 @@ def flash_bwd_record(q, k, v, do, kw: dict) -> dict:
     flash_attention_bwd_ref on the plain forward's o and lse: each of dq,
     dk, dv within FLASH_BWD_REL_TOL of its largest entry, the lse within
     FLASH_TOL where a row sees a key and +inf where it sees none.  Times:
-    CUDA events around one call, the mean device time of a call's three
-    kernels under torch.profiler, the plain version's, SDPA's float32
+    CUDA events around one call, the mean device time of a call's kernels
+    (`bwd_kernels`: two, or three with the row chunks' reduce) under
+    torch.profiler, the plain version's, SDPA's float32
     backward (`sdpa_backward`, its backend named).  Bound: the largest of
     the bytes (q, k, v, o, dO, lse read once, dq, dk, dv written once), the
     five products (2 dh operations each for every unmasked pair: 2.5 times
     the forward's two) at the 3xTF32 rate as the forward's bound takes
     them, and one exp a pair; the float32 pipe's time for the products
-    (`fp32`, the bound of this design's FMAs) beside them."""
+    (`fp32`, the bound of the parent design's FMAs) beside them."""
     from repro_torch.kernels import common
     from repro_torch.kernels.flash_attn import (attn_mask, flash_attention_bwd,
                                                 flash_attention_bwd_ref, flash_attention_ref)
@@ -3946,6 +3949,8 @@ def flash_bwd_record(q, k, v, do, kw: dict) -> dict:
     B, Sq, Hq, dh = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     o, lse = flash_ops._forward(q, k, v, kw["causal"], kw["window"], kw["softcap"], True)
+    chunks = flash_ops.bwd_chunks(B, Sq, Skv, Hq, Hkv, dh)
+    n_kernels = flash_ops.bwd_kernels(B, Sq, Skv, Hq, Hkv, dh)
     before = common.launch_counts()["flash_attn_bwd"]
     got = flash_attention_bwd(q, k, v, o, lse, do, **kw)
     again = flash_attention_bwd(q, k, v, o, lse, do, **kw)
@@ -3980,7 +3985,8 @@ def flash_bwd_record(q, k, v, do, kw: dict) -> dict:
     sdpa, backend = sdpa_backward(q, k, v, do, kw)
     rec = dict(max_abs_err=max(e["max_abs_err"] for e in errs.values()), errors=errs,
                lse_max_abs_err=lse_err, ms=median_ms(call, 10),
-               **device_ms(call, 10, KERNELS_PER_LAUNCH["flash_attn_bwd"], "flash_attn_bwd"),
+               **device_ms(call, 10, n_kernels, "flash_attn_bwd"), kernels_per_call=n_kernels,
+               row_chunks=chunks,
                plain_ms=median_ms(lambda: flash_attention_bwd_ref(q, k, v, o, lse, do, **kw), 3),
                bound_ms=terms[term], bound_by="bytes" if term == "bytes" else "operations",
                bound_term=term, bound_terms_ms=dict(terms, fp32=flops / FP32_FLOPS * 1e3),

@@ -68,10 +68,12 @@ SIGNATURES = {
     # q, k, v, o, lse (nullptr: none), B, Sq, Skv, Hq, Hkv, dh, causal, window, softcap,
     # stream
     "flash_attn_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
-    # q, k, v, o, lse, dO, dq, dk, dv, delta, B, Sq, Skv, Hq, Hkv, dh, causal, window,
+    # q, k, v, o, lse, dO, dq, dk, dv, scratch, B, Sq, Skv, Hq, Hkv, dh, causal, window,
     # softcap, stream
     "flash_attn_bwd_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                               _I, _I, _F, _P),
+    # B, Sq, Skv, Hq, Hkv, dh -> the backward's row chunks (no stream: launches nothing)
+    "flash_attn_bwd_chunks": (_I, _I, _I, _I, _I, _I),
     # dt, x, Bc, Cc, A, h0, y, h_out, B, L, D, N, stream
     "ssm_scan_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
 }

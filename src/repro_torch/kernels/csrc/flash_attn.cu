@@ -91,8 +91,11 @@
 #include <stdint.h>
 
 #include "hash_tile.cuh"
+#include "tf32x3.cuh"
 
 namespace {
+
+using namespace tf32x3;
 
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr int kLongBN = 32;  // keys a tile where 128-row tiles give every SM a block
@@ -131,63 +134,6 @@ constexpr size_t smem_bytes() {
   return ((size_t)16 * kSlabs * Ld<DP>::kQ + (size_t)kBN * Ld<DP>::kK +
           (size_t)kBN * Ld<DP>::kV + (KS > 1 ? (size_t)kSlabs * KS * kBN / 2 * 32 : 0)) *
          sizeof(float);
-}
-
-__device__ __forceinline__ uint32_t to_tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x = big + small, both tf32
-__device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
-  big = to_tf32(x);
-  small = to_tf32(x - __uint_as_float(big));
-}
-
-__device__ __forceinline__ float exp2_ftz(float v) {
-  float r;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
-  return r;
-}
-
-__device__ __forceinline__ float rcp_ftz(float v) {
-  float r;
-  asm("rcp.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
-  return r;
-}
-
-// c += a b on the tensor cores, one m16n8k8 tf32 product with fp32 accumulation
-__device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                    uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
-      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Stage kRows rows of dh floats into shared memory (row stride ld), padded
-// with zeros to DP columns; row(r) gives row r's source, nullptr for a row
-// to zero-fill.  `any` is a valid address for the zero-filling copies.
-template <int DP, int kRows, int kThreads, class Row>
-__device__ __forceinline__ void stage(float* dst, int ld, const Row& row, int dh, bool vec,
-                                      const float* any) {
-  if (vec) {
-    constexpr int kC = DP / 4;
-    for (int s = threadIdx.x; s < kRows * kC; s += kThreads) {
-      const int r = s / kC, c = 4 * (s - r * kC);
-      const float* src = row(r);
-      const bool in = src != nullptr && c < dh;
-      hash_tile::copy<16>(dst + r * ld + c, in ? src + c : any, in ? 16 : 0);
-    }
-  } else {
-    for (int s = threadIdx.x; s < kRows * DP; s += kThreads) {
-      const int r = s / DP, c = s - r * DP;
-      const float* src = row(r);
-      const bool in = src != nullptr && c < dh;
-      hash_tile::copy<4>(dst + r * ld + c, in ? src + c : any, in ? 4 : 0);
-    }
-  }
 }
 
 // kSlabs slabs of 16 rows a block; KS > 1 splits each slab's work between KS

@@ -7,8 +7,9 @@ CPU tensors.  The forward kernel packs a kv head's group of query heads into
 its row tiles, so K and V are staged once for the group (and never
 repeated), and runs both products on the tensor cores as three TF32 MMAs a
 product, at float32 accuracy.  Where autograd records the call, the forward
-also writes each row's log-sum-exp and the backward kernel computes dq, dk
-and dv from it (`FlashAttention`)."""
+also writes each row's log-sum-exp and the backward kernels compute dq, dk
+and dv from it (`FlashAttention`), all five products on the tensor cores in
+3xTF32 likewise."""
 from __future__ import annotations
 
 import torch
@@ -51,6 +52,26 @@ def _forward(q, k, v, causal: bool, window: int, softcap: float, with_lse: bool)
     return out, lse
 
 
+def bwd_chunks(B: int, Sq: int, Skv: int, Hq: int, Hkv: int, dh: int) -> int:
+    """The row chunks C into which the backward's dK / dV pass cuts each key
+    tile's rows on the current card (`flash_attn_bwd_chunks`: 1 where its
+    key tiles give every SM a block).  A backward call launches two kernels
+    at C = 1 and three above (the chunks' reduce)."""
+    c = common.library().flash_attn_bwd_chunks(B, Sq, Skv, Hq, Hkv, dh)
+    if c < 1:
+        raise RuntimeError(f"flash_attn_bwd: chunks failed with cudaError {-c}")
+    return c
+
+
+def bwd_kernels(B: int, Sq: int, Skv: int, Hq: int, Hkv: int, dh: int) -> int:
+    """The kernels one backward call launches on the current card: the dQ
+    pass (with delta), the dK / dV pass (none without keys), and the
+    chunks' reduce where the dK / dV pass is cut into row chunks."""
+    if B * Sq == 0:
+        return 0
+    return 1 + (Skv > 0) + (bwd_chunks(B, Sq, Skv, Hq, Hkv, dh) > 1)
+
+
 def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True, window: int = 0,
                         softcap: float = 0.0):
     """The backward kernel on CUDA tensors: (dq, dk, dv) of the attention
@@ -68,10 +89,13 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True, window: int
     if q.numel() == 0:  # no query: nothing flows back, and no kernel is launched
         return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty((B, Sq, Hq), dtype=torch.float32, device=dev)
+    # the partial dK and dV of C > 1 row chunks, then delta (B, Sq, Hq)
+    C = bwd_chunks(B, Sq, Skv, Hq, Hkv, dh)
+    scratch = torch.empty(2 * C * k.numel() * (C > 1) + B * Sq * Hq, dtype=torch.float32,
+                          device=dev)
     common.launch("flash_attn_bwd", "flash_attn_bwd_launch", q.data_ptr(), k.data_ptr(),
                   v.data_ptr(), o.data_ptr(), lse.data_ptr(), do.data_ptr(), dq.data_ptr(),
-                  dk.data_ptr(), dv.data_ptr(), delta.data_ptr(), B, Sq, Skv, Hq, Hkv, dh,
+                  dk.data_ptr(), dv.data_ptr(), scratch.data_ptr(), B, Sq, Skv, Hq, Hkv, dh,
                   int(causal), int(window), float(softcap))
     return dq, dk, dv
 

@@ -74,10 +74,12 @@ def make_train_step(cfg, lr_fn, *, compute_dtype=torch.bfloat16, clip_norm: floa
     AdamW step (before this update) to the learning rate; `microbatch` > 0
     splits the batch's leading axis into B // microbatch pieces whose
     gradients (and losses, and metrics) are averaged, as the reference's
-    `lax.scan`.  The batch is the pipeline's dict (numpy arrays or tensors;
-    the loss moves them to the model's device).  The state is updated in
-    place (`optim.adamw`); metrics are float32 scalar tensors on the
-    device: loss, grad_norm, lr, ce, aux."""
+    `lax.scan`; a batch that `microbatch` does not divide raises ValueError
+    before any forward, as the reference's reshape does.  The batch is the
+    pipeline's dict (numpy arrays or tensors; the loss moves them to the
+    model's device).  The state is updated in place (`optim.adamw`);
+    metrics are float32 scalar tensors on the device: loss, grad_norm, lr,
+    ce, aux."""
 
     def loss_of(loss_mod, params, cast, batch):
         args = {f"model.{name}": (p.to(compute_dtype) if name in cast else p)
@@ -101,7 +103,10 @@ def make_train_step(cfg, lr_fn, *, compute_dtype=torch.bfloat16, clip_norm: floa
             loss, metrics, grads = grads_of(loss_mod, params, cast, batch)
         else:
             B = len(batch["tokens"])
-            n_micro = max(1, B // microbatch)
+            if B % microbatch != 0:
+                raise ValueError(f"train_step: a batch of {B} rows does not split into "
+                                 f"microbatches of {microbatch}")
+            n_micro = B // microbatch
             grads = {name: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                      for name, p in params.items()}
             loss, ms = 0.0, []

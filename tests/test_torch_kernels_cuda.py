@@ -814,6 +814,39 @@ def test_flash_attn_bwd_kernel_is_deterministic(dev, name):
         assert torch.equal(x.view(torch.int32), y.view(torch.int32))
 
 
+# shapes on either side of the row chunks: gemma-2b's training attention,
+# whose 16 blocks of 32 keys leave the SMs idle (C > 1, the chunks' reduce),
+# and gemma2-9b's heads at S 512, 512 blocks (C = 1)
+BWD_CHUNK_SHAPES = {"gemma-2b training, C > 1": ((8, 64, 64, 8, 1, 256), True),
+                    "gemma2-9b heads, S 512, C = 1": ((2, 512, 512, 16, 8, 256), False)}
+
+
+@pytest.mark.parametrize("name", list(BWD_CHUNK_SHAPES))
+def test_flash_attn_bwd_row_chunks_match_plain(dev, name):
+    """The dK / dV pass cut into row chunks (or not) against the plain
+    version: each gradient within BWD_REL_TOL of its largest entry, and two
+    launches give the same bits."""
+    (B, S, _, Hq, Hkv, dh), split = BWD_CHUNK_SHAPES[name]
+    kw = dict(causal=True, window=0, softcap=0.0)
+    rng = np.random.default_rng(S + Hq)
+    q, do = (torch.from_numpy(rng.normal(size=(B, S, Hq, dh)).astype(np.float32)).to(dev)
+             for _ in range(2))
+    k, v = (torch.from_numpy(rng.normal(size=(B, S, Hkv, dh)).astype(np.float32)).to(dev)
+            for _ in range(2))
+    assert (flash_ops.bwd_chunks(B, S, S, Hq, Hkv, dh) > 1) == split
+    o, lse = flash_ops._forward(q, k, v, True, 0, 0.0, True)
+    a = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    b = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    torch.cuda.synchronize()
+    for x, y in zip(a, b):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+    o_ref, lse_ref = flash_attention_ref(q, k, v, return_lse=True, **kw)
+    ref = flash_attention_bwd_ref(q, k, v, o_ref, lse_ref, do, **kw)
+    for got, want, tag in zip(a, ref, ("dq", "dk", "dv")):
+        err = float((got - want).abs().max())
+        assert err <= BWD_REL_TOL * float(want.abs().max()), (tag, err)
+
+
 def test_flash_attn_forward_lse_leaves_serving_unchanged(dev):
     """The null lse pointer: the serving launch writes the same bits as
     the launch that also writes the lse."""

@@ -135,3 +135,19 @@ def test_microbatch_matches_full_batch_and_reference():
         np.testing.assert_allclose(a, r, rtol=0, atol=PARAM_ATOL)
     assert float(m_micro["loss"]) == pytest.approx(ref_m["loss"], rel=LOSS_RTOL)
     assert float(m_micro["grad_norm"]) == pytest.approx(ref_m["grad_norm"], rel=LOSS_RTOL)
+
+
+@pytest.mark.parametrize("B, micro", [(8, 3), (2, 4)])
+def test_microbatch_that_does_not_divide_the_batch_is_refused(B, micro):
+    """A batch that `microbatch` does not divide (B 8 over 3, and B 2 under
+    a microbatch of 4) is refused by both packages: the port raises
+    ValueError naming both sizes before any forward, the reference's
+    reshape to (n_micro, microbatch) fails."""
+    ref_cfg, cfg = configs("gemma-2b")
+    rs = ref_state(ref_cfg)
+    b = batch(cfg, B=B, S=8)
+    step = make_train_step(cfg, lambda s: 1e-3, compute_dtype=torch.float32, microbatch=micro)
+    with pytest.raises(ValueError, match=rf"\b{B}\b.*\b{micro}\b"):
+        step(to_port(cfg, rs), b)
+    with pytest.raises((TypeError, ValueError)):
+        ref_step(ref_cfg, rs, b, compute_dtype=jnp.float32, microbatch=micro)

@@ -93,10 +93,18 @@ def split(x: torch.Tensor):
     return big, tf32(x - big)
 
 
-def mm_3xtf32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+def split_bwd(x: torch.Tensor):
+    """The backward kernel's split: big = tf32(x) (cvt.rna's bits, in
+    integer operations), small = x - big truncated to tf32 (its low 13 bits
+    cleared)."""
+    big = tf32(x)
+    return big, ((x - big).contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def mm_3xtf32(a: torch.Tensor, b: torch.Tensor, split=split) -> torch.Tensor:
     """a @ b as the kernel's three tensor-core products: a_small b_big +
     a_big b_small + a_big b_big, each summed in float32 (a_small b_small is
-    dropped)."""
+    dropped); `split` is the kernel's operand split."""
     ab, as_ = split(a)
     bb, bs = split(b)
     return ((as_ @ bb) + (ab @ bs)) + (ab @ bb)
@@ -243,5 +251,96 @@ def bwd_tile_mirror(q, k, v, o, lse, do, *, causal: bool, window: int, softcap: 
         for j0 in range(kv_lo, kv_hi, tile):
             _, ds = pair(r0, r1, j0, min(kv_hi, j0 + tile))
             dq[:, :, r0:r1] += ds @ kt[:, :, j0:min(kv_hi, j0 + tile)]
+    unpack = lambda t: t.reshape(B, Hkv, Sq, G, dh).permute(0, 2, 1, 3, 4).reshape(B, Sq, Hq, dh)
+    return unpack(dq), dk.permute(0, 2, 1, 3), dv.permute(0, 2, 1, 3)
+
+
+# the backward kernel's tiles (csrc/flash_attn_bwd.cu): keys a dK / dV block
+# and packed rows a tile of its walk; packed rows a dQ block and keys a tile
+# of its walk
+BWD_KEY_TILE, BWD_ROW_TILE = 32, 32
+BWD_Q_ROWS, BWD_Q_KEYS = 32, 32
+
+
+def chunk_tiles(n_tiles: int, chunks: int) -> list:
+    """The row tiles [T c / C, T (c + 1) / C) of each of the C chunks."""
+    return [range(n_tiles * c // chunks, n_tiles * (c + 1) // chunks) for c in range(chunks)]
+
+
+def bwd_kernel_mirror(q, k, v, o, lse, do, *, causal: bool, window: int, softcap: float,
+                      chunks: int = 1):
+    """The backward kernel's arithmetic in plain torch: the dQ pass (delta =
+    rowsum(dO o); a tile of BWD_Q_ROWS packed rows at a time over the key
+    tiles from its kv_lo to its kv_hi: S, dP, dS, dQ += dS K) and the dK /
+    dV pass (a tile of BWD_KEY_TILE keys at a time over its packed rows from
+    r_lo to r_hi in tiles of BWD_ROW_TILE, cut into `chunks` chunks of row
+    tiles, each chunk's S^T = K Q^T, dP^T = V dO^T, dV += P^T dO, dK += dS^T
+    Q summed apart, then the chunks added in chunk order).  Every product
+    by 3xTF32 (`mm_3xtf32`), the scores scaled by log2(e) / sqrt(dh) or
+    capped as c (1 - 2 / (1 + 2^{s cap_in})) log2(e), p = ex2(x - lse)
+    under the masks, dS = p (dP - delta) cap'(s) / sqrt(dh); the operands
+    split as the backward splits them (`split_bwd`).  The order of
+    the sums inside a product is torch's, not the tensor cores'."""
+    B, Sq, Hq, dh = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    G, R, off = Hq // Hkv, Sq * (Hq // Hkv), Skv - Sq
+    f = np.float32
+    scale = f(1) / f(np.sqrt(f(dh)))
+    scale2 = f(scale * f(LOG2E))
+    cap_in = f(f(f(2) * f(LOG2E)) * scale) / f(softcap) if softcap > 0 else f(0)
+    cap_out = f(f(softcap) * f(LOG2E))
+    pack = lambda t: t.reshape(B, Sq, Hkv, G, -1).permute(0, 2, 1, 3, 4).reshape(B, Hkv, R, -1)
+    qg, og, dog = pack(q), pack(o), pack(do)
+    lg = pack(lse[..., None])
+    kt, vt = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
+    delta = (dog * og).sum(-1, keepdim=True)
+    mm3 = lambda x, y: mm_3xtf32(x, y, split=split_bwd)
+    qp = torch.arange(R) // G + off
+    hi = torch.clamp(qp + 1, max=Skv) if causal else torch.full_like(qp, Skv)
+    lo = torch.clamp(qp - window + 1, min=0) if window > 0 else torch.zeros_like(qp)
+
+    def p_ds(s, dp, r0, r1, j0, j1):
+        """p and dS of rows [r0, r1) x keys [j0, j1) from S and dP."""
+        if softcap > 0:
+            th = 1 - 2 * (1 / (1 + ex2(s * cap_in)))
+            x, dcap = th * cap_out, (1 - th * th) * scale
+        else:
+            x, dcap = s * scale2, scale
+        j = torch.arange(j0, j1)
+        keep = (j[None, :] >= lo[r0:r1, None]) & (j[None, :] < hi[r0:r1, None])
+        p = torch.where(keep, ex2(x - lg[:, :, r0:r1]), 0.0)
+        return p, p * (dp - delta[:, :, r0:r1]) * dcap
+
+    dq = torch.zeros_like(qg)
+    for r0 in range(0, R, BWD_Q_ROWS):
+        r1 = min(R, r0 + BWD_Q_ROWS)
+        kv_hi = min(Skv, (r1 - 1) // G + off + 1) if causal else Skv
+        kv_lo = max(0, r0 // G + off - window + 1) if window > 0 else 0
+        for j0 in range(kv_lo, kv_hi, BWD_Q_KEYS):
+            j1 = min(kv_hi, j0 + BWD_Q_KEYS)
+            s = mm3(qg[:, :, r0:r1], kt[:, :, j0:j1].transpose(-1, -2))
+            dp = mm3(dog[:, :, r0:r1], vt[:, :, j0:j1].transpose(-1, -2))
+            dq[:, :, r0:r1] += mm3(p_ds(s, dp, r0, r1, j0, j1)[1], kt[:, :, j0:j1])
+    dk, dv = torch.zeros_like(kt), torch.zeros_like(vt)
+    for j0 in range(0, Skv, BWD_KEY_TILE):
+        j1 = min(Skv, j0 + BWD_KEY_TILE)
+        r_lo = max(0, j0 - off) * G if causal else 0
+        r_hi = min(R, max(0, j1 - 1 + window - off) * G) if window > 0 else R
+        n_tiles = -(-(r_hi - r_lo) // BWD_ROW_TILE) if r_hi > r_lo else 0
+        parts = []
+        for tiles in chunk_tiles(n_tiles, chunks):
+            pk, pv = torch.zeros_like(kt[:, :, j0:j1]), torch.zeros_like(vt[:, :, j0:j1])
+            for it in tiles:
+                r0 = r_lo + it * BWD_ROW_TILE
+                r1 = min(R, r0 + BWD_ROW_TILE)
+                st = mm3(kt[:, :, j0:j1], qg[:, :, r0:r1].transpose(-1, -2))
+                dpt = mm3(vt[:, :, j0:j1], dog[:, :, r0:r1].transpose(-1, -2))
+                p, ds = p_ds(st.transpose(-1, -2), dpt.transpose(-1, -2), r0, r1, j0, j1)
+                pv += mm3(p.transpose(-1, -2), dog[:, :, r0:r1])
+                pk += mm3(ds.transpose(-1, -2), qg[:, :, r0:r1])
+            parts.append((pk, pv))
+        for pk, pv in parts:  # chunk order
+            dk[:, :, j0:j1] += pk
+            dv[:, :, j0:j1] += pv
     unpack = lambda t: t.reshape(B, Hkv, Sq, G, dh).permute(0, 2, 1, 3, 4).reshape(B, Sq, Hq, dh)
     return unpack(dq), dk.permute(0, 2, 1, 3), dv.permute(0, 2, 1, 3)

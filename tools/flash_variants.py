@@ -163,7 +163,9 @@ def build_all(sources: dict) -> dict:
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("flash_variants: needs an NVIDIA card")
-    base = (common.CSRC / "flash_attn.cu").read_text()
+    # the shared helpers inlined, so that a variant may edit them too
+    base = (common.CSRC / "flash_attn.cu").read_text().replace(
+        '#include "tf32x3.cuh"', (common.CSRC / "tf32x3.cuh").read_text())
     sources = {"committed": base}
     for name, edits in VARIANTS.items():
         text = base
