@@ -96,9 +96,10 @@ Drives the port's paths on one NVIDIA card at the paper's SIFT size
     the cross attention not causal, Sq != Skv); decode against the full
     forward (the VLM's over the spliced sequence, whisper's
     decode_train(encode(frames))) within DECODE_VS_FORWARD_TOL;
-  * training (phases `train_full`, `profile_train_step`,
-    `train_smoke_vs_cpu`, `train_resume`, `train_refused`): gemma-2b at full
-    width and depth (18 layers, 2.506 B parameters, seed 0) takes 10 steps
+  * training (phases `train_full`, `profile_train_step`, `train_mamba`,
+    `profile_train_mamba_step`, `train_smoke_vs_cpu`, `train_resume`):
+    gemma-2b at full width and depth (18 layers, 2.506 B parameters, seed 0)
+    takes 10 steps
     of the port's train step (bf16 compute over float32 masters, clip,
     cosine-scheduled AdamW with float32 moments) on the train launcher's
     batches (8 x 64 tokens) through `DataPipeline` and the LCCS near-dup
@@ -106,11 +107,14 @@ Drives the port's paths on one NVIDIA card at the paper's SIFT size
     layer launching the flash_attn forward (with its log-sum-exp) and the
     hand-written flash_attn backward once a step: losses finite and
     falling, launches exact, peak memory beside the state's bytes, one step
-    profiled; the smoke gemma-2b, qwen3-moe and whisper-tiny on the card
+    profiled; then falcon-mamba-7b the same at full width, 24 of its 64
+    Mamba-1 layers (2.79 B parameters: the full depth's state does not fit
+    one card), every layer launching the ssm_scan forward (with its tiles'
+    checkpoints) and the hand-written ssm_scan backward once a step; the
+    smoke gemma-2b, qwen3-moe, whisper-tiny and falcon-mamba-7b on the card
     against the CPU for 3 steps; the Trainer resumed at step 6 against an
     uninterrupted run, then `launch.train --ckpt-dir D` and `launch.serve
-    --ckpt-dir D` (restores the trained step); a falcon-mamba-7b step
-    refused by ssm_scan (its backward is not ported).
+    --ckpt-dir D` (restores the trained step).
 
 Each search QPS of the index paths is the median of QPS_PASSES passes over
 its queries, with the passes' min, max and spread beside it (C10).
@@ -130,7 +134,10 @@ not causal at dh 64 over 1,500 keys among them, and at its cross-attention
 decode, Sq 1 over the 1,500 frames; flash_attn_bwd at gemma-2b's training
 shape, the long causal shape, gemma2-9b's window with softcap, whisper's
 cross attention and rows that see no key, beside SDPA's float32 backward,
-bit for bit from one run to the next),
+bit for bit from one run to the next; ssm_scan_bwd at falcon-mamba-7b's
+training shape and at the forward's two long shapes, bit for bit from one
+run to the next, the forward's outputs bit for bit with and without its
+checkpoints),
 hash_rp and hash_xp also at the GIST width d = 960 and over one query batch, pool_topk also at a multiprobe-skip pool of
 several tiles and at the serving pool (each with its device time and a
 `pool_stats` line: the cut lcp and the ids and entries at or above it) and
@@ -366,13 +373,19 @@ ANGULAR_BASELINES = (("E2LSH", dict(K=1, L=16)), ("E2LSH", dict(K=2, L=32)),
 # training: gemma-2b at full width and depth, the train launcher's
 # defaults (global batch 8, seq 64, peak lr 1e-3, warmup 10 of its 100
 # steps, clip 1.0, bf16 compute, float32 AdamW moments, the near-dup filter
-# at threshold 30), TRAIN_STEPS steps; smoke models card vs CPU; the trainer's
-# resume; the backward kernel of flash_attn against its plain version
+# at threshold 30), TRAIN_STEPS steps; falcon-mamba-7b the same at full
+# width, its depth cut to TRAIN_MAMBA_LAYERS of 64 (0.266 B embedding + 24 x
+# 0.1053 B = 2.79 B parameters: ~50 GB of float32 params, m, v, grads and
+# bf16 copies, as gemma-2b's; the full depth's ~120 GB of state does not fit
+# one 80 GB card); smoke models card vs CPU; the trainer's resume; the
+# backward kernels of flash_attn and ssm_scan against their plain versions
 TRAIN_ARCH = "gemma-2b"
+TRAIN_MAMBA_ARCH = "falcon-mamba-7b"
+TRAIN_MAMBA_LAYERS = 24
 TRAIN_STEPS = 10
 TRAIN = dict(global_batch=8, seq_len=64, peak_lr=1e-3, warmup=10, total=100, clip=1.0,
              dedup_threshold=30)
-TRAIN_SMOKE = ("gemma-2b", "qwen3-moe-235b-a22b", "whisper-tiny")
+TRAIN_SMOKE = ("gemma-2b", "qwen3-moe-235b-a22b", "whisper-tiny", "falcon-mamba-7b")
 TRAIN_SMOKE_STEPS = 3
 # card vs CPU in float32 compute: loss and grad norm (the 3xTF32 attention
 # and both backward orders of summation), parameters after one step at lr
@@ -384,11 +397,17 @@ RESUME_RTOL = 1e-4
 # within this share of the tensor's largest entry (the forward's 3xTF32
 # output and lse, float32 sums in another order, ex2 / rcp ulps)
 FLASH_BWD_REL_TOL = 2e-4
-# kernels one launch of a wrapper runs on the card (the backward at the
+# the scan's backward kernel against its plain version: each of ddt, dx, dB,
+# dC, dA and dh0 within this share of the tensor's largest entry (float32
+# sums over channels, states, steps and batch rows in other orders;
+# ex2.approx's 2 ulp in each a_t)
+SCAN_BWD_REL_TOL = 5e-5
+# kernels one launch of a wrapper runs on the card (flash_attn_bwd at the
 # training step's shape: the dQ pass with delta, the dK / dV pass cut into
 # row chunks, the chunks' reduce; flash_bwd_record counts each of its
-# shapes' own, `bwd_kernels`); every other wrapper runs one
-KERNELS_PER_LAUNCH = {"flash_attn_bwd": 3}
+# shapes' own, `bwd_kernels`; ssm_scan_bwd: the walk and the partials'
+# reduce); every other wrapper runs one
+KERNELS_PER_LAUNCH = {"flash_attn_bwd": 3, "ssm_scan_bwd": 2}
 PROFILE_PAD = 32
 # tiny kernels launched first in each torch.profiler session, one entry a
 # try: the profiler drops the first kernels of a session, the more of them
@@ -953,6 +972,7 @@ def run(dev: torch.device, t_start: float) -> None:
     kernels += serve_kernels_vs_plain(serve, launches)
     decode_kernels_vs_plain(kernels, lm)
     kernels.append(flash_bwd_kernels_vs_plain(launches))
+    kernels.append(scan_bwd_kernels_vs_plain(launches))
     pool_rec = next(rec for rec in kernels if rec["name"] == "pool_topk")
     pool_rec["pool"]["serving"] = pool_record("serving", serve["recorded"]["pool_topk"][0],
                                               dedupe_topk_scatter)
@@ -2669,7 +2689,7 @@ def serve_async_cli() -> None:
 # cuBLAS's bf16 GEMMs on Hopper; the elementwise and reduction groups are
 # torch's own kernels, the train step's casts, clip and AdamW among them)
 KERNEL_GROUPS = (("flash_attn_kernel", "flash_attn"), ("flash_attn_bwd", "flash_attn_bwd"),
-                 ("ssm_scan_kernel", "ssm_scan"),
+                 ("ssm_scan_bwd", "ssm_scan_bwd"), ("ssm_scan_kernel", "ssm_scan"),
                  ("gemm", "matmul (cuBLAS)"), ("gemv", "matmul (cuBLAS)"),
                  ("nvjet", "matmul (cuBLAS)"),
                  ("splitkreduce", "matmul (cuBLAS)"), ("csa_probe_kernel", "index kernels"),
@@ -2687,8 +2707,8 @@ def profile_call(run, phase: str, **fields) -> None:
     one call, after an untimed call and a marker kernel in the same session;
     device time and kernels summed by kernel group, and the share of the
     call's wall time in which no kernel ran (measured under the profiler,
-    which adds host time).  The flash_attn, flash_attn_bwd (KERNELS_PER_LAUNCH
-    kernels a launch) and ssm_scan kernels seen must equal their launches
+    which adds host time).  The flash_attn, flash_attn_bwd, ssm_scan and
+    ssm_scan_bwd kernels seen (KERNELS_PER_LAUNCH a launch) must equal their launches
     (`common.LAUNCHES`) over the call: a session that
     saw fewer is run again with more lead kernels (PROFILE_LEAD_KERNELS),
     and after three the run fails.  Emits one line of `phase` with
@@ -2713,7 +2733,7 @@ def profile_call(run, phase: str, **fields) -> None:
             groups[g] = groups.get(g, 0.0) + e.time_range.elapsed_us() / 1e3
             seen[g] = seen.get(g, 0) + 1
         expected = {k: out["counts"][k] * KERNELS_PER_LAUNCH.get(k, 1)
-                    for k in ("flash_attn", "flash_attn_bwd", "ssm_scan")}
+                    for k in ("flash_attn", "flash_attn_bwd", "ssm_scan", "ssm_scan_bwd")}
         if any(seen.get(k, 0) > n for k, n in expected.items()):
             fail(f"{phase}: the profiler saw {seen}, more than the launches {expected}")
         if all(seen.get(k, 0) == n for k, n in expected.items()):
@@ -3616,16 +3636,18 @@ def serve_kernels_vs_plain(serve: dict, launches: dict) -> list:
 
 
 def run_training(dev) -> dict:
-    """Phases train_full, train_smoke_vs_cpu, train_resume and
-    train_refused (after the LM phases have freed their models); returns
-    the launches of the training paths."""
+    """Phases train_full, train_mamba (after train_full has freed
+    gemma-2b), train_smoke_vs_cpu and train_resume (after the LM phases
+    have freed their models); returns the launches of the training
+    paths."""
     from repro_torch.kernels import common
 
     counts = {k: 0 for k in common.LAUNCHES}
-    for part in (train_full(dev), train_smoke_vs_cpu(dev), train_resume(dev)):
+    for part in (train_full(dev),
+                 train_full(dev, TRAIN_MAMBA_ARCH, TRAIN_MAMBA_LAYERS, "train_mamba"),
+                 train_smoke_vs_cpu(dev), train_resume(dev)):
         for k in counts:
             counts[k] += part[k]
-    train_refused(dev)
     return dict(counts=counts)
 
 
@@ -3644,18 +3666,24 @@ def train_batch(cfg, step: int, B: int = 4, S: int = 32) -> dict:
     return out
 
 
-def train_full(dev) -> dict:
+def train_full(dev, arch: str = TRAIN_ARCH, layers: int | None = None,
+               phase: str = "train_full") -> dict:
     """Phase train_full: gemma-2b at full width and depth (18 layers, 2.506 B
     parameters, seed 0) takes TRAIN_STEPS steps of `make_train_step` (bf16
     compute over float32 masters, clip, cosine-scheduled AdamW with float32
     moments) on batches of a `DataPipeline` through the near-dup filter, as
     the Trainer drives them, without the checkpoint (a full-width state is
-    30 GB of host disk).  Gates: every loss finite, the last below the
-    first, exactly one flash_attn and one flash_attn_bwd launch an attention
-    layer a step and nothing else in a step, the filter's circrun and
-    circrun_topk launches; no plain version runs.  Reports the step times
-    (host clock fenced by the metrics' read), tokens/s, peak device memory
-    beside the state's bytes, one profiled step, the dropped rows."""
+    30 GB of host disk); phase train_mamba the same for falcon-mamba-7b at
+    full width, cut to `layers` layers (TRAIN_MAMBA_LAYERS).  Gates: every
+    loss finite, the last below the first, exactly one flash_attn and one
+    flash_attn_bwd launch an attention layer and one ssm_scan and one
+    ssm_scan_bwd launch a Mamba-1 layer a step and nothing else in a step,
+    the filter's circrun and circrun_topk launches; no plain version runs.
+    Reports the step times (host clock fenced by the metrics' read),
+    tokens/s, peak device memory beside the state's bytes, one profiled
+    step (`profile_<phase>_step`), the dropped rows."""
+    import dataclasses
+
     from repro_torch.configs import ARCHS
     from repro_torch.data import DataPipeline, lm_token_batches
     from repro_torch.data.dedup import NearDupFilter
@@ -3664,7 +3692,10 @@ def train_full(dev) -> dict:
     from repro_torch.optim import cosine_schedule
     from repro_torch.train import init_train_state, make_train_step
 
-    cfg = ARCHS[TRAIN_ARCH]
+    t_phase = time.perf_counter()
+    cfg = full = ARCHS[arch]
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, repeats=layers // len(cfg.pattern), n_layers=layers)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     base = torch.cuda.memory_allocated()
@@ -3677,9 +3708,8 @@ def train_full(dev) -> dict:
     step = make_train_step(cfg, lambda s: cosine_schedule(
         s, peak_lr=TRAIN["peak_lr"], warmup=TRAIN["warmup"], total=TRAIN["total"]),
         clip_norm=TRAIN["clip"])
-    n_attn = lm_kernel_layers(cfg)[0]["flash_attn"]
-    want = {k: 0 for k in common.LAUNCHES}
-    want.update(flash_attn=n_attn, flash_attn_bwd=n_attn)
+    want = lm_kernel_layers(cfg)[0]
+    want.update(flash_attn_bwd=want["flash_attn"], ssm_scan_bwd=want["ssm_scan"])
     history, secs = [], []
     common.reset_launch_counts()
     with plain_versions_refused():
@@ -3694,39 +3724,43 @@ def train_full(dev) -> dict:
             after = common.launch_counts()
             got = {k: after[k] - before[k] for k in after}
             if got != want:
-                fail(f"train_full: step {i} launched {got}, expected {want}")
+                fail(f"{phase}: step {i} launched {got}, expected {want}")
             history.append(dict(step=i + 1, **metrics))
     counts = common.launch_counts()
     peak = torch.cuda.max_memory_allocated() - base
     losses = [h["loss"] for h in history]
     if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
-        fail(f"train_full: losses {losses} not finite and falling")
+        fail(f"{phase}: losses {losses} not finite and falling")
     if counts["circrun"] == 0 or counts["circrun_topk"] == 0:
-        fail(f"train_full: the near-dup filter launched no circrun kernel: {counts}")
+        fail(f"{phase}: the near-dup filter launched no circrun kernel: {counts}")
     med = statistics.median(secs)
     tokens = TRAIN["global_batch"] * TRAIN["seq_len"]
     gb = 4 * n_params / 1e9
-    emit(phase="train_full", arch=cfg.name, layers=cfg.n_layers, params=n_params,
-         steps=TRAIN_STEPS,
+    emit(phase=phase, arch=cfg.name, layers=cfg.n_layers, full_layers=full.n_layers,
+         params=n_params, steps=TRAIN_STEPS,
          config=dict(TRAIN, compute_dtype="bfloat16", opt_dtype="float32"), init_s=init_s,
          step_ms_median=med * 1e3, step_ms=[t * 1e3 for t in secs], tokens_per_s=tokens / med,
          losses=losses, history=history, launches=counts, launches_per_step=want,
          dropped_rows=dedup.n_dropped, peak_mem_over_base_bytes=peak,
-         state_gb=dict(params_m_v=3 * gb, grads=gb, bf16_copies=gb / 2))
+         state_gb=dict(params_m_v=3 * gb, grads=gb, bf16_copies=gb / 2),
+         seconds=time.perf_counter() - t_phase)
     last = next(pipe)
-    profile_call(lambda: step(state, last), "profile_train_step", arch=cfg.name,
-                 tokens=tokens)
+    profile_call(lambda: step(state, last),
+                 "profile_train_step" if phase == "train_full" else f"profile_{phase}_step",
+                 arch=cfg.name, layers=cfg.n_layers, tokens=tokens)
     del state, pipe, dedup, step, last
     torch.cuda.empty_cache()
     return counts
 
 
 def train_smoke_vs_cpu(dev) -> dict:
-    """Phase train_smoke_vs_cpu: smoke gemma-2b, qwen3-moe (the aux loss)
-    and whisper-tiny (frames, cross attention) take TRAIN_SMOKE_STEPS steps
-    in float32 compute on the card and on the CPU from the same weights and
-    batches: losses and grad norms within TRAIN_SMOKE_RTOL every step, the
-    parameters within TRAIN_PARAM_ATOL after the first."""
+    """Phase train_smoke_vs_cpu: smoke gemma-2b, qwen3-moe (the aux loss),
+    whisper-tiny (frames, cross attention) and falcon-mamba-7b (ssm_scan and
+    its backward kernel) take TRAIN_SMOKE_STEPS steps in float32 compute on
+    the card and on the CPU from the same weights and batches: losses and
+    grad norms within TRAIN_SMOKE_RTOL every step, the parameters within
+    TRAIN_PARAM_ATOL after the first; each backward kernel launched once a
+    layer a step."""
     from repro_torch.configs import ARCHS
     from repro_torch.kernels import common
     from repro_torch.train import init_train_state, make_train_step
@@ -3760,10 +3794,11 @@ def train_smoke_vs_cpu(dev) -> dict:
                     fail(f"train_smoke_vs_cpu: {arch} parameters {param_diff} apart after "
                          "one step")
         part = common.launch_counts()
-        n_attn = lm_kernel_layers(cfg)[0]["flash_attn"]
-        if part["flash_attn"] != TRAIN_SMOKE_STEPS * n_attn or part["flash_attn_bwd"] != \
-                TRAIN_SMOKE_STEPS * n_attn:
-            fail(f"train_smoke_vs_cpu: {arch} launched {part}, {n_attn} a step expected")
+        per = lm_kernel_layers(cfg)[0]
+        want = {k: TRAIN_SMOKE_STEPS * per[k.removesuffix("_bwd")]
+                for k in ("flash_attn", "flash_attn_bwd", "ssm_scan", "ssm_scan_bwd")}
+        if any(part[k] != n for k, n in want.items()):
+            fail(f"train_smoke_vs_cpu: {arch} launched {part}, expected {want}")
         for k in counts:
             counts[k] += part[k]
         emit(phase="train_smoke_vs_cpu", arch=arch, steps=rows,
@@ -3826,26 +3861,6 @@ def train_resume(dev) -> dict:
          resumed=resumed["final_step"], losses_resumed=h_res, losses_straight=h_str,
          rtol=RESUME_RTOL, cli=cli)
     return counts
-
-
-def train_refused(dev) -> None:
-    """Phase train_refused: a falcon-mamba-7b smoke train step on the card
-    raises from ssm_scan's forward_only (its backward is not ported): no
-    fallback to the plain scan, no gradient that stops silently."""
-    from repro_torch.configs import ARCHS
-    from repro_torch.train import init_train_state, make_train_step
-
-    cfg = ARCHS["falcon-mamba-7b"].smoke()
-    state = init_train_state(cfg, 0, dev)
-    step = make_train_step(cfg, lambda s: 1e-3, compute_dtype=torch.float32)
-    try:
-        step(state, train_batch(cfg, 0))
-    except RuntimeError as e:
-        if "ssm_scan" not in str(e) or "no backward" not in str(e):
-            fail(f"train_refused: falcon-mamba-7b raised another error: {e}")
-        emit(phase="train_refused", arch=cfg.name, error=str(e).splitlines()[0])
-    else:
-        fail("train_refused: a falcon-mamba-7b train step ran on the card")
 
 
 def flash_bwd_kernels_vs_plain(launches: dict) -> dict:
@@ -3995,6 +4010,104 @@ def flash_bwd_record(q, k, v, do, kw: dict) -> dict:
                shape=dict(B=B, Sq=Sq, Skv=Skv, Hq=Hq, Hkv=Hkv, dh=dh, **kw,
                           unmasked_pairs=pairs))
     return rec
+
+
+def scan_bwd_kernels_vs_plain(launches: dict) -> dict:
+    """The kernels line's record of ssm_scan_bwd: the scan's backward kernel
+    against its plain version (scan_bwd_record) at falcon-mamba-7b's
+    training shape (B 8, L 64, D 8192, N 16) and, under `long`, at the
+    forward's long shapes (B 4, L 2048 and B 1, L 4096)."""
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+    D, N = 8192, 16
+    recs = {}
+    for tag, B, L in (("training, B 8, L 64", 8, 64), ("L 2048", 4, 2048),
+                      ("B 1, L 4096", 1, 4096)):
+        def randn(*shape, s=1.0):
+            return s * torch.randn(shape, generator=g, device=dev)
+
+        ins = [torch.nn.functional.softplus(randn(B, L, D)), randn(B, L, D), randn(B, L, N),
+               randn(B, L, N), -torch.exp(randn(D, N, s=0.5)), randn(B, D, N)]
+        recs[tag] = scan_bwd_record(ins, randn(B, L, D))
+        del ins
+        torch.cuda.empty_cache()
+    rec = dict(name="ssm_scan_bwd", route="cuda",
+               source="src/repro_torch/kernels/csrc/ssm_scan_bwd.cu",
+               replaces="src/repro/models/ssm.py:103 (jax.value_and_grad through "
+                        "_mamba1_fused, src/repro/train/step.py:53; "
+                        "src/repro/kernels/ssm_scan/ssm_scan.py:48 has no backward)",
+               launches=launches["ssm_scan_bwd"], **recs.pop("training, B 8, L 64"),
+               library_call=None, long=recs)
+    emit(phase="kernels_vs_plain", kernels=["ssm_scan_bwd"],
+         tolerance=dict(ssm_scan_bwd=f"{SCAN_BWD_REL_TOL} of each gradient's largest entry; "
+                                     "bit-identical reruns; the forward's y and h_fin bit for "
+                                     "bit with and without checkpoints"), ok=True,
+         seconds=time.perf_counter() - t0)
+    return rec
+
+
+def scan_bwd_record(ins: list, dy: torch.Tensor) -> dict:
+    """ssm_scan_bwd against its plain version on one input, as training
+    calls it (no gradient of the final state): the forward with the tiles'
+    checkpoints (its y and h_fin bit for bit the forward's without), then
+    the backward kernel twice (bit-identical, one counted launch each, or
+    the run fails), against ssm_scan_bwd_ref: each of ddt, dx, dB, dC, dA,
+    dh0 within SCAN_BWD_REL_TOL of its largest entry.  Times: CUDA events
+    around one call, the mean device time of a call's two kernels under
+    torch.profiler, and the plain version's one call (the check's, host
+    clock fenced by synchronize: a Python loop over the steps, 1.5 s at B
+    4, L 2048, so not repeated).  Bound: the largest of the bytes
+    (dt, x, dy, B, C, A and the checkpoints read once; ddt, dx, dB, dC, dA,
+    dh0 written once), one exp a state and step on the SFUs, and 20 float32
+    operations a state and step; `exps_kernel_ms` the two exps a state and
+    step that this design takes (the recompute and the walk)."""
+    from repro_torch.kernels import common
+    from repro_torch.kernels.ssm_scan import ops as scan_ops
+    from repro_torch.kernels.ssm_scan import ssm_scan_bwd_ref
+
+    dt, x, Bc, Cc, A, h0 = ins
+    B, L, D = dt.shape
+    N = Bc.shape[2]
+    y0, h_0, _ = scan_ops._forward(*ins, checkpoints=False)
+    y1, h_1, ckpt = scan_ops._forward(*ins, checkpoints=True)
+    torch.cuda.synchronize()
+    if not (torch.equal(y0.view(torch.int32), y1.view(torch.int32))
+            and torch.equal(h_0.view(torch.int32), h_1.view(torch.int32))):
+        fail(f"ssm_scan: the forward's outputs change when it writes checkpoints, {B, L, D, N}")
+    del y0, h_0, y1, h_1
+    before = common.launch_counts()["ssm_scan_bwd"]
+    got = scan_ops.ssm_scan_bwd(*ins, ckpt, dy)
+    again = scan_ops.ssm_scan_bwd(*ins, ckpt, dy)
+    torch.cuda.synchronize()
+    if common.launch_counts()["ssm_scan_bwd"] != before + 2:
+        fail("ssm_scan_bwd: a call did not count one launch")
+    if not all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(got, again)):
+        fail(f"ssm_scan_bwd: two runs differ at {B, L, D, N}")
+    del again
+    ref, plain_s = sync_time(lambda: ssm_scan_bwd_ref(*ins, dy))
+    errs = {}
+    for tag, a, b in zip(("ddt", "dx", "dB", "dC", "dA", "dh0"), got, ref):
+        scale = max(float(b.abs().max()), 1e-30)
+        errs[tag] = dict(max_abs_err=float((a - b).abs().max()), largest=scale)
+        if not bool(torch.isfinite(a).all()) or errs[tag]["max_abs_err"] > SCAN_BWD_REL_TOL * scale:
+            fail(f"ssm_scan_bwd: {tag} off its plain version at {B, L, D, N}: {errs}")
+    del got, ref
+    T = -(-L // scan_ops.TILE)
+    nbytes = 4 * (5 * B * L * D + 4 * B * L * N + 2 * D * N + B * T * D * N + B * D * N)
+    elems = B * L * D * N
+    terms = dict(bytes=nbytes / HBM_BYTES_PER_S * 1e3, exp=elems / SFU_EXP_PER_S * 1e3,
+                 fp32=20 * elems / FP32_FLOPS * 1e3)
+    term = max(terms, key=terms.get)
+    call = lambda: scan_ops.ssm_scan_bwd(*ins, ckpt, dy)  # noqa: E731
+    return dict(max_abs_err=max(e["max_abs_err"] for e in errs.values()), errors=errs,
+                ms=median_ms(call, 20), **device_ms(call, 20, 2, "ssm_scan_bwd"),
+                kernels_per_call=2, plain_ms=plain_s * 1e3,
+                bound_ms=terms[term], bound_by="bytes" if term == "bytes" else "operations",
+                bound_term=term, bound_terms_ms=dict(terms, exps_kernel=2 * terms["exp"]),
+                library_ms=None, bit_identical_reruns=True, checkpoints_leave_forward=True,
+                shape=dict(B=B, L=L, D=D, N=N, tiles=T, channel_blocks=scan_ops.bwd_blocks(D)))
 
 
 if __name__ == "__main__":

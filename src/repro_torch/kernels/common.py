@@ -74,8 +74,12 @@ SIGNATURES = {
                               _I, _I, _F, _P),
     # B, Sq, Skv, Hq, Hkv, dh -> the backward's row chunks (no stream: launches nothing)
     "flash_attn_bwd_chunks": (_I, _I, _I, _I, _I, _I),
-    # dt, x, Bc, Cc, A, h0, y, h_out, B, L, D, N, stream
-    "ssm_scan_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # dt, x, Bc, Cc, A, h0, y, h_out, h_ckpt (nullptr: none), B, L, D, N, stream
+    "ssm_scan_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # dt, x, Bc, Cc, A, h_ckpt, dy, dh_fin (nullptr: zero), ddt, dx, dB, dC, dA, dh0
+    # (nullptr: none), scratch, B, L, D, N, stream
+    "ssm_scan_bwd_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                            _I, _I, _P),
 }
 
 # launches per kernel since the last reset: each wrapper adds one where it
@@ -84,7 +88,7 @@ SIGNATURES = {
 LAUNCHES: dict[str, int] = {"csa_probe": 0, "pool_topk": 0, "gather_l2": 0, "gather_q": 0,
                             "gather_l2_topk": 0, "gather_q_topk": 0, "hash_rp": 0,
                             "hash_xp": 0, "circrun": 0, "circrun_topk": 0, "flash_attn": 0,
-                            "flash_attn_bwd": 0, "ssm_scan": 0}
+                            "flash_attn_bwd": 0, "ssm_scan": 0, "ssm_scan_bwd": 0}
 
 _lock = threading.Lock()
 _count_lock = threading.Lock()
@@ -231,16 +235,3 @@ def needs_grad(*tensors: torch.Tensor) -> bool:
     is on and one of them requires grad."""
     return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
 
-
-def forward_only(kernel: str, *tensors: torch.Tensor, todo: str = "") -> None:
-    """Raise when autograd would record through a kernel that has no
-    backward (`needs_grad`).  The kernel writes its output through raw
-    pointers, so the output would carry no grad_fn and the gradient would
-    stop there without an error.  `todo` names the work that ports the
-    backward."""
-    if needs_grad(*tensors):
-        raise RuntimeError(
-            f"{kernel}: the CUDA kernel has no backward{f' ({todo})' if todo else ''}; call "
-            "it under torch.no_grad() or torch.inference_mode(), or on inputs that do not "
-            "require grad (the plain version on CPU tensors is differentiable)"
-        )

@@ -4,7 +4,10 @@
 // Bc, Cc (B, L, N) and A (D, N), starting from h0 (B, D, N); writes y
 // (B, L, D) and the final state to h_out (B, D, N).  All float32,
 // contiguous, N <= 16.  One launch scans the whole sequence: the state lives
-// in registers for any L.
+// in registers for any L.  On the training path (a non-null h_ckpt) it also
+// writes the state entering each 32-step tile to h_ckpt (B, ceil(L / 32), D,
+// N), from which the backward (ssm_scan_bwd.cu) recomputes a tile's states;
+// a null h_ckpt (serving, prefill and decode) changes nothing else.
 //
 // Replaces: src/repro/kernels/ssm_scan/ssm_scan.py, ssm_scan_pallas (and the
 // batch vmap and sequence chunking of src/repro/kernels/ssm_scan/ops.py).
@@ -47,12 +50,15 @@
 //     error, and it flushes a subnormal result to 0: the term a * h it drops
 //     is below 1.2e-38 |h|, far inside the 1e-5 absolute tolerance the
 //     kernel is held to against the plain version;
-//   * the last tile's steps past L are zero-filled and not applied to h.
+//   * the last tile's steps past L are zero-filled and not applied to h;
+//   * the step itself is ssm::step (ssm_scan.cuh), which the backward
+//     shares.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "hash_tile.cuh"
+#include "ssm_scan.cuh"
 
 namespace {
 
@@ -60,7 +66,7 @@ constexpr int kMaxN = 16;   // largest state size
 constexpr int kS = 4;       // states a lane (one 16-byte vector)
 constexpr int kGroups = 32; // channel groups (kC channels each) a block: 32 G threads
 constexpr int kSteps = 32;  // time steps a tile
-constexpr float kLog2e = 1.4426950408889634f;
+using ssm::kLog2e;
 static_assert(kSteps % 4 == 0, "a tile holds whole groups of G steps");
 
 // One stage of a block of kC channels a thread: dt and x (kSteps x
@@ -70,12 +76,6 @@ struct Stage {
   static constexpr int kChannels = kGroups * kC;
   static constexpr int kFloats = 2 * kSteps * kChannels + 2 * kSteps * kMaxN;
 };
-
-__device__ __forceinline__ float exp2_ftz(float v) {
-  float r;
-  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));
-  return r;
-}
 
 // The G lanes of a channel hold partial dots p[i] of G consecutive steps i;
 // returns the full sum of step g on lane g, in a fixed order.
@@ -139,10 +139,10 @@ __device__ __forceinline__ void scan_tile(const float* st, int steps, int q, int
       for (int u = 0; u < kC; ++u) {
         const float dtx = dtv[u] * xv[u];
         if (kFull || s < steps) {
-          h[u][0] = fmaf(exp2_ftz(dtv[u] * a2[u][0]), h[u][0], dtx * bv.x);
-          h[u][1] = fmaf(exp2_ftz(dtv[u] * a2[u][1]), h[u][1], dtx * bv.y);
-          h[u][2] = fmaf(exp2_ftz(dtv[u] * a2[u][2]), h[u][2], dtx * bv.z);
-          h[u][3] = fmaf(exp2_ftz(dtv[u] * a2[u][3]), h[u][3], dtx * bv.w);
+          h[u][0] = ssm::step(h[u][0], dtv[u], a2[u][0], dtx, bv.x);
+          h[u][1] = ssm::step(h[u][1], dtv[u], a2[u][1], dtx, bv.y);
+          h[u][2] = ssm::step(h[u][2], dtv[u], a2[u][2], dtx, bv.z);
+          h[u][3] = ssm::step(h[u][3], dtv[u], a2[u][3], dtx, bv.w);
         }
         p[u][i] = fmaf(h[u][3], cv.w, fmaf(h[u][2], cv.z, fmaf(h[u][1], cv.y, h[u][0] * cv.x)));
       }
@@ -166,13 +166,34 @@ __device__ __forceinline__ void scan_tile(const float* st, int steps, int q, int
 struct Args {
   const float *dt, *x, *Bc, *Cc, *A, *h0;
   float *y, *h_out;
+  float* h_ckpt;  // the state entering each tile (B, tiles, D, N), or nullptr
   int L, D, N;
   int stages;   // stages allocated (fewer than kStages when the sequence has fewer tiles)
   bool vec_dx;  // dt and x rows in 16-byte pieces: D % 4 == 0, both 16-byte aligned
   bool vec_bc;  // B and C steps in 16-byte pieces: N == 16, both 16-byte aligned
-  bool vec_h;   // h0, A, h_out in 16-byte pieces: N % 4 == 0, all 16-byte aligned
+  bool vec_h;   // h0, A, h_out (and h_ckpt) in 16-byte pieces: N % 4 == 0, all 16-byte aligned
   bool y2;      // y in 8-byte pieces: D even, y 8-byte aligned
 };
+
+// this thread's states of its `live` channels to the rows from `row` on (N
+// floats a channel), as 16-byte vectors where `vec`
+template <int kC>
+__device__ __forceinline__ void store_states(float* row, const float (&h)[kC][kS], int live,
+                                             int g, int N, bool vec) {
+  if (kS * g >= N) return;
+#pragma unroll
+  for (int u = 0; u < kC; ++u) {
+    if (u >= live) continue;
+    float* out = row + (long long)u * N + kS * g;
+    if (vec) {
+      *reinterpret_cast<float4*>(out) = make_float4(h[u][0], h[u][1], h[u][2], h[u][3]);
+    } else {
+#pragma unroll
+      for (int k = 0; k < kS; ++k)
+        if (kS * g + k < N) out[k] = h[u][k];
+    }
+  }
+}
 
 // G lanes a channel, kC channels a thread, kStages stages, at most kRegs
 // registers a thread (so that 65536 / (kRegs * 32 G) blocks share an SM)
@@ -275,6 +296,9 @@ ssm_scan_kernel(const Args a) {
     hash_tile::commit();
     hash_tile::wait<kStages - 1>();
     __syncthreads();  // tile t is in its stage for every thread
+    if (a.h_ckpt)  // the state entering tile t
+      store_states<kC>(a.h_ckpt + (((long long)b * tiles + t) * D + d) * N, h, live, g, N,
+                       a.vec_h);
     const float* st = smem + (t % kStages) * kStageFloats;
     const int steps = min(kSteps, L - t * kSteps);
     float* yt = y_col + (long long)t * kSteps * D;
@@ -285,19 +309,7 @@ ssm_scan_kernel(const Args a) {
     __syncthreads();  // every read of this stage is done before it is refilled
   }
 
-  if (kS * g >= N) return;
-#pragma unroll
-  for (int u = 0; u < kC; ++u) {
-    if (u >= live) continue;
-    float* out = a.h_out + ((long long)b * D + d + u) * N + kS * g;
-    if (a.vec_h) {
-      *reinterpret_cast<float4*>(out) = make_float4(h[u][0], h[u][1], h[u][2], h[u][3]);
-    } else {
-#pragma unroll
-      for (int k = 0; k < kS; ++k)
-        if (kS * g + k < N) out[k] = h[u][k];
-    }
-  }
+  store_states<kC>(a.h_out + ((long long)b * D + d) * N, h, live, g, N, a.vec_h);
 }
 
 bool aligned(const void* p, int bytes) {
@@ -354,17 +366,19 @@ cudaError_t launch_lanes(const Args& a, int B, cudaStream_t stream) {
 }  // namespace
 
 extern "C" int ssm_scan_launch(const void* dt, const void* x, const void* Bc, const void* Cc,
-                               const void* A, const void* h0, void* y, void* h_out, int B,
-                               int L, int D, int N, void* stream) {
+                               const void* A, const void* h0, void* y, void* h_out,
+                               void* h_ckpt, int B, int L, int D, int N, void* stream) {
   if (B < 0 || L < 0 || D < 0 || N < 1 || N > kMaxN || B > 65535)
     return (int)cudaErrorInvalidValue;
   if (B == 0 || D == 0) return (int)cudaSuccess;
   auto f = [](const void* p) { return static_cast<const float*>(p); };
   Args a{f(dt), f(x), f(Bc), f(Cc), f(A), f(h0), static_cast<float*>(y),
-         static_cast<float*>(h_out), L, D, N, 1, false, false, false, false};
+         static_cast<float*>(h_out), static_cast<float*>(h_ckpt), L, D, N, 1, false, false,
+         false, false};
   a.vec_dx = D % 4 == 0 && aligned(dt, 16) && aligned(x, 16);
   a.vec_bc = N == kMaxN && aligned(Bc, 16) && aligned(Cc, 16);
-  a.vec_h = N % kS == 0 && aligned(A, 16) && aligned(h0, 16) && aligned(h_out, 16);
+  a.vec_h = N % kS == 0 && aligned(A, 16) && aligned(h0, 16) && aligned(h_out, 16) &&
+            aligned(h_ckpt, 16);
   a.y2 = D % 2 == 0 && aligned(y, 8);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;

@@ -15,7 +15,7 @@ import torch
 from torch import nn
 
 from ..kernels.flash_attn import ops as flash_ops
-from .common import apply_mrope, apply_rope, dense_init_
+from .common import apply_mrope, apply_rope, dense_init_, matmul
 
 
 class AttnConfig(NamedTuple):
@@ -75,7 +75,7 @@ class Attention(nn.Module):
 
     def _project(self, x: torch.Tensor, name: str, heads: int) -> torch.Tensor:
         """x (B, S, D) @ w{name} (+ b{name}) -> (B, S, heads, dh)."""
-        out = x @ getattr(self, f"w{name}")
+        out = matmul(x, getattr(self, f"w{name}"))
         if self.cfg.qkv_bias:
             out = out + getattr(self, f"b{name}")
         return out.reshape(x.shape[0], x.shape[1], heads, self.cfg.head_dim)
@@ -106,7 +106,7 @@ class Attention(nn.Module):
         f32 = torch.float32
         out = flash_ops.flash_attention(q.to(f32), k.to(f32), v.to(f32), causal=cfg.causal,
                                         window=cfg.window, softcap=cfg.softcap)
-        return out.to(q.dtype).reshape(q.shape[0], q.shape[1], -1) @ self.wo
+        return matmul(out.to(q.dtype).reshape(q.shape[0], q.shape[1], -1), self.wo)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor | None) -> torch.Tensor:
         """x: (B, S, D), positions as `project_qkv` -> (B, S, D)."""

@@ -28,6 +28,14 @@ def layer_norm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
     return out.to(dt)
 
 
+def matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """a @ b in the dtype jnp's `@` computes: both operands promoted to
+    `torch.promote_types` of theirs (bf16 with float32 gives float32), where
+    torch's `@` refuses a mix.  The casts are no-ops when the dtypes agree."""
+    t = torch.promote_types(a.dtype, b.dtype)
+    return a.to(t) @ b.to(t)
+
+
 def dense_init_(w: torch.Tensor, generator: torch.Generator, in_axis: int = 0) -> torch.Tensor:
     """Fill `w` in place with normal / sqrt(fan_in), fan_in = w.shape[in_axis]
     (the reference's `dense_init`)."""

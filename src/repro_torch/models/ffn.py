@@ -6,7 +6,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from .common import dense_init_
+from .common import dense_init_, matmul
 
 
 def _act(x: torch.Tensor, activation: str) -> torch.Tensor:
@@ -31,9 +31,9 @@ class MLP(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: (B, S, D) -> (B, S, D)."""
-        h_up = x @ self.w_up
+        h_up = matmul(x, self.w_up)
         if self.w_gate is not None:
-            h = _act(x @ self.w_gate, self.activation) * h_up
+            h = _act(matmul(x, self.w_gate), self.activation) * h_up
         else:
             h = _act(h_up, self.activation)
-        return h @ self.w_down
+        return matmul(h, self.w_down)

@@ -24,7 +24,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.lsh import topk_largest
-from .common import dense_init_
+from .common import dense_init_, matmul
 from .ffn import MLP
 
 # elements of one (experts, cap, F) intermediate of the expert SwiGLU: the
@@ -74,7 +74,7 @@ def route(xt: torch.Tensor, router: torch.Tensor, top_k: int):
     """xt (T, D) -> gates (T, K) renormalised by max(sum, 1e-9), expert ids
     (T, K) int64 (ties to the lower expert, as `lax.top_k`), and the
     router's probabilities (T, E)."""
-    probs = torch.softmax(xt.to(torch.float32) @ router, dim=-1)
+    probs = torch.softmax(matmul(xt.to(torch.float32), router), dim=-1)
     gates, eidx = topk_largest(probs, top_k)
     return gates / torch.clamp(gates.sum(-1, keepdim=True), min=1e-9), eidx, probs
 

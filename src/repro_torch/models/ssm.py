@@ -25,7 +25,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.ssm_scan import ops as scan_ops
-from .common import dense_init_, rms_norm
+from .common import dense_init_, matmul, rms_norm
 
 
 class Mamba1Config(NamedTuple):
@@ -104,26 +104,35 @@ class Mamba1(nn.Module):
             self.A_log.copy_(torch.log(n).expand_as(self.A_log))
             self.D.fill_(1.0)
 
-    def decode(self, x: torch.Tensor, cache: SSMCache):
+    def decode(self, x: torch.Tensor, cache: SSMCache | None):
         """x (B, L, D) after `cache` -> (out (B, L, D), the cache after x).
         A decode step is L = 1: one `ssm_scan` launch from the cached
-        state."""
+        state.  `cache` None is no history, as the reference's forward: a
+        zero conv tail in the activations' dtype, a zero float32 state.
+        Mixed dtypes (a bf16 training forward) compute what jnp computes:
+        the products promote, and dt, x, B and C reach the float32 scan as
+        float32, as the reference's fused path casts them."""
         cfg = self.cfg
         Di, N, R = cfg.d_inner, cfg.d_state, cfg.dt_rank
-        x1, z = torch.split(x @ self.in_proj, [Di, Di], dim=-1)
+        f32 = torch.float32
+        x1, z = torch.split(matmul(x, self.in_proj), [Di, Di], dim=-1)
+        if cache is None:
+            cache = SSMCache(x1.new_zeros((x.shape[0], cfg.d_conv - 1, Di)),
+                             torch.zeros((x.shape[0], Di, N), dtype=f32, device=x.device), 0)
         x1, tail = causal_conv(x1, self.conv_w, self.conv_b, cache.conv_tail)
         x1 = F.silu(x1)
-        dt_r, Bc, Cc = torch.split(x1 @ self.x_proj, [R, N, N], dim=-1)
-        dt = F.softplus(dt_r @ self.dt_proj + self.dt_bias)  # (B, L, Di)
-        A = -torch.exp(self.A_log.to(torch.float32))  # (Di, N)
-        y, h = scan_ops.ssm_scan(dt, x1, Bc.contiguous(), Cc.contiguous(), A, cache.state)
-        y = (y + x1 * self.D).to(x.dtype)
+        dt_r, Bc, Cc = torch.split(matmul(x1, self.x_proj), [R, N, N], dim=-1)
+        dt = F.softplus(matmul(dt_r, self.dt_proj) + self.dt_bias)  # (B, L, Di)
+        A = -torch.exp(self.A_log.to(f32))  # (Di, N)
+        y, h = scan_ops.ssm_scan(dt.to(f32), x1.to(f32), Bc.to(f32).contiguous(),
+                                 Cc.to(f32).contiguous(), A, cache.state)
+        y = (y + x1.to(f32) * self.D).to(x.dtype)
         y = y * F.silu(z)
-        return y @ self.out_proj, SSMCache(tail, h, cache.length + x.shape[1])
+        return matmul(y, self.out_proj), SSMCache(tail, h, cache.length + x.shape[1])
 
     def prefill(self, x: torch.Tensor):
         """The forward over a prompt and the cache after it."""
-        return self.decode(x, init_mamba1_cache(self.cfg, x.shape[0], device=x.device))
+        return self.decode(x, None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """x: (B, L, D) -> (B, L, D)."""

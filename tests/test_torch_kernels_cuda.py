@@ -13,7 +13,10 @@ of each gradient's largest entry (BWD_CASES and a few forward cases, bit
 for bit from one launch to the next; a smoke model's train step on the card
 against the CPU) and ssm_scan within rtol/atol 1e-5,
 fp32 summation order and ex2 ulps; ssm_scan also on
-tests/torch_scan_cases.py and against the plain mirror of its lanes).  They
+tests/torch_scan_cases.py and against the plain mirror of its lanes; its
+backward kernel within 5e-5 of each gradient's largest entry, bit for bit
+from one launch to the next, also against the plain mirror of its tiles,
+and its checkpoints leaving the forward's bits unchanged).  They
 need a card and skip without one; `python3 chip_smoke.py` is the
 authoritative on-card run."""
 import numpy as np
@@ -23,8 +26,9 @@ from torch_flash_cases import BWD_CASES, FLASH_CASES, make_bwd_case
 from torch_flash_cases import make_case as make_flash_case
 from torch_pool_cases import POOL_CASES, make_pool
 from torch_probe_cases import PROBE_CASES, make_case
-from torch_scan_cases import SCAN_CASES, lanes_mirror
+from torch_scan_cases import SCAN_CASES, bwd_kernel_mirror, lanes_mirror
 from torch_scan_cases import make_case as make_scan_case
+from torch_scan_cases import make_grads as make_scan_grads
 from torch_verify_cases import VERIFY_CASES, survivor_budget
 from torch_verify_cases import make_case as make_verify_case
 
@@ -858,12 +862,14 @@ def test_flash_attn_forward_lse_leaves_serving_unchanged(dev):
     assert torch.equal(plain.view(torch.int32), with_lse.view(torch.int32))
 
 
-@pytest.mark.parametrize("arch", ["gemma-2b", "gemma2-9b", "qwen3-moe-235b-a22b"])
+@pytest.mark.parametrize("arch", ["gemma-2b", "gemma2-9b", "qwen3-moe-235b-a22b",
+                                  "falcon-mamba-7b"])
 def test_train_step_smoke_card_matches_cpu(dev, arch):
     """One float32 train step of a smoke model on the card (flash_attn and
-    its backward kernel once an attention layer) against the same step on
-    the CPU from the same weights and batch: loss and grad norm rtol 1e-4,
-    the parameters within 5e-4."""
+    its backward kernel once an attention layer, ssm_scan and its backward
+    kernel once a Mamba-1 layer) against the same step on the CPU from the
+    same weights and batch: loss and grad norm rtol 1e-4, the parameters
+    within 5e-4."""
     from repro_torch.configs import ARCHS
     from repro_torch.data import lm_token_batches
     from repro_torch.models.convert import params_to_reference
@@ -885,8 +891,11 @@ def test_train_step_smoke_card_matches_cpu(dev, arch):
     n_attn = sum(kind in ("attn", "global", "local", "dense", "moe") for kind in
                  list(cfg.pattern) * cfg.repeats + list(cfg.tail))
     after = common.launch_counts()
+    n_m1 = (list(cfg.pattern) * cfg.repeats + list(cfg.tail)).count("m1")
     assert after["flash_attn"] - before["flash_attn"] == n_attn
     assert after["flash_attn_bwd"] - before["flash_attn_bwd"] == n_attn
+    assert after["ssm_scan"] - before["ssm_scan"] == n_m1
+    assert after["ssm_scan_bwd"] - before["ssm_scan_bwd"] == n_m1
     cpu2, mp = step(cpu, b)
     for key in ("loss", "grad_norm"):
         assert float(mc[key]) == pytest.approx(float(mp[key]), rel=1e-4), key
@@ -959,17 +968,139 @@ def test_ssm_scan_kernel_ignores_seq_chunk(dev, B, L, D, N):
     assert torch.equal(out[33][0], out[L][0]) and torch.equal(out[33][1], out[L][1])
 
 
-def test_ssm_scan_kernel_refuses_grad(dev):
-    B, L, D, N = 2, 5, 8, 4
-    ins = [torch.rand((B, L, D), device=dev), torch.randn((B, L, D), device=dev),
-           torch.randn((B, L, N), device=dev), torch.randn((B, L, N), device=dev),
-           -torch.rand((D, N), device=dev), torch.zeros((B, D, N), device=dev)]
-    for i in range(len(ins)):
-        args = [t.detach().requires_grad_(j == i) for j, t in enumerate(ins)]
-        with pytest.raises(RuntimeError, match="no backward"):
-            ssm_scan(*args)
-        with torch.inference_mode():
-            ssm_scan(*args)
+# the scan's backward kernel against its plain version: each gradient
+# within this share of its largest entry (float32 sums over channels, states,
+# steps and batch rows in other orders, ex2.approx's 2 ulp in each a_t)
+SCAN_BWD_REL_TOL = 5e-5
+SCAN_GRADS = ("ddt", "dx", "dB", "dC", "dA", "dh0")
+
+
+def _scan_bwd_close(got, want, tag="") -> None:
+    for g, w, name in zip(got, want, SCAN_GRADS):
+        assert bool(torch.isfinite(g).all()), (tag, name)
+        err = float((g - w).abs().max()) if g.numel() else 0.0
+        scale = float(w.abs().max()) if w.numel() else 0.0
+        assert err <= SCAN_BWD_REL_TOL * max(scale, 1e-30), (tag, name, err, scale)
+
+
+def _scan_args(dev, B, L, D, N, seed):
+    rng = np.random.default_rng(seed)
+    f = lambda *shape, s=1.0: torch.from_numpy(  # noqa: E731
+        (rng.normal(size=shape) * s).astype(np.float32)).to(dev)
+    return ([torch.nn.functional.softplus(f(B, L, D)), f(B, L, D), f(B, L, N), f(B, L, N),
+             -torch.exp(f(D, N, s=0.5)), f(B, D, N)], f(B, L, D), f(B, D, N))
+
+
+@pytest.mark.parametrize("which", range(6))
+def test_ssm_scan_grad_through_the_kernel(dev, which):
+    """With grad mode on and one of dt, x, B, C, A, h0 requiring grad, the
+    call goes through `SSMScan`: one forward launch (with the tiles'
+    checkpoints), and backward launches the backward kernel once and fills
+    only that input's gradient, the plain backward's; under inference_mode it
+    is the plain launch, and no backward runs."""
+    from repro_torch.kernels.ssm_scan import ssm_scan_bwd_ref
+
+    ins, dy, dh = _scan_args(dev, 2, 70, 40, 16, which)
+    args = [t.detach().requires_grad_(j == which) for j, t in enumerate(ins)]
+    before = common.launch_counts()
+    y, h = ssm_scan(*args)
+    assert y.grad_fn is not None
+    ((y * dy).sum() + (h * dh).sum()).backward()
+    torch.cuda.synchronize()
+    after = common.launch_counts()
+    assert after["ssm_scan"] == before["ssm_scan"] + 1
+    assert after["ssm_scan_bwd"] == before["ssm_scan_bwd"] + 1
+    assert [t.grad is not None for t in args] == [j == which for j in range(6)]
+    want = ssm_scan_bwd_ref(*ins, dy, dh)[which]
+    err = float((args[which].grad - want).abs().max())
+    assert err <= SCAN_BWD_REL_TOL * float(want.abs().max()), (SCAN_GRADS[which], err)
+    with torch.inference_mode():
+        assert ssm_scan(*args)[0].grad_fn is None
+    assert common.launch_counts()["ssm_scan_bwd"] == after["ssm_scan_bwd"]
+
+
+def _bwd_twice(ins, dy, dh):
+    """The forward with checkpoints, then the backward kernel twice (one
+    counted launch each, the same bits)."""
+    from repro_torch.kernels.ssm_scan import ops as scan_ops
+
+    _, _, ckpt = scan_ops._forward(*ins, checkpoints=True)
+    before = common.launch_counts()["ssm_scan_bwd"]
+    a = scan_ops.ssm_scan_bwd(*ins, ckpt, dy, dh)
+    b = scan_ops.ssm_scan_bwd(*ins, ckpt, dy, dh)
+    torch.cuda.synchronize()
+    assert common.launch_counts()["ssm_scan_bwd"] == before + 2
+    for x, y in zip(a, b):
+        assert torch.equal(x.view(torch.int32), y.view(torch.int32))
+    return a
+
+
+@pytest.mark.parametrize("with_dh", [True, False], ids=["dh_fin", "no dh_fin"])
+@pytest.mark.parametrize("name", list(SCAN_CASES))
+def test_ssm_scan_bwd_kernel_on_the_scan_cases(dev, name, with_dh):
+    """The shared scan cases: the backward kernel against its plain version
+    and the plain mirror of its decomposition, reruns bit for bit."""
+    from repro_torch.kernels.ssm_scan import ssm_scan_bwd_ref
+
+    ins = [torch.from_numpy(a).to(dev) for a in make_scan_case(name)]
+    dy, dh = (torch.from_numpy(a).to(dev) for a in make_scan_grads(name))
+    dh = dh if with_dh else None
+    got = _bwd_twice(ins, dy, dh)
+    _scan_bwd_close(got, ssm_scan_bwd_ref(*ins, dy, dh), name)
+    mirror = bwd_kernel_mirror(*(t.cpu() for t in ins), dy.cpu(),
+                               None if dh is None else dh.cpu())
+    _scan_bwd_close([t.cpu() for t in got], mirror, name)
+
+
+@pytest.mark.parametrize("B,L,D,N", [(8, 64, 8192, 16),  # falcon-mamba-7b's training shape
+                                     (3, 77, 200, 16), (2, 100, 130, 5), (2, 33, 200, 3),
+                                     (1, 1, 1, 1), (4, 300, 520, 13)])
+def test_ssm_scan_bwd_kernel_matches_plain(dev, B, L, D, N):
+    from repro_torch.kernels.ssm_scan import ssm_scan_bwd_ref
+
+    ins, dy, dh = _scan_args(dev, B, L, D, N, L * D + N)
+    _scan_bwd_close(_bwd_twice(ins, dy, dh), ssm_scan_bwd_ref(*ins, dy, dh), (B, L, D, N))
+
+
+@pytest.mark.parametrize("B,L,D,N", [(8, 64, 8192, 16), (1, 4096, 256, 16), (3, 77, 200, 5),
+                                     (2, 33, 70, 3)])
+def test_ssm_scan_checkpoints_leave_the_forward_unchanged(dev, B, L, D, N):
+    """The forward that writes checkpoints gives y and h_fin bit for bit as
+    the one that does not, and its checkpoint of tile t is, bit for bit, the
+    final state of a scan of the first 32 t steps."""
+    from repro_torch.kernels.ssm_scan import ops as scan_ops
+
+    ins, _, _ = _scan_args(dev, B, L, D, N, L + D)
+    y0, h0, none = scan_ops._forward(*ins, checkpoints=False)
+    y1, h1, ckpt = scan_ops._forward(*ins, checkpoints=True)
+    torch.cuda.synchronize()
+    assert none is None and ckpt.shape == (B, -(-L // 32), D, N)
+    assert torch.equal(y0.view(torch.int32), y1.view(torch.int32))
+    assert torch.equal(h0.view(torch.int32), h1.view(torch.int32))
+    assert torch.equal(ckpt[:, 0], ins[5])
+    dt, x, Bc, Cc, A, h_init = ins
+    for t in range(1, ckpt.shape[1], max(1, ckpt.shape[1] // 4)):
+        s = 32 * t
+        _, h_t, _ = scan_ops._forward(dt[:, :s].contiguous(), x[:, :s].contiguous(),
+                                      Bc[:, :s].contiguous(), Cc[:, :s].contiguous(), A, h_init,
+                                      checkpoints=False)
+        assert torch.equal(ckpt[:, t].view(torch.int32), h_t.view(torch.int32)), t
+
+
+@pytest.mark.parametrize("B,L,D", [(0, 5, 64), (2, 5, 0), (2, 0, 64)])
+def test_ssm_scan_bwd_empty_launches_nothing(dev, B, L, D):
+    """No batch row, channel or step: neither kernel launches, the
+    gradients are zeros (dh0 is dh_fin where there is no step)."""
+    N = 16
+    args = [torch.zeros(s, device=dev).requires_grad_()
+            for s in ((B, L, D), (B, L, D), (B, L, N), (B, L, N), (D, N), (B, D, N))]
+    before = common.launch_counts()
+    y, h = ssm_scan(*args)
+    (y.sum() + 2 * h.sum()).backward()
+    assert common.launch_counts() == before
+    for t in args[:5]:
+        assert t.grad is not None and not bool(t.grad.any())
+    assert torch.equal(args[5].grad, torch.full_like(args[5], 2.0))
 
 
 @pytest.mark.parametrize("B,D", [(0, 64), (2, 0)])

@@ -71,8 +71,9 @@ def test_wrapper_rejects_a_bad_chunk():
 
 
 def test_cpu_wrapper_stays_differentiable():
-    """The autograd guard is the kernel's: on CPU tensors the wrapper runs
-    the plain version, and gradients reach every input."""
+    """On CPU tensors the wrapper runs the plain version, which autograd
+    differentiates: gradients reach every input (the card's path goes
+    through `SSMScan` and the backward kernel)."""
     g = torch.Generator().manual_seed(0)
     B, L, D, N = 2, 6, 3, 4
     dt = torch.nn.functional.softplus(torch.randn((B, L, D), generator=g))
@@ -120,3 +121,15 @@ def test_lane_mirror_matches_reference(name):
     y_r, h_r = ref_ssm_scan(*map(jnp.asarray, args), use_pallas=False)
     np.testing.assert_allclose(y.numpy(), np.asarray(y_r), **TOL)
     np.testing.assert_allclose(h.numpy(), np.asarray(h_r), **TOL)
+
+
+@pytest.mark.parametrize("which", range(6))
+def test_cpu_wrapper_refuses_a_bf16_input(which):
+    """The CPU path takes float32 only, with the card's check: a bf16 input
+    (any of dt, x, B, C, A, h0) raises TypeError naming it, where the plain
+    version would promote it silently."""
+    args = [torch.from_numpy(a) for a in _inputs((2,), 5, 8, 4, 0)]
+    args[which] = args[which].to(torch.bfloat16)
+    name = ("dt", "x", "Bc", "Cc", "A", "h0")[which]
+    with pytest.raises(TypeError, match=rf"^{name}: dtype torch.bfloat16"):
+        ssm_scan(*args)

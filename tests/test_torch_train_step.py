@@ -100,7 +100,7 @@ def _losses(ref_cfg, cfg, rs, st, b):
     return float(f(rs.params, jb, jnp.float32)), float(f(rs.params, jb, jnp.bfloat16)), float(p16)
 
 
-@pytest.mark.parametrize("arch", ["gemma-2b", "gemma2-9b"])
+@pytest.mark.parametrize("arch", TRAIN_ARCHS)
 def test_bf16_loss_within_the_reference_bf16_gap(arch):
     ref_cfg, cfg = configs(arch)
     rs = ref_state(ref_cfg)

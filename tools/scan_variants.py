@@ -3,8 +3,10 @@ csrc/ssm_scan.cu) at four shapes of N 16 and D 8192, on an NVIDIA card:
 
     python3 tools/scan_variants.py
 
-Each variant is the committed source with a few textual edits, compiled
-alone by nvcc into its own library (all builds started together).  The
+Each variant is the committed source (with the step it shares with the
+backward, ssm_scan.cuh, inlined) with a few textual edits, compiled alone by
+nvcc into its own library (all builds started together); each launch writes
+no checkpoint, as serving's.  The
 parent commit's ssm_scan.cu (the earlier design: a thread a channel,
 launched once a 2,048-step chunk with t0, t1) can be timed beside them by
 placing it at .scratch/ssm_scan_parent.cu.  Shapes: falcon-mamba-7b's
@@ -149,7 +151,8 @@ def build_all(sources: dict) -> dict:
 def main() -> None:
     if not torch.cuda.is_available():
         sys.exit("scan_variants: needs an NVIDIA card")
-    base = (common.CSRC / "ssm_scan.cu").read_text()
+    step = (common.CSRC / "ssm_scan.cuh").read_text().replace("#pragma once\n", "")
+    base = (common.CSRC / "ssm_scan.cu").read_text().replace('#include "ssm_scan.cuh"\n', step)
     sources = {"committed": base}
     for name, edits in VARIANTS.items():
         text = base
@@ -164,7 +167,7 @@ def main() -> None:
     P, I = ctypes.c_void_p, ctypes.c_int
     for name, lib in libs.items():
         fn = lib.ssm_scan_launch
-        fn.argtypes = [P] * 8 + [I] * (6 if name == "parent" else 4) + [P]
+        fn.argtypes = [P] * 8 + [I] * 6 + [P] if name == "parent" else [P] * 9 + [I] * 4 + [P]
         fn.restype = ctypes.c_int
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev).manual_seed(0)
@@ -188,7 +191,7 @@ def main() -> None:
                 flush.zero_()
             if name != "parent":
                 err = lib.ssm_scan_launch(*ptrs, h0.data_ptr(), y.data_ptr(), hs[0].data_ptr(),
-                                          B, L, D, N, stream())
+                                          None, B, L, D, N, stream())
                 assert err == 0, (name, err)
                 return hs[0]
             h = h0
