@@ -402,6 +402,10 @@ FLASH_BWD_REL_TOL = 2e-4
 # sums over channels, states, steps and batch rows in other orders;
 # ex2.approx's 2 ulp in each a_t)
 SCAN_BWD_REL_TOL = 5e-5
+# steps a sub-tile of the scan's backward kernel (ssm_scan_bwd.cu kSub): it
+# recomputes each step once in its sub-tile and the steps before a tile's
+# last sub-tile once more, for the entering states of the sub-tiles
+SCAN_BWD_SUB = 8
 # kernels one launch of a wrapper runs on the card (flash_attn_bwd at the
 # training step's shape: the dQ pass with delta, the dK / dV pass cut into
 # row chunks, the chunks' reduce; flash_bwd_record counts each of its
@@ -4061,8 +4065,8 @@ def scan_bwd_record(ins: list, dy: torch.Tensor) -> dict:
     4, L 2048, so not repeated).  Bound: the largest of the bytes
     (dt, x, dy, B, C, A and the checkpoints read once; ddt, dx, dB, dC, dA,
     dh0 written once), one exp a state and step on the SFUs, and 20 float32
-    operations a state and step; `exps_kernel_ms` the two exps a state and
-    step that this design takes (the recompute and the walk)."""
+    operations a state and step; `exps_kernel` the exps this design takes
+    (SCAN_BWD_SUB: 1.75 a state and step where L is a multiple of 32)."""
     from repro_torch.kernels import common
     from repro_torch.kernels.ssm_scan import ops as scan_ops
     from repro_torch.kernels.ssm_scan import ssm_scan_bwd_ref
@@ -4100,12 +4104,16 @@ def scan_bwd_record(ins: list, dy: torch.Tensor) -> dict:
     terms = dict(bytes=nbytes / HBM_BYTES_PER_S * 1e3, exp=elems / SFU_EXP_PER_S * 1e3,
                  fp32=20 * elems / FP32_FLOPS * 1e3)
     term = max(terms, key=terms.get)
+    subs = lambda steps: -(-steps // SCAN_BWD_SUB)  # noqa: E731
+    rerun = sum(SCAN_BWD_SUB * (subs(min(scan_ops.TILE, L - s0)) - 1)
+                for s0 in range(0, L, scan_ops.TILE))
+    exps_kernel = (L + rerun) / L * terms["exp"]
     call = lambda: scan_ops.ssm_scan_bwd(*ins, ckpt, dy)  # noqa: E731
     return dict(max_abs_err=max(e["max_abs_err"] for e in errs.values()), errors=errs,
                 ms=median_ms(call, 20), **device_ms(call, 20, 2, "ssm_scan_bwd"),
                 kernels_per_call=2, plain_ms=plain_s * 1e3,
                 bound_ms=terms[term], bound_by="bytes" if term == "bytes" else "operations",
-                bound_term=term, bound_terms_ms=dict(terms, exps_kernel=2 * terms["exp"]),
+                bound_term=term, bound_terms_ms=dict(terms, exps_kernel=exps_kernel),
                 library_ms=None, bit_identical_reruns=True, checkpoints_leave_forward=True,
                 shape=dict(B=B, L=L, D=D, N=N, tiles=T, channel_blocks=scan_ops.bwd_blocks(D)))
 

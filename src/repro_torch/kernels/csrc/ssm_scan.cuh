@@ -18,9 +18,16 @@ __device__ __forceinline__ float exp2_ftz(float v) {
   return r;
 }
 
-// h_{t-1} -> h_t of one state: a2 = A * kLog2e, dtx = dt_t * x_t, b = B_t
+// h_{t-1} -> h_t of one state: a2 = A * kLog2e, dtx = dt_t * x_t, b = B_t;
+// a_t = exp2(dt_t a2) to `a` (the backward keeps it for its walk)
+__device__ __forceinline__ float step(float h, float dt, float a2, float dtx, float b, float& a) {
+  a = exp2_ftz(dt * a2);
+  return fmaf(a, h, dtx * b);
+}
+
 __device__ __forceinline__ float step(float h, float dt, float a2, float dtx, float b) {
-  return fmaf(exp2_ftz(dt * a2), h, dtx * b);
+  float a;
+  return step(h, dt, a2, dtx, b, a);
 }
 
 }  // namespace ssm

@@ -14,46 +14,70 @@
 // Plain torch version beside it: src/repro_torch/kernels/ssm_scan/ref.py,
 // ssm_scan_bwd_ref.
 //
-// What bounds it: the bytes.  It reads dt, x, dy (12 bytes a channel and
-// step), the forward's checkpoints (the state entering each 32-step tile, 64
-// bytes a channel and tile at N 16), B and C, and writes ddt and dx (8 bytes
-// a channel and step) and dh0: at the training shape (B 8, L 64, D 8192, N
-// 16) 97 MB, 0.029 ms at 3.35 TB/s, against 67 M states x steps whose one
-// exp each takes 0.016 ms on the SFUs (this design takes two: the recompute
-// and the walk).  At B 4, L 2048 the bytes are 1.48 GB (0.44 ms) against
-// 1.07 G exps (0.26 ms).  Beside them the dB / dC partials of the channel
-// blocks, 2 x 4 N bytes a block and step, are written and read again once by
-// the reduce.
+// What it moves: dt, x, dy read (12 bytes a channel and step), the forward's
+// checkpoints (the state entering each 32-step tile, 64 bytes a channel and
+// tile at N 16), B, C and A; ddt and dx written (8 bytes a channel and step),
+// dA's rows and dh0.  At the training shape (B 8, L 64, D 8192, N 16) 97 MB,
+// 0.029 ms at 3.35 TB/s; at B 4, L 2048 1.48 GB (0.44 ms).  Beside them the
+// dB / dC partials of the 32-channel blocks, 2 x 4 N bytes a block and step,
+// are written and read again by the reduce (16.8 MB each way at the training
+// shape, 268 MB at B 4, L 2048).  The exps: one a state and step would take
+// 0.016 ms on the SFUs at the training shape; this design takes 1.75 (0.028
+// ms).  What bounds it is the issue slots: the walk of one step is ~99 SASS
+// instructions a thread for its 4 states (11 FMAs and products a state, the
+// 8-value transposed reduce of dB / dC with its selects, the butterflies of
+// dx and ddt, the staging stores), ~146 with the recompute, the run to the
+// sub-tiles' entering states and the flush: 0.08 ms at the training shape
+// with every scheduler issuing each clock at 1.755 GHz, above the bytes.
 //
-// Design (a first, simple kernel):
+// What held a design that staged a tile's states in shared memory back
+// (104 KB a block, 8 warps an SM; the tile's loads, its recompute and its
+// walk in strict order; a step's reduces never in flight beside the next
+// step's), and what this design does about it:
 //   * the forward's lane layout: G lanes a channel (G = 1, 2, 4 for N up to
 //     4, 8, 16), 4 states a lane, one channel a thread, 32 channels of one
 //     batch row a block (32 G threads, G warps); the grid is channel blocks
 //     x batch rows, as the forward's;
-//   * the tiles go from last to first.  A tile's dt, x, dy, B and C are
-//     copied into shared memory (zeros past L, D and N); each thread reloads
-//     its states from the tile's checkpoint and recomputes the tile's 32
-//     steps with ssm::step, the forward's arithmetic, so that each state
-//     equals the forward's bit for bit, keeping the state entering each step
-//     in shared memory (a 16-byte vector a thread and step).  No state is
-//     recovered by running the recurrence backwards: h_{t-1} = (h_t - b_t) /
-//     a_t divides by an a_t that underflows to 0;
-//   * then it steps backwards through the tile, g and the sum a_{t+1} g_{t+1}
-//     in registers across tiles, a_t recomputed (one ex2 a state and step):
+//   * no stage of the tile's states.  The tiles go from last to first.  From
+//     the tile's checkpoint a thread runs the steps 0-23 once, keeping the
+//     states entering steps 8, 16 and 24 (a float4 each, in shared memory:
+//     the registers go to the sub-tile); then it takes the tile's kSub-step
+//     sub-tiles from last to first: recomputes the sub-tile's steps from its
+//     entering state with ssm::step, the forward's arithmetic (each state
+//     equals the forward's bit for bit), keeping each step's entering state
+//     and a_s in registers, and walks the sub-tile backwards from them with
+//     no exp: 1.75 exps a state and step.  No state comes from running the
+//     recurrence backwards: h_{t-1} = (h_t - b_t) / a_t divides by an a_t
+//     that underflows to 0.  Every register array is indexed at compile
+//     time: the steps of a sub-tile are unrolled, a short last sub-tile is
+//     predicated;
+//   * dt, x, dy, B, C and the tile's checkpoint slice go into shared memory
+//     by cp.async in a ring of kStages stages (16-byte pieces where D, N and
+//     the pointers allow, 4-byte ones otherwise, zeros past L, D and N):
+//     the next tile loads while this one is walked;
+//   * the walk unrolled over the sub-tile's steps: only g and dA carry from
+//     one step to the next, so the reduces of neighbouring steps are in
+//     flight together:
 //       - dx and ddt: the lane's sum over its 4 states, then the G lanes'
-//         sums by a butterfly (every lane ends with the same bits), staged
-//         in shared memory and stored a tile at a time;
+//         sums by a butterfly (every lane ends with the same bits);
 //       - dA: accumulated in registers, one batch row a block, written per
 //         row to a partial buffer;
 //       - dB_t and dC_t (8 values a lane: 4 states each): summed over the
 //         warp's channels by a transposed reduce (the lanes exchange half of
 //         their values at each level, 4 + 2 + 1 shuffles, after which each
-//         lane holds one value), then over the block's G warps in warp order
-//         at the tile's end, into the partial buffer (B, channel blocks, L,
-//         N);
+//         lane holds one value);
+//     ddt, dx and the warps' dB / dC sums are staged in shared memory and
+//     flushed a sub-tile (kFlush steps) at a time, the warps summed in warp
+//     order into the partial buffer (B, channel blocks, L, N), from two
+//     buffers in turn (one barrier a flush);
+//   * so a block of G 4 takes 54 KB (two 18 KB stages, two 6 KB flush
+//     buffers, 6 KB of entering states) and at most 128 registers a thread
+//     (no spill): 4 blocks, 16 warps an SM;
 //   * a second kernel behind the same entry point sums the dB and dC
 //     partials over the channel blocks in block order, and dA over the
 //     batch rows in row order.  No atomics: reruns give the same bits.
+//     Every sum is taken in the same order as in the design that staged the
+//     states, so the outputs are its bits too.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -67,20 +91,33 @@ constexpr int kMaxN = 16;   // largest state size
 constexpr int kS = 4;       // states a lane
 constexpr int kCh = 32;     // channels a block
 constexpr int kSteps = 32;  // steps a tile: the forward's checkpoint interval
+constexpr int kSub = 8;     // steps a sub-tile: its states and a_s in registers
+constexpr int kStages = 2;  // tiles in the cp.async ring
+constexpr int kFlush = kSub;  // steps of ddt, dx, dB, dC staged before a flush
+constexpr int kRegs = 128;  // registers a thread at most
+constexpr int kSubs = kSteps / kSub;
+static_assert(kSteps % kFlush == 0 && kFlush % kSub == 0, "flushes of whole sub-tiles");
 
-// Shared memory of a block of G lanes a channel, in floats: the state
-// entering each step of the tile (a float4 a thread and step), dt, x and dy
-// (kSteps x kCh), B and C (kSteps x kMaxN), the tile's ddt and dx, and the
-// warps' dB / dC sums (kSteps x G warps x 8 values x G state groups).
+// One stage of the ring, in floats: dt, x, dy (kSteps x kCh), B, C (kSteps x
+// kMaxN) and the tile's checkpoint slice (kCh channels x N, packed)
+struct Stage {
+  static constexpr int kDt = 0, kX = kSteps * kCh, kDy = 2 * kSteps * kCh,
+                       kB = 3 * kSteps * kCh, kC = kB + kSteps * kMaxN,
+                       kCk = kC + kSteps * kMaxN, kFloats = kCk + kCh * kMaxN;
+};
+
+// Shared memory of a block of G lanes a channel, in floats: the ring; two
+// flush buffers, each ddt and dx (kFlush x kCh) and the warps' dB / dC sums
+// (kFlush x G warps x 8 values x G state groups); the states entering the
+// sub-tiles after the first (kSubs - 1 x a float4 a thread)
 template <int G>
 struct Smem {
   static constexpr int kThreads = kCh * G;
   static constexpr int kWarps = kThreads / 32;
-  static constexpr int kStates = kSteps * kThreads * kS;
-  static constexpr int kInputs = 3 * kSteps * kCh + 2 * kSteps * kMaxN;
-  static constexpr int kOut = 2 * kSteps * kCh;
-  static constexpr int kRed = kSteps * kWarps * 8 * G;
-  static constexpr int kFloats = kStates + kInputs + kOut + kRed;
+  static constexpr int kDdt = 0, kDx = kFlush * kCh, kRed = 2 * kFlush * kCh,
+                       kOut = kRed + kFlush * kWarps * 8 * G;
+  static constexpr int kEnt = (kSubs - 1) * kThreads * kS;
+  static constexpr int kFloats = kStages * Stage::kFloats + 2 * kOut + kEnt;
 };
 
 struct BwdArgs {
@@ -88,6 +125,9 @@ struct BwdArgs {
   float *ddt, *dx, *dh0;
   float *pB, *pC, *dA_part;  // partials: (B, blocks, L, N) twice, (B, D, N)
   int L, D, N, blocks;
+  bool vec_dx;  // dt, x, dy in 16-byte pieces: D % 4 == 0, all 16-byte aligned
+  bool vec_bc;  // B, C in 16-byte pieces: N == 16, both 16-byte aligned
+  bool vec_ck;  // checkpoints in 16-byte pieces: D N % 4 == 0, 16-byte aligned
 };
 
 // v[0..7] of every lane summed over the warp's channels (lane bits 2, 3, 4
@@ -113,21 +153,135 @@ __device__ __forceinline__ float warp_channel_sum(float (&v)[8], int lane) {
   return r;
 }
 
-template <int G>
-__global__ void __launch_bounds__(kCh * G) ssm_scan_bwd_kernel(const BwdArgs a) {
+// The sub-tile of steps j0 .. j0 + kSub - 1 of the tile in stage `st` (kFull:
+// all before `steps`; else those past it are skipped), entered with state h0:
+// recomputed forwards, then walked backwards, carrying gn (the gradient
+// flowing into h from later steps) and dA.  Stages ddt, dx and the warps' dB
+// / dC sums of its steps in the flush buffer `ob` at the steps' slots.
+template <int G, bool kFull>
+__device__ __forceinline__ void sub_tile(const float* st, float* ob, int j0, int steps,
+                                         const float (&h0)[kS], int q, int g, int lane, int w,
+                                         const float (&Av)[kS], const float (&a2)[kS],
+                                         float (&gn)[kS], float (&dA)[kS]) {
   using S = Smem<G>;
-  constexpr int kThreads = S::kThreads, kWarps = S::kWarps;
   constexpr unsigned kAll = 0xffffffffu;
+  const float* dts = st + Stage::kDt;
+  const float* xs = st + Stage::kX;
+  const float* dys = st + Stage::kDy;
+  const float* bs = st + Stage::kB;
+  const float* cs = st + Stage::kC;
+
+  // hs[j]: the state entering step j0 + j (hs[kSub]: leaving the sub-tile);
+  // ea[j]: that step's a_s
+  float hs[kSub + 1][kS], ea[kSub][kS];
+#pragma unroll
+  for (int k = 0; k < kS; ++k) hs[0][k] = h0[k];
+#pragma unroll
+  for (int j = 0; j < kSub; ++j) {
+    const int s = j0 + j;
+#pragma unroll
+    for (int k = 0; k < kS; ++k) hs[j + 1][k] = hs[j][k], ea[j][k] = 1.f;
+    if (kFull || s < steps) {
+      const float dtv = dts[s * kCh + q], xv = xs[s * kCh + q];
+      const float4 b4 = hash_tile::lds4(bs + s * kMaxN + kS * g);
+      const float bv[kS] = {b4.x, b4.y, b4.z, b4.w};
+      const float dtx = dtv * xv;
+#pragma unroll
+      for (int k = 0; k < kS; ++k)
+        hs[j + 1][k] = ssm::step(hs[j][k], dtv, a2[k], dtx, bv[k], ea[j][k]);
+    }
+  }
+
+  const int slot0 = j0 % kFlush;
+#pragma unroll
+  for (int j = kSub - 1; j >= 0; --j) {
+    const int s = j0 + j, slot = slot0 + j;
+    if (!kFull && s >= steps) continue;
+    const float dtv = dts[s * kCh + q], xv = xs[s * kCh + q], dyv = dys[s * kCh + q];
+    const float4 b4 = hash_tile::lds4(bs + s * kMaxN + kS * g);
+    const float4 c4 = hash_tile::lds4(cs + s * kMaxN + kS * g);
+    const float bv[kS] = {b4.x, b4.y, b4.z, b4.w}, cv[kS] = {c4.x, c4.y, c4.z, c4.w};
+    const float dtx = dtv * xv;
+    float v[8], px = 0.f, pdt = 0.f;
+#pragma unroll
+    for (int k = 0; k < kS; ++k) {
+      const float e = ea[j][k];                   // a_s
+      const float gk = fmaf(dyv, cv[k], gn[k]);  // g_s
+      const float u = e * hs[j][k];              // a_s h_{s-1}
+      v[k] = gk * dtx;                           // dB_s's term
+      v[kS + k] = dyv * hs[j + 1][k];            // dC_s's term
+      px = fmaf(gk, bv[k], px);
+      pdt = fmaf(gk, fmaf(Av[k], u, xv * bv[k]), pdt);
+      dA[k] = fmaf(gk * dtv, u, dA[k]);
+      gn[k] = e * gk;
+    }
+#pragma unroll
+    for (int m = 1; m < G; m <<= 1) {
+      px += __shfl_xor_sync(kAll, px, m);
+      pdt += __shfl_xor_sync(kAll, pdt, m);
+    }
+    if (g == 0) {
+      ob[S::kDdt + slot * kCh + q] = pdt;
+      ob[S::kDx + slot * kCh + q] = dtv * px;
+    }
+    const float r = warp_channel_sum<G>(v, lane);
+    if ((lane & 3) < G)
+      ob[S::kRed + (slot * S::kWarps + w) * 8 * G + ((lane >> 2) & 7) * G + g] = r;
+  }
+}
+
+// this lane's states of the tile's checkpoint in stage `st`: zeros past D
+// (the stage's) and past N
+__device__ __forceinline__ void checkpoint(const float* st, int q, int g, int N,
+                                           float (&h)[kS]) {
+#pragma unroll
+  for (int k = 0; k < kS; ++k) {
+    const int n = kS * g + k;
+    h[k] = n < N ? st[Stage::kCk + q * N + n] : 0.f;
+  }
+}
+
+// ddt and dx of the n steps from step `first` of the row, staged in `ob`, to
+// device memory; the warps' dB / dC sums of those steps added in warp order
+// into the block's partials
+template <int G>
+__device__ __forceinline__ void flush(const BwdArgs& a, const float* ob, int b, int blk,
+                                      long long row, int first, int n, int tid) {
+  using S = Smem<G>;
+  const int D = a.D, N = a.N, d0 = blk * kCh;
+#pragma unroll 1
+  for (int e = tid; e < n * kCh; e += S::kThreads) {
+    const int s = e / kCh, c = e % kCh;
+    if (d0 + c >= D) continue;
+    const long long at = (row + first + s) * D + d0 + c;
+    a.ddt[at] = ob[S::kDdt + e];
+    a.dx[at] = ob[S::kDx + e];
+  }
+  const float* red = ob + S::kRed;
+#pragma unroll 1
+  for (int e = tid; e < n * N; e += S::kThreads) {
+    const int s = e / N, nn = e % N, k = nn % kS, gg = nn / kS;
+    float sb = 0.f, sc = 0.f;
+#pragma unroll
+    for (int ww = 0; ww < S::kWarps; ++ww) {
+      const float* r = red + (s * S::kWarps + ww) * 8 * G;
+      sb += r[k * G + gg];
+      sc += r[(kS + k) * G + gg];
+    }
+    const long long at = (((long long)b * a.blocks + blk) * a.L + first + s) * N + nn;
+    a.pB[at] = sb;
+    a.pC[at] = sc;
+  }
+}
+
+template <int G>
+__global__ void __launch_bounds__(kCh * G, 65536 / kRegs / (kCh * G))
+ssm_scan_bwd_kernel(const BwdArgs a) {
+  using S = Smem<G>;
+  constexpr int kThreads = S::kThreads;
   extern __shared__ __align__(16) float smem[];
-  float* hs = smem;
-  float* dts = hs + S::kStates;
-  float* xs = dts + kSteps * kCh;
-  float* dys = xs + kSteps * kCh;
-  float* bs = dys + kSteps * kCh;
-  float* cs = bs + kSteps * kMaxN;
-  float* ddts = cs + kSteps * kMaxN;
-  float* dxs = ddts + kSteps * kCh;
-  float* red = dxs + kSteps * kCh;
+  float* out = smem + kStages * Stage::kFloats;  // the two flush buffers
+  float* ents = out + 2 * S::kOut;                // this thread's at ents + kS tid
 
   const int tid = threadIdx.x, q = tid / G, g = tid % G, lane = tid & 31, w = tid >> 5;
   const int L = a.L, D = a.D, N = a.N;
@@ -135,6 +289,79 @@ __global__ void __launch_bounds__(kCh * G) ssm_scan_bwd_kernel(const BwdArgs a) 
   const bool live = d < D;
   const long long row = (long long)b * L;  // first step of this batch row
   const int tiles = (L + kSteps - 1) / kSteps;
+
+  // copy tile t's dt, x, dy, B, C and checkpoint slice into stage `slot`,
+  // zeros past L, D and N.  Its loops (and the flush's) stay rolled: unrolled,
+  // each iteration's indices were hoisted out of the tile loop, past the
+  // registers the walk leaves free, into local memory.
+  auto issue = [&](int t, int slot) {
+    float* st = smem + slot * Stage::kFloats;
+    const int s0 = t * kSteps, steps = min(kSteps, L - s0);
+    if (a.vec_dx) {
+      constexpr int kPieces = kCh / 4;  // 16-byte pieces a step
+#pragma unroll 1
+      for (int e = tid; e < kSteps * kPieces; e += kThreads) {
+        const int s = e / kPieces, c = 4 * (e % kPieces);
+        const bool in = s < steps && d0 + c < D;
+        const long long at = in ? (row + s0 + s) * D + d0 + c : 0;
+        hash_tile::copy<16>(st + Stage::kDt + 4 * e, a.dt + at, in ? 16 : 0);
+        hash_tile::copy<16>(st + Stage::kX + 4 * e, a.x + at, in ? 16 : 0);
+        hash_tile::copy<16>(st + Stage::kDy + 4 * e, a.dy + at, in ? 16 : 0);
+      }
+    } else {
+#pragma unroll 1
+      for (int e = tid; e < kSteps * kCh; e += kThreads) {
+        const int s = e / kCh, c = e % kCh;
+        const bool in = s < steps && d0 + c < D;
+        const long long at = in ? (row + s0 + s) * D + d0 + c : 0;
+        hash_tile::copy<4>(st + Stage::kDt + e, a.dt + at, in ? 4 : 0);
+        hash_tile::copy<4>(st + Stage::kX + e, a.x + at, in ? 4 : 0);
+        hash_tile::copy<4>(st + Stage::kDy + e, a.dy + at, in ? 4 : 0);
+      }
+    }
+    const long long first = (row + s0) * N;
+    if (a.vec_bc) {  // the stage's rows are the steps' rows: one run of 16-byte pieces
+      constexpr int kPieces = kSteps * kMaxN / 4;
+#pragma unroll 1
+      for (int e = tid; e < 2 * kPieces; e += kThreads) {
+        const bool is_c = e >= kPieces;
+        const int p = is_c ? e - kPieces : e;
+        const int bytes = 4 * p < steps * kMaxN ? 16 : 0;
+        hash_tile::copy<16>(st + (is_c ? Stage::kC : Stage::kB) + 4 * p,
+                            (is_c ? a.Cc : a.Bc) + (bytes ? first + 4 * p : 0), bytes);
+      }
+    } else {
+#pragma unroll 1
+      for (int e = tid; e < kSteps * kMaxN; e += kThreads) {
+        const int s = e / kMaxN, n = e % kMaxN;
+        const bool in = s < steps && n < N;
+        const long long at = in ? first + s * N + n : 0;
+        hash_tile::copy<4>(st + Stage::kB + e, a.Bc + at, in ? 4 : 0);
+        hash_tile::copy<4>(st + Stage::kC + e, a.Cc + at, in ? 4 : 0);
+      }
+    }
+    // the slice (b, t, d0 .. d0 + 31, :) is one run of (channels in D) x N
+    const long long ck = (((long long)b * tiles + t) * D + d0) * N;
+    const int count = min(kCh, D - d0) * N;
+    if (a.vec_ck) {  // count is a multiple of 4
+#pragma unroll 1
+      for (int e = tid; e < kCh * kMaxN / 4; e += kThreads) {
+        const bool in = 4 * e < count;
+        hash_tile::copy<16>(st + Stage::kCk + 4 * e, a.ckpt + (in ? ck + 4 * e : 0),
+                            in ? 16 : 0);
+      }
+    } else {
+#pragma unroll 1
+      for (int e = tid; e < kCh * kMaxN; e += kThreads) {
+        const bool in = e < count;
+        hash_tile::copy<4>(st + Stage::kCk + e, a.ckpt + (in ? ck + e : 0), in ? 4 : 0);
+      }
+    }
+  };
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (i < tiles) issue(tiles - 1 - i, i);
+    hash_tile::commit();
+  }
 
   // this lane's states n = kS g + k: A, A log2(e) (as the forward forms
   // it), the gradient flowing into h from later steps, dA's sum
@@ -148,101 +375,64 @@ __global__ void __launch_bounds__(kCh * G) ssm_scan_bwd_kernel(const BwdArgs a) 
     if (a.dh_fin) gn[k] = a.dh_fin[((long long)b * D + d) * N + n];
   }
 
-  for (int t = tiles - 1; t >= 0; --t) {
+  int buf = 0;  // the flush buffer being filled
+  for (int i = 0; i < tiles; ++i) {
+    const int t = tiles - 1 - i;
+    if (i + kStages - 1 < tiles) issue(t - (kStages - 1), (i + kStages - 1) % kStages);
+    hash_tile::commit();
+    hash_tile::wait<kStages - 1>();
+    __syncthreads();  // tile t is in its stage for every thread
+    // Every read of a stage comes before the barrier of the tile's last
+    // flush (its sub-tile at step 0), so the next iteration may refill it.
+    const float* st = smem + (i % kStages) * Stage::kFloats;
     const int s0 = t * kSteps, steps = min(kSteps, L - s0);
-    __syncthreads();  // the previous tile's reads of the stage are done
-    for (int e = tid; e < kSteps * kCh; e += kThreads) {
-      const int s = e / kCh, c = e % kCh;
-      const bool in = s < steps && d0 + c < D;
-      const long long at = (row + s0 + s) * D + d0 + c;
-      dts[e] = in ? a.dt[at] : 0.f;
-      xs[e] = in ? a.x[at] : 0.f;
-      dys[e] = in ? a.dy[at] : 0.f;
-    }
-    for (int e = tid; e < kSteps * kMaxN; e += kThreads) {
-      const int s = e / kMaxN, n = e % kMaxN;
-      const bool in = s < steps && n < N;
-      const long long at = (row + s0 + s) * N + n;
-      bs[e] = in ? a.Bc[at] : 0.f;
-      cs[e] = in ? a.Cc[at] : 0.f;
-    }
-    float h[kS] = {};
-#pragma unroll
-    for (int k = 0; k < kS; ++k) {
-      const int n = kS * g + k;
-      if (live && n < N) h[k] = a.ckpt[(((long long)b * tiles + t) * D + d) * N + n];
-    }
-    __syncthreads();  // the tile is in shared memory
+    const int subs = (steps + kSub - 1) / kSub;
 
-    // the tile's states from its checkpoint, in the forward's arithmetic
-    for (int s = 0; s < steps; ++s) {
-      *reinterpret_cast<float4*>(hs + (s * kThreads + tid) * kS) =
-          make_float4(h[0], h[1], h[2], h[3]);
-      const float dtv = dts[s * kCh + q], xv = xs[s * kCh + q];
-      const float4 bv = hash_tile::lds4(bs + s * kMaxN + kS * g);
-      const float dtx = dtv * xv;
-      h[0] = ssm::step(h[0], dtv, a2[0], dtx, bv.x);
-      h[1] = ssm::step(h[1], dtv, a2[1], dtx, bv.y);
-      h[2] = ssm::step(h[2], dtv, a2[2], dtx, bv.z);
-      h[3] = ssm::step(h[3], dtv, a2[3], dtx, bv.w);
+    // the state entering sub-tile u + 1 to ents, from running the sub-tiles
+    // before the last one once (all full) from the checkpoint.  Shared
+    // memory, not registers: the sub-tile's walk takes all 128.  Each thread
+    // reads back only what it wrote: no barrier.
+    {
+      float h[kS];
+      checkpoint(st, q, g, N, h);
+#pragma unroll 1
+      for (int u = 0; u + 1 < subs; ++u) {
+#pragma unroll
+        for (int j = 0; j < kSub; ++j) {
+          const int s = u * kSub + j;
+          const float dtv = st[Stage::kDt + s * kCh + q], xv = st[Stage::kX + s * kCh + q];
+          const float4 b4 = hash_tile::lds4(st + Stage::kB + s * kMaxN + kS * g);
+          const float dtx = dtv * xv;
+          h[0] = ssm::step(h[0], dtv, a2[0], dtx, b4.x);
+          h[1] = ssm::step(h[1], dtv, a2[1], dtx, b4.y);
+          h[2] = ssm::step(h[2], dtv, a2[2], dtx, b4.z);
+          h[3] = ssm::step(h[3], dtv, a2[3], dtx, b4.w);
+        }
+        *reinterpret_cast<float4*>(ents + (u * kThreads + tid) * kS) =
+            make_float4(h[0], h[1], h[2], h[3]);
+      }
     }
 
-    // backwards through the tile: h holds h_s, hs[s] h_{s-1}
-    for (int s = steps - 1; s >= 0; --s) {
-      const float dtv = dts[s * kCh + q], xv = xs[s * kCh + q], dyv = dys[s * kCh + q];
-      const float4 b4 = hash_tile::lds4(bs + s * kMaxN + kS * g);
-      const float4 c4 = hash_tile::lds4(cs + s * kMaxN + kS * g);
-      const float4 p4 = hash_tile::lds4(hs + (s * kThreads + tid) * kS);
-      const float bv[kS] = {b4.x, b4.y, b4.z, b4.w}, cv[kS] = {c4.x, c4.y, c4.z, c4.w};
-      const float hp[kS] = {p4.x, p4.y, p4.z, p4.w};
-      const float dtx = dtv * xv;
-      float v[8], px = 0.f, pdt = 0.f;
-#pragma unroll
-      for (int k = 0; k < kS; ++k) {
-        const float e = ssm::exp2_ftz(dtv * a2[k]);  // a_s
-        const float gk = fmaf(dyv, cv[k], gn[k]);     // g_s
-        const float u = e * hp[k];                    // a_s h_{s-1}
-        v[k] = gk * dtx;                              // dB_s's term
-        v[kS + k] = dyv * h[k];                       // dC_s's term
-        px = fmaf(gk, bv[k], px);
-        pdt = fmaf(gk, fmaf(Av[k], u, xv * bv[k]), pdt);
-        dA[k] = fmaf(gk * dtv, u, dA[k]);
-        gn[k] = e * gk;
-        h[k] = hp[k];
+#pragma unroll 1
+    for (int u = subs - 1; u >= 0; --u) {
+      float h0[kS];
+      if (u == 0) {
+        checkpoint(st, q, g, N, h0);
+      } else {
+        const float4 e = hash_tile::lds4(ents + ((u - 1) * kThreads + tid) * kS);
+        h0[0] = e.x, h0[1] = e.y, h0[2] = e.z, h0[3] = e.w;
       }
-#pragma unroll
-      for (int m = 1; m < G; m <<= 1) {
-        px += __shfl_xor_sync(kAll, px, m);
-        pdt += __shfl_xor_sync(kAll, pdt, m);
+      const int j0 = u * kSub;
+      float* ob = out + buf * S::kOut;
+      if (j0 + kSub <= steps)
+        sub_tile<G, true>(st, ob, j0, steps, h0, q, g, lane, w, Av, a2, gn, dA);
+      else
+        sub_tile<G, false>(st, ob, j0, steps, h0, q, g, lane, w, Av, a2, gn, dA);
+      if (j0 % kFlush == 0) {
+        __syncthreads();  // the flush group's ddt, dx and warp sums are staged
+        flush<G>(a, ob, b, blk, row, s0 + j0, min(kFlush, steps - j0), tid);
+        buf ^= 1;  // the next group fills the other buffer, read after the next barrier
       }
-      if (g == 0) {
-        ddts[s * kCh + q] = pdt;
-        dxs[s * kCh + q] = dtv * px;
-      }
-      const float r = warp_channel_sum<G>(v, lane);
-      if ((lane & 3) < G) red[(s * kWarps + w) * 8 * G + ((lane >> 2) & 7) * G + g] = r;
-    }
-    __syncthreads();  // the tile's ddt, dx and warp sums are in shared memory
-
-    for (int e = tid; e < steps * kCh; e += kThreads) {
-      const int s = e / kCh, c = e % kCh;
-      if (d0 + c >= D) continue;
-      const long long at = (row + s0 + s) * D + d0 + c;
-      a.ddt[at] = ddts[e];
-      a.dx[at] = dxs[e];
-    }
-    for (int e = tid; e < steps * N; e += kThreads) {
-      const int s = e / N, n = e % N, k = n % kS, gg = n / kS;
-      float sb = 0.f, sc = 0.f;
-#pragma unroll
-      for (int ww = 0; ww < kWarps; ++ww) {
-        const float* r = red + (s * kWarps + ww) * 8 * G;
-        sb += r[k * G + gg];
-        sc += r[(kS + k) * G + gg];
-      }
-      const long long at = (((long long)b * a.blocks + blk) * L + s0 + s) * N + n;
-      a.pB[at] = sb;
-      a.pC[at] = sc;
     }
   }
 
@@ -278,6 +468,10 @@ __global__ void ssm_scan_bwd_reduce(const float* pB, const float* pC, const floa
   }
 }
 
+bool aligned(const void* p, int bytes) {
+  return reinterpret_cast<uintptr_t>(p) % bytes == 0;
+}
+
 template <int G>
 cudaError_t launch(const BwdArgs& a, int B, cudaStream_t stream) {
   static hash_tile::DeviceOnce once;
@@ -285,8 +479,13 @@ cudaError_t launch(const BwdArgs& a, int B, cudaStream_t stream) {
   int sms = 0;
   cudaError_t err = once.get(
       [] {
+        cudaError_t e = cudaFuncSetAttribute(
+            ssm_scan_bwd_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kBytes);
+        if (e != cudaSuccess) return e;
+        // 4 blocks of 54 KB an SM at G 4: all of the SM's shared memory
         return cudaFuncSetAttribute(ssm_scan_bwd_kernel<G>,
-                                    cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kBytes);
+                                    cudaFuncAttributePreferredSharedMemoryCarveout,
+                                    (int)cudaSharedmemCarveoutMaxShared);
       },
       &sms);
   if (err != cudaSuccess) return err;
@@ -311,7 +510,10 @@ extern "C" int ssm_scan_bwd_launch(const void* dt, const void* x, const void* Bc
   const long long part = (long long)B * blocks * L * N;
   float* s = o(scratch);
   BwdArgs a{f(dt), f(x), f(Bc), f(Cc), f(A), f(ckpt), f(dy), f(dh_fin), o(ddt), o(dx), o(dh0),
-            s, s + part, s + 2 * part, L, D, N, blocks};
+            s, s + part, s + 2 * part, L, D, N, blocks, false, false, false};
+  a.vec_dx = D % 4 == 0 && aligned(dt, 16) && aligned(x, 16) && aligned(dy, 16);
+  a.vec_bc = N == kMaxN && aligned(Bc, 16) && aligned(Cc, 16);
+  a.vec_ck = (long long)D * N % 4 == 0 && aligned(ckpt, 16);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err = N <= kS ? launch<1>(a, B, st) : N <= 2 * kS ? launch<2>(a, B, st)
                                                                 : launch<4>(a, B, st);

@@ -1054,12 +1054,40 @@ def test_ssm_scan_bwd_kernel_on_the_scan_cases(dev, name, with_dh):
 
 @pytest.mark.parametrize("B,L,D,N", [(8, 64, 8192, 16),  # falcon-mamba-7b's training shape
                                      (3, 77, 200, 16), (2, 100, 130, 5), (2, 33, 200, 3),
-                                     (1, 1, 1, 1), (4, 300, 520, 13)])
+                                     (1, 1, 1, 1), (4, 300, 520, 13),
+                                     # D % 4 != 0 at N 16: 4-byte copies of dt, x, dy
+                                     (2, 77, 130, 16),
+                                     # G 2, a last tile of 13 steps: a partial sub-tile
+                                     (2, 45, 96, 7)])
 def test_ssm_scan_bwd_kernel_matches_plain(dev, B, L, D, N):
     from repro_torch.kernels.ssm_scan import ssm_scan_bwd_ref
 
     ins, dy, dh = _scan_args(dev, B, L, D, N, L * D + N)
     _scan_bwd_close(_bwd_twice(ins, dy, dh), ssm_scan_bwd_ref(*ins, dy, dh), (B, L, D, N))
+
+
+def test_ssm_scan_bwd_kernel_on_unaligned_inputs(dev):
+    """Every input a contiguous view at storage offset 1 (4 bytes past a
+    16-byte boundary): the kernel copies its tiles in 4-byte pieces, and
+    gives the bits of the same call on aligned inputs, within tolerance of
+    the plain version."""
+    from repro_torch.kernels.ssm_scan import ssm_scan_bwd_ref
+
+    B, L, D, N = 2, 70, 256, 16
+    ins, dy, dh = _scan_args(dev, B, L, D, N, 7)
+
+    def shifted(t):
+        buf = torch.empty(t.numel() + 1, device=dev)
+        v = buf[1:].view(t.shape)
+        v.copy_(t)
+        assert v.is_contiguous() and v.data_ptr() % 16 == 4
+        return v
+
+    aligned = _bwd_twice(ins, dy, dh)
+    got = _bwd_twice([shifted(t) for t in ins], shifted(dy), shifted(dh))
+    for a, b in zip(got, aligned):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    _scan_bwd_close(got, ssm_scan_bwd_ref(*ins, dy, dh), "unaligned")
 
 
 @pytest.mark.parametrize("B,L,D,N", [(8, 64, 8192, 16), (1, 4096, 256, 16), (3, 77, 200, 5),

@@ -8,7 +8,9 @@ the reference package.
 The cases aim at what the scan kernel (src/repro_torch/kernels/csrc/
 ssm_scan.cu) can get wrong: state sizes that take 1, 2 or 4 lanes a channel
 and that 4 does not divide (N 1, 3, 5, 13), sequence lengths around its
-32-step tile (1, 31, 32, 33) and one of many tiles (4096), channel counts
+32-step tile (1, 31, 32, 33), around the backward's 8-step sub-tile (7, 8,
+9; 41, one tile and a partial sub-tile) and one of many tiles (4096),
+channel counts
 that are not a multiple of its 64-channel block, one batch row, an A 100
 times larger, so that exp(dt A) is a subnormal or 0 for many states, and h0
 of zeros beside the random h0 of every other case.  A is drawn at random in
@@ -29,6 +31,10 @@ SCAN_CASES = {
     "L 31": (2, 31, 24, 16, 1.0, True),
     "L 32": (2, 32, 24, 16, 1.0, True),
     "L 33": (2, 33, 24, 16, 1.0, True),
+    "L 7": (2, 7, 24, 16, 1.0, True),
+    "L 8": (2, 8, 24, 16, 1.0, True),
+    "L 9": (2, 9, 24, 16, 1.0, True),
+    "L 41": (2, 41, 24, 16, 1.0, True),
     "L 4096, B 1": (1, 4096, 10, 16, 1.0, True),
     "B 1, D 130": (1, 40, 130, 16, 1.0, True),
     "exp underflows": (2, 40, 70, 16, 100.0, True),

@@ -26,15 +26,12 @@ from __future__ import annotations
 
 import ctypes
 import json
-import statistics
 import subprocess
 import sys
-from pathlib import Path
 
 import torch
 
-ROOT = Path(__file__).resolve().parent.parent
-sys.path.insert(0, str(ROOT / "src"))
+from variants_common import ROOT, apply_edits, build_all, device_ms, events_ms, stream
 
 from repro_torch.kernels import common  # noqa: E402
 from repro_torch.kernels.ssm_scan import ssm_scan_batched_ref  # noqa: E402
@@ -44,6 +41,7 @@ SHAPES = {"serving B 32, L 32": (32, 32), "serving, L2 flushed before each launc
 FLUSH_BYTES = 128 << 20  # written between launches: more than the H100's 50 MB L2
 D, N = 8192, 16
 TOL = dict(rtol=1e-5, atol=1e-5)
+TOOL = "scan_variants"
 BUILD = ROOT / ".scratch" / "scan_variants"
 PARENT = ROOT / ".scratch" / "ssm_scan_parent.cu"
 EX2 = 'asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(v));'
@@ -92,86 +90,22 @@ VARIANTS = {
 }
 
 
-def device_ms(fn, launches: int, reps: int = 20) -> tuple:
-    """(mean device time of a call that makes `launches` launches, launches
-    the profiler recorded of reps * launches): the mean over the recorded
-    launches, since a session may miss some of its first ones."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    fn()
-    torch.cuda.synchronize()
-    for _ in range(3):  # a profiler session now and then records no device event
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            torch.cuda.synchronize()
-        kern = [e.time_range.elapsed_us() for e in prof.events()
-                if e.device_type == DeviceType.CUDA and "ssm_scan" in e.name]
-        if kern:
-            return sum(kern) / len(kern) / 1e3 * launches, len(kern)
-    return float("nan"), 0
-
-
-def events_ms(fn, reps: int = 20) -> float:
-    fn()
-    times = []
-    for _ in range(reps):
-        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        a.record()
-        fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
-
-
-def build_all(sources: dict) -> dict:
-    BUILD.mkdir(parents=True, exist_ok=True)
-    procs = {}
-    for i, (name, text) in enumerate(sources.items()):
-        src, so = BUILD / f"v{i}.cu", BUILD / f"v{i}.so"
-        src.write_text(text)
-        cmd = [common.find_nvcc(), *common.NVCC_FLAGS, "-shared", "-I", str(common.CSRC),
-               str(src), "-o", str(so)]
-        procs[name] = (so, subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                            stderr=subprocess.STDOUT, text=True))
-    libs = {}
-    for name, (so, proc) in procs.items():
-        out, _ = proc.communicate()
-        if proc.returncode != 0:  # reported, and the other variants still timed
-            print(f"scan_variants: nvcc failed for {name}:\n{out}", file=sys.stderr)
-            continue
-        libs[name] = ctypes.CDLL(str(so))
-    if "committed" not in libs:
-        sys.exit("scan_variants: the committed source did not build")
-    return libs
-
-
 def main() -> None:
     if not torch.cuda.is_available():
-        sys.exit("scan_variants: needs an NVIDIA card")
+        sys.exit(f"{TOOL}: needs an NVIDIA card")
     step = (common.CSRC / "ssm_scan.cuh").read_text().replace("#pragma once\n", "")
     base = (common.CSRC / "ssm_scan.cu").read_text().replace('#include "ssm_scan.cuh"\n', step)
     sources = {"committed": base}
     for name, edits in VARIANTS.items():
-        text = base
-        for old, new in edits:
-            if old not in text:
-                sys.exit(f"scan_variants: {name}: {old!r} not in ssm_scan.cu")
-            text = text.replace(old, new)
-        sources[name] = text
+        sources[name] = apply_edits(base, edits, name, TOOL, "ssm_scan.cu")
     if PARENT.exists():
         sources["parent"] = PARENT.read_text()
-    libs = build_all(sources)
-    P, I = ctypes.c_void_p, ctypes.c_int
-    for name, lib in libs.items():
-        fn = lib.ssm_scan_launch
-        fn.argtypes = [P] * 8 + [I] * 6 + [P] if name == "parent" else [P] * 9 + [I] * 4 + [P]
-        fn.restype = ctypes.c_int
+    libs = build_all(sources, BUILD, TOOL)
+    if "parent" in libs:  # its entry point took the chunk's t0, t1 and no checkpoints
+        P, I = ctypes.c_void_p, ctypes.c_int
+        libs["parent"].ssm_scan_launch.argtypes = [P] * 8 + [I] * 6 + [P]
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev).manual_seed(0)
-    stream = lambda: torch._C._cuda_getCurrentRawStream(torch._C._cuda_getDevice())  # noqa: E731
     res = {"card": torch.cuda.get_device_name(0)}
     for tag, (B, L) in SHAPES.items():
         dt = torch.nn.functional.softplus(torch.randn(B, L, D, device=dev, generator=g))
@@ -210,10 +144,10 @@ def main() -> None:
             err = max(float((y - y_ref).abs().max()), float((h - h_ref).abs().max()))
             ok = bool(torch.allclose(y, y_ref, **TOL) and torch.allclose(h, h_ref, **TOL))
             launches = -(-L // 2048) if name == "parent" else 1
-            dev_ms, seen = device_ms(lambda: run(name, lib), launches)
+            dev_ms, seen = device_ms(lambda: run(name, lib), "ssm_scan", launches)
             recs[name] = dict(device_ms=dev_ms, launches_seen=seen,
                               events_ms=None if flush is not None  # the flush counts there
-                              else events_ms(lambda: run(name, lib)),
+                              else events_ms(lambda: run(name, lib), 20),
                               max_abs_err=err, within_tol=ok)
         if tag == "B 4, L 2048":  # the SM clock while the committed kernel runs
             for _ in range(3000):
