@@ -114,7 +114,22 @@ Drives the port's paths on one NVIDIA card at the paper's SIFT size
     smoke gemma-2b, qwen3-moe, whisper-tiny and falcon-mamba-7b on the card
     against the CPU for 3 steps; the Trainer resumed at step 6 against an
     uninterrupted run, then `launch.train --ckpt-dir D` and `launch.serve
-    --ckpt-dir D` (restores the trained step).
+    --ckpt-dir D` (restores the trained step);
+  * the models' bf16 activation knobs (phase `bf16_knobs`): gemma-2b served
+    with attn_bf16_probs and falcon-mamba-7b with ssm_bf16_acts, each on the
+    weights its serving phase built (top-1 self-retrieval equal to the
+    knob-off run's, the bf16 form once a layer and batch, the float32 form
+    never); one training step of gemma-2b (18 layers) and of falcon-mamba-7b
+    (24 layers) with the knob on the states of train_full / train_mamba
+    (loss finite; gemma-2b's within KNOB_LOSS_REL_TOL of the knob-off loss
+    and not equal to it, falcon-mamba-7b's equal to it; one bf16 forward and
+    one bf16 backward launch a layer, nothing else); the four bf16 forms
+    against their plain versions (ssm_scan / ssm_scan_bwd bit for bit the
+    float32 forms on the widened inputs, flash_attn / flash_attn_bwd by
+    knob_gap_check: the mean gap from the plain mirror of their own
+    roundings within KNOB_MIRROR_FACTOR of the knob's mean gap) at the
+    paths' shapes, each timed beside its float32 form; a mixed bf16 scan
+    refused.
 
 Each search QPS of the index paths is the median of QPS_PASSES passes over
 its queries, with the passes' min, max and spread beside it (C10).
@@ -184,11 +199,13 @@ N_QUERIES, BATCH, K = 10_000, 1_000, 10
 # apart between runs of unchanged code (ROADMAP C10)
 QPS_PASSES = 5
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (published)
+L2_BYTES = 50 * 2**20  # H100 SXM L2 cache (published)
 FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores (published)
 TF32_FLOPS = 495e12  # H100 SXM TF32 on the tensor cores, dense (NVIDIA H100 data sheet)
 # H100 SXM int32 outside the tensor cores: 132 SMs x 64 INT32 lanes (Hopper
 # architecture white paper) x 1.98 GHz boost clock, one operation a lane
 INT32_OPS = 132 * 64 * 1.98e9
+BF16_FLOPS = 989e12  # H100 SXM bf16 on the tensor cores, dense (NVIDIA H100 data sheet)
 # H100 SXM exps: 16 exp2 results a clock an SM on the special-function units
 # (CUDA C++ Programming Guide, arithmetic instruction throughput table,
 # compute capability 9.0) x 132 SMs x 1.98 GHz boost clock
@@ -412,6 +429,33 @@ SCAN_BWD_SUB = 8
 # shapes' own, `bwd_kernels`; ssm_scan_bwd: the walk and the partials'
 # reduce); every other wrapper runs one
 KERNELS_PER_LAUNCH = {"flash_attn_bwd": 3, "ssm_scan_bwd": 2}
+# phase bf16_knobs: the serving model's bf16 knob and the form of its kernel
+# that the knob runs; each bf16 form's float32 form
+KNOB_KERNEL = {"gemma-2b": "flash_attn_bf16", "falcon-mamba-7b": "ssm_scan_bf16"}
+BF16_FORM_OF = {"flash_attn": "flash_attn_bf16", "flash_attn_bwd": "flash_attn_bwd_bf16",
+                "ssm_scan": "ssm_scan_bf16", "ssm_scan_bwd": "ssm_scan_bwd_bf16"}
+# a bf16-P flash_attn / flash_attn_bwd output (knob_gap_check): the mean of
+# its gap from the plain mirror of its own roundings (the forward's walk of
+# its key tiles, flash_attention_bf16_tiles_ref; the plain bf16-P backward
+# on the kernel's own o and lse) within KNOB_MIRROR_FACTOR of the knob's mean
+# gap (mean |plain bf16-P - plain float32|), and its largest gap from the
+# plain bf16-P version within KNOB_GAP_FACTOR of the knob's largest gap.
+# tests/test_torch_bf16_knobs.py shows the mean gate's margins on the CPU:
+# scores moved by 1e-6 of themselves (3xTF32 products against float32 sums)
+# stay under half of it, while the P V product without its roundings, or
+# with only some of its three, lies above 10 times it
+KNOB_MIRROR_FACTOR = 0.02
+KNOB_GAP_FACTOR = 2.0
+KNOB_GATE = (f"mean |kernel - plain mirror| <= {KNOB_MIRROR_FACTOR} x the knob's mean gap; "
+             f"max |kernel - plain bf16-P| <= {KNOB_GAP_FACTOR} x its largest gap")
+# a training step's loss with the knob on against the same state's loss with
+# it off on the same batch, relative.  gemma-2b (attn_bf16_probs): above 0
+# (the rounding happened) and at most KNOB_LOSS_REL_TOL, about 3 x the gap
+# read on the card (1.0578e-5 in two runs, bit for bit, PERF.md §6).
+# falcon-mamba-7b (ssm_bf16_acts): equal bit for bit, since in bf16 compute
+# dt, x, B and C are bf16 already and the bf16 scan is the float32 scan on
+# its widened inputs
+KNOB_LOSS_REL_TOL = 3e-5
 PROFILE_PAD = 32
 # tiny kernels launched first in each torch.profiler session, one entry a
 # try: the profiler drops the first kernels of a session, the more of them
@@ -555,18 +599,29 @@ def kernels_per_call(fn) -> int:
 
 
 def device_ms(fn, reps: int, launches: int | None = None, match: str | None = None,
-              key: str = "device") -> dict:
+              key: str = "device", floor_ms: float | None = None) -> dict:
     """{key}_ms: the mean device time of fn() over `reps` runs (its kernels'
     time on the card under torch.profiler, summed, without the host's launch
     cost that the CUDA events of median_ms include), beside
     {key}_launches_seen and {key}_launches_expected.  `launches` (kernels a
     run, of those named `match`) is counted with kernels_per_call where not
-    given."""
+    given.  `floor_ms`: the least time the work can take (bound_floor); a
+    reading under it is taken again in a fresh session, up to three times
+    in all ({key}_readings_under_floor counts the ones set aside), and the
+    run fails if every one of them reads under it."""
     if launches is None:
         launches = kernels_per_call(fn)
-    events = device_events(fn, reps, launches, match)
-    return {f"{key}_ms": sum(events) / reps, f"{key}_launches_seen": len(events),
-            f"{key}_launches_expected": reps * launches}
+    under = []
+    for _ in range(3):
+        events = device_events(fn, reps, launches, match)
+        ms = sum(events) / reps
+        if floor_ms is None or ms >= floor_ms:
+            return {f"{key}_ms": ms, f"{key}_launches_seen": len(events),
+                    f"{key}_launches_expected": reps * launches,
+                    f"{key}_readings_under_floor": under}
+        under.append(ms)
+    fail(f"device_ms: {key} read {under} ms, under the work's least time {floor_ms} ms, "
+         "in three sessions")
 
 
 def forbid_scatter() -> None:
@@ -970,22 +1025,28 @@ def run(dev: torch.device, t_start: float) -> None:
     lm = run_lm_decode(dev)
     train = run_training(dev)
     for k in launches:
-        launches[k] += serve["counts"][k] + lm["counts"][k] + train["counts"][k]
+        launches[k] += (serve["counts"][k] + lm["counts"][k] + train["counts"][k]
+                        + serve["knob_counts"][k] + train["knob_counts"][k])
     for rec in kernels:
         rec["launches"] = launches[rec["name"]]
     kernels += serve_kernels_vs_plain(serve, launches)
     decode_kernels_vs_plain(kernels, lm)
     kernels.append(flash_bwd_kernels_vs_plain(launches))
     kernels.append(scan_bwd_kernels_vs_plain(launches))
+    kernels += knob_kernels_vs_plain(serve, launches)
     pool_rec = next(rec for rec in kernels if rec["name"] == "pool_topk")
     pool_rec["pool"]["serving"] = pool_record("serving", serve["recorded"]["pool_topk"][0],
                                               dedupe_topk_scatter)
     names = [rec["name"] for rec in kernels]
     if sorted(names) != sorted(common.LAUNCHES):
         fail(f"the kernels line lists {names}, the library has {sorted(common.LAUNCHES)}")
+    for name in BF16_FORM_OF.values():  # every bf16 form ran on a main path of the phase
+        if launches[name] == 0:
+            fail(f"bf16_knobs: {name} was never launched on the knobs' paths")
 
     for rec in kernels:
-        subs = [sub for k in ("wide", "batch", "long", "pool", "worklists", "decode", "prefill")
+        subs = [sub for k in ("wide", "batch", "long", "pool", "worklists", "decode", "prefill",
+                              "train")
                 for sub in rec.get(k, {}).values()]
         for r in (rec, *subs):
             with_ratios(r)
@@ -2306,6 +2367,7 @@ def run_serving(dev) -> dict:
     from repro_torch.serve import RetrievalEngine
 
     counts = {k: 0 for k in common.LAUNCHES}
+    knob_counts = {k: 0 for k in common.LAUNCHES}
     recorded = {}
     for arch, n_docs, n_req in SERVE:
         cfg = ARCHS[arch]
@@ -2318,11 +2380,12 @@ def run_serving(dev) -> dict:
                                  max_batch=SERVE_BATCH, device=dev)
         corpus, _ = lm_token_batches(vocab=cfg.vocab, seed=0)(0, n_docs, SERVE_TOKENS)
         for dynamic in (False, True):
-            run_counts = serve_once(engine, corpus, n_req, dynamic)
+            run_counts, retrieval = serve_once(engine, corpus, n_req, dynamic)
             for k in counts:
                 counts[k] += run_counts[k]
             if not dynamic:  # after the static run's counts are read
                 static_index = engine.index
+                static_retrieval = retrieval
                 profile_batch(engine, corpus[:SERVE_BATCH])
                 if arch == "gemma-2b":  # the serving pool of one static batch's probe
                     pool = []
@@ -2345,12 +2408,17 @@ def run_serving(dev) -> dict:
         with recording(module, fn, calls, keep=1):
             engine.embed(corpus[:SERVE_BATCH])
         recorded[kernel] = calls[0]
+        # phase bf16_knobs: the same weights served with the model's bf16 knob
+        run_counts, recorded[KNOB_KERNEL[arch]] = serve_with_knob(engine, corpus, n_req,
+                                                                  static_retrieval)
+        for k in knob_counts:
+            knob_counts[k] += run_counts[k]
         del engine, model
         torch.cuda.empty_cache()
     serve_async_cli()
     serve_shards_cli()
     small_serve_vs_cpu(dev)
-    return dict(counts=counts, recorded=recorded)
+    return dict(counts=counts, recorded=recorded, knob_counts=knob_counts)
 
 
 def serve_chunked_and_sharded(engine, corpus: np.ndarray, n_req: int, static_index) -> dict:
@@ -2378,7 +2446,7 @@ def serve_chunked_and_sharded(engine, corpus: np.ndarray, n_req: int, static_ind
              "build's")
     sharded = RetrievalEngine(engine.cfg, engine.model, m=SERVE_M, metric="angular",
                               max_batch=SERVE_BATCH, shards=SERVE_SHARDS, device=engine.device)
-    served = serve_once(sharded, corpus, n_req, dynamic=False)
+    served, _ = serve_once(sharded, corpus, n_req, dynamic=False)
     del sharded
     return {k: counts[k] + served[k] for k in counts}
 
@@ -2405,11 +2473,15 @@ def serve_shards_cli() -> None:
         fail(f"serve_shards_cli: self-retrieval below 0.90:\n{out.stdout[-2000:]}")
 
 
-def serve_once(engine, corpus: np.ndarray, n_req: int, dynamic: bool) -> dict:
+def serve_once(engine, corpus: np.ndarray, n_req: int, dynamic: bool,
+               kernel: str | None = None) -> tuple[dict, dict]:
     """One serving run as `repro_torch.launch.serve` drives it: build the
     index over the corpus, then serve a stream of corpus documents (with
     --dynamic: an insert / delete / compact burst in its middle).  Checks
-    the answers and that the path launched its kernels."""
+    the answers and that the path launched its kernel (`kernel`, or the
+    model's SERVE_KERNEL) once a layer and embedded batch.  Returns the
+    launch counts and {"self_retrieval", "top1"} (the pick in the top k,
+    and first)."""
     from repro_torch.data import lm_token_batches
     from repro_torch.kernels import common
     from repro_torch.launch.serve import request_stream
@@ -2433,6 +2505,7 @@ def serve_once(engine, corpus: np.ndarray, n_req: int, dynamic: bool) -> dict:
     if ids.shape != (n_req, k) or not np.isfinite(dists[ids >= 0]).all():
         fail(f"serve {cfg.name} {state}: bad answers {ids.shape}")
     hit = (ids == picks[:, None]).any(axis=1)
+    first = ids[:, 0] == picks
     live = np.ones(n_req, bool)
     if dynamic:  # queries after the delete: the picks still live, no deleted id back
         mid = next(i for i, r in enumerate(stream) if isinstance(r, tuple))  # the insert
@@ -2440,10 +2513,10 @@ def serve_once(engine, corpus: np.ndarray, n_req: int, dynamic: bool) -> dict:
         live[mid:] = ~np.isin(picks[mid:], deleted)
         if np.isin(ids[mid:], deleted).any():
             fail(f"serve {cfg.name} dynamic: a deleted id came back")
-    self_ret = float(hit[live].mean())
+    self_ret, top1 = float(hit[live].mean()), float(first[live].mean())
     s = engine.stats
     embedded = -(-n_docs // SERVE_BATCH) + s.batches + (1 if dynamic else 0)
-    kernel = SERVE_KERNEL[cfg.name]
+    kernel = kernel or SERVE_KERNEL[cfg.name]
     emit(phase="serve", arch=cfg.name, state=state, docs=n_docs, tokens=SERVE_TOKENS,
          requests=n_req, m=SERVE_M, params=dict(k=k, lam=engine.search_params.lam),
          build_seconds=build_s, embed_seconds=s.embed_s,
@@ -2451,7 +2524,7 @@ def serve_once(engine, corpus: np.ndarray, n_req: int, dynamic: bool) -> dict:
          serve_seconds=wall, requests_per_s=n_req / wall, batches=s.batches,
          embed_ms_per_batch=s.embed_s / s.batches * 1e3,
          search_ms_per_batch=s.search_s / s.batches * 1e3, self_retrieval=self_ret,
-         self_retrieval_queries=int(live.sum()), churn=[s.inserts, s.deletes, s.compactions],
+         top1_self_retrieval=top1, self_retrieval_queries=int(live.sum()), kernel=kernel, churn=[s.inserts, s.deletes, s.compactions],
          embedded_batches=embedded, launches=counts,
          index_bytes=engine.index.index_bytes(), store_bytes=engine.index.store_bytes(),
          peak_mem_bytes=torch.cuda.max_memory_allocated())
@@ -2463,7 +2536,7 @@ def serve_once(engine, corpus: np.ndarray, n_req: int, dynamic: bool) -> dict:
     require(counts, ("csa_probe", "pool_topk", "gather_l2_topk")
             + (CIRCRUN_KERNELS if dynamic else ()),
             f"{cfg.name} {state} serving")
-    return counts
+    return counts, dict(self_retrieval=self_ret, top1=top1)
 
 
 def registry_value(name: str) -> float:
@@ -3508,35 +3581,96 @@ def decode_kernels_vs_plain(kernels: list, lm: dict) -> None:
          tolerance=dict(flash_attn=FLASH_TOL, ssm_scan=SCAN_TOL), ok=True)
 
 
-def flash_record(q, k, v, kw: dict) -> dict:
+def launched_once(before: dict, name: str, other: str, times: int = 1) -> bool:
+    """True where `name` counted `times` launches since `before` and its
+    other form (float32 or bf16) none."""
+    from repro_torch.kernels import common
+
+    after = common.launch_counts()
+    return (after[name] - before[name], after[other] - before[other]) == (times, 0)
+
+
+def bound_floor(terms: dict, nbytes: int) -> float:
+    """The least device time a kernel's reading may show: its bound's
+    operation terms, and its bytes' term where the bytes do not fit the L2
+    (a run repeated on inputs that fit may read them from there)."""
+    return max([t for key, t in terms.items() if key != "bytes"]
+               + ([terms["bytes"]] if nbytes > L2_BYTES else []))
+
+
+def flash_record(q, k, v, kw: dict, bf16_probs: bool = False) -> dict:
     """flash_attn against its plain version on one input: error, times
     (CUDA events around one call, and the mean device time of a launch under
     torch.profiler with the launches it saw), the time of
     scaled_dot_product_attention with the same mask (it has no softcap),
     and the bound: the largest of the bytes (q, k, v read once, o written
-    once), the 3xTF32 tensor-core products (three MMAs of 4 dh operations
-    for every unmasked (query, key) pair) and the exps (one a pair, on the
-    special-function units); `bound_term` names it.  The float32 pipe's
-    time for the same products (`fp32` in bound_terms_ms, the bound of a
-    design without tensor cores) is reported beside them."""
+    once), the tensor-core products (Q K^T and P V, each 2 dh operations
+    for every unmasked (query, key) pair, three MMAs each at the TF32 rate)
+    and the exps (one a pair, on the special-function units); `bound_term`
+    names it.  The float32 pipe's time for the same products (`fp32` in
+    bound_terms_ms, the bound of a design without tensor cores) is reported
+    beside them.  With `bf16_probs`, the bf16-P form: held to the plain
+    mirror of its key-tile walk by knob_gap_check, not the float32
+    kernel's output, timed beside its float32 form in this call; P V at the
+    bf16 rate in the bound (`products`); no library call (SDPA on bf16
+    inputs rounds q, k and the scores' softmax too and returns bf16, so it
+    does not compute this function)."""
     from repro_torch.kernels import common
-    from repro_torch.kernels.flash_attn import attn_mask, flash_attention, flash_attention_ref
+    from repro_torch.kernels.flash_attn import (attn_mask, flash_attention,
+                                                flash_attention_bf16_tiles_ref,
+                                                flash_attention_ref)
+    from repro_torch.kernels.flash_attn import ops as flash_ops
 
     B, Sq, Hq, dh = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
-    before = common.launch_counts()["flash_attn"]
-    out = flash_attention(q, k, v, **kw)
-    if common.launch_counts()["flash_attn"] != before + 1:
-        fail("flash_attn: a call did not launch its kernel once")
-    ref = flash_attention_ref(q, k, v, **kw)
-    torch.testing.assert_close(out, ref, **FLASH_TOL)
+    kw = {key: kw[key] for key in ("causal", "window", "softcap")}
+    name, other = ("flash_attn_bf16", "flash_attn") if bf16_probs else ("flash_attn",
+                                                                        "flash_attn_bf16")
+    shape = dict(B=B, Sq=Sq, Skv=Skv, Hq=Hq, Hkv=Hkv, dh=dh, **kw)
+    call = lambda: flash_attention(q, k, v, bf16_probs=bf16_probs, **kw)  # noqa: E731
+    f32 = lambda: flash_attention(q, k, v, **kw)  # noqa: E731
+    plain = lambda: flash_attention_ref(q, k, v, bf16_probs=bf16_probs, **kw)  # noqa: E731
+    before = common.launch_counts()
+    out = call()
+    if not launched_once(before, name, other):
+        fail(f"{name}: a call did not launch its kernel once")
+    if bf16_probs:
+        rows, keys = flash_ops.fwd_tiles(B, Sq, Hq, Hkv)
+        errs = knob_gap_check(name, out, flash_attention_bf16_tiles_ref(
+            q, k, v, block_rows=rows, key_tile=keys, **kw), plain(),
+            flash_attention_ref(q, k, v, **kw), shape)
+        errs["tiles"] = dict(rows=rows, keys=keys)
+        if torch.equal(out, f32()):
+            fail(f"{name}: the output equals the float32 form's at {shape}")
+    else:
+        ref = plain()
+        torch.testing.assert_close(out, ref, **FLASH_TOL)
+        errs = dict(max_abs_err=float((out - ref).abs().max()))
+        del ref
     mask = attn_mask(Sq, Skv, causal=kw["causal"], window=kw["window"], device=q.device)
     pairs = int(mask.sum()) * B * Hq
     nbytes = 4 * (2 * B * Sq * Hq * dh + 2 * B * Skv * Hkv * dh)
-    flops = 4 * dh * pairs
-    terms = dict(bytes=nbytes / HBM_BYTES_PER_S * 1e3, tf32x3=3 * flops / TF32_FLOPS * 1e3,
-                 exp=pairs / SFU_EXP_PER_S * 1e3)
+
+    def terms_of(bf: bool) -> dict:
+        pv_s = 2 * dh * pairs / BF16_FLOPS if bf else 3 * 2 * dh * pairs / TF32_FLOPS
+        return {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+                "products" if bf else "tf32x3": (3 * 2 * dh * pairs / TF32_FLOPS + pv_s) * 1e3,
+                "exp": pairs / SFU_EXP_PER_S * 1e3}
+
+    terms = terms_of(bf16_probs)
     term = max(terms, key=terms.get)
+    floor = bound_floor(terms, nbytes)
+    rec = dict(**errs, ms=median_ms(call, 20),
+               **device_ms(call, 20, 1, "flash_attn_kernel", floor_ms=floor),
+               plain_ms=median_ms(plain, 5),
+               bound_ms=terms[term], bound_by="bytes" if term == "bytes" else "operations",
+               bound_term=term, bound_terms_ms=dict(terms, fp32=4 * dh * pairs / FP32_FLOPS * 1e3),
+               shape=dict(shape, unmasked_pairs=pairs))
+    if bf16_probs:
+        rec.update(fp32_form_ms=median_ms(f32, 20), library_ms=None,
+                   **device_ms(f32, 20, 1, "flash_attn_kernel", key="fp32_form_device",
+                               floor_ms=bound_floor(terms_of(False), nbytes)))
+        return rec
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     sdpa_mask = None if kw["window"] == 0 and (Sq == Skv or not kw["causal"]) else mask
     sdpa_causal = kw["causal"] and sdpa_mask is None
@@ -3545,15 +3679,13 @@ def flash_record(q, k, v, kw: dict) -> dict:
         return torch.nn.functional.scaled_dot_product_attention(
             qt, kt, vt, attn_mask=sdpa_mask, is_causal=sdpa_causal, enable_gqa=True)
 
-    return dict(max_abs_err=float((out - ref).abs().max()),
-                ms=median_ms(lambda: flash_attention(q, k, v, **kw), 20),
-                **device_ms(lambda: flash_attention(q, k, v, **kw), 20, 1, "flash_attn_kernel"),
-                plain_ms=median_ms(lambda: flash_attention_ref(q, k, v, **kw), 5),
-                bound_ms=terms[term], bound_by="bytes" if term == "bytes" else "operations",
-                bound_term=term, bound_terms_ms=dict(terms, fp32=flops / FP32_FLOPS * 1e3),
-                library_ms=median_ms(sdpa, 20), **device_ms(sdpa, 20, key="library_device"),
-                shape=dict(B=B, Sq=Sq, Skv=Skv, Hq=Hq, Hkv=Hkv, dh=dh, **kw,
-                           unmasked_pairs=pairs))
+    rec.update(library_ms=median_ms(sdpa, 20), **device_ms(sdpa, 20, key="library_device"))
+    return rec
+
+
+def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
+    view = torch.int16 if a.dtype == torch.bfloat16 else torch.int32
+    return a.dtype == b.dtype and torch.equal(a.view(view), b.view(view))
 
 
 def scan_record(dt, x, Bc, Cc, A, h0) -> dict:
@@ -3563,27 +3695,70 @@ def scan_record(dt, x, Bc, Cc, A, h0) -> dict:
     the bound: the largest of the bytes (dt, x, B, C, A, h0 read once, y and
     h written once), the float32 operations (7 a state element and step) and
     the exps (one a state element and step, on the special-function units);
-    `bound_term` names the largest."""
+    `bound_term` names the largest.  With dt, x, B, C in bf16, the bf16 form
+    (ssm_bf16_acts): y, h_fin and the tiles' checkpoints bit for bit the
+    float32 form's on the inputs widened (its error against the plain
+    version reported: the bits are its gate); the SSMScan node saves the
+    four as bf16; timed beside the float32 form in this call; the four's
+    bytes in bf16 in the bound."""
+    from repro_torch.kernels import common
+    from repro_torch.kernels.ssm_scan import ops as scan_ops
     from repro_torch.kernels.ssm_scan import ssm_scan, ssm_scan_batched_ref
 
+    ins = [dt, x, Bc, Cc, A, h0]
     B, L, D = dt.shape
     N = Bc.shape[2]
-    y, h = ssm_scan(dt, x, Bc, Cc, A, h0)
-    y_ref, h_ref = ssm_scan_batched_ref(dt, x, Bc, Cc, A, h0)
-    torch.testing.assert_close(y, y_ref, **SCAN_TOL)
-    torch.testing.assert_close(h, h_ref, **SCAN_TOL)
-    nbytes = 4 * (3 * B * L * D + 2 * B * L * N + D * N + 2 * B * D * N)
+    bf16 = dt.dtype == torch.bfloat16
+    name, other = ("ssm_scan_bf16", "ssm_scan") if bf16 else ("ssm_scan", "ssm_scan_bf16")
+    before = common.launch_counts()
+    y, h = ssm_scan(*ins)
+    if not launched_once(before, name, other):
+        fail(f"{name}: a call did not launch its kernel once")
+    y_ref, h_ref = ssm_scan_batched_ref(*ins)
+    if not bf16:
+        torch.testing.assert_close(y, y_ref, **SCAN_TOL)
+        torch.testing.assert_close(h, h_ref, **SCAN_TOL)
+    rec = dict(max_abs_err=max(float((y - y_ref).abs().max()), float((h - h_ref).abs().max())))
+    del y, h, y_ref, h_ref
+    wide = [t.float() for t in ins[:4]] + ins[4:]
+    if bf16:
+        for ckpt in (False, True):
+            got = scan_ops._forward(*ins, checkpoints=ckpt)
+            want = scan_ops._forward(*wide, checkpoints=ckpt)
+            if not all((a is None and b is None) or bits_equal(a, b) for a, b in zip(got, want)):
+                fail(f"{name}: not the float32 form's bits on the widened inputs at "
+                     f"{B, L, D, N} (checkpoints {ckpt})")
+        args = [t.detach().requires_grad_() for t in ins[:4]] + ins[4:]
+        y, _ = ssm_scan(*args)
+        saved = [str(t.dtype) for t in y.grad_fn.saved_tensors[:4]]
+        if saved != ["torch.bfloat16"] * 4:
+            fail(f"{name}: SSMScan saved dt, x, B, C as {saved}")
+        rec.update(bits_equal_fp32_form_on_widened=True, saved_dtype=saved[0])
+        del got, want, args, y
     elems = B * L * D * N
-    terms = dict(bytes=nbytes / HBM_BYTES_PER_S * 1e3, fp32=7 * elems / FP32_FLOPS * 1e3,
-                 exp=elems / SFU_EXP_PER_S * 1e3)
+
+    def terms_of(in_bytes: int) -> tuple[dict, int]:
+        nbytes = in_bytes * (2 * B * L * D + 2 * B * L * N) + 4 * (
+            B * L * D + D * N + 2 * B * D * N)
+        return dict(bytes=nbytes / HBM_BYTES_PER_S * 1e3, fp32=7 * elems / FP32_FLOPS * 1e3,
+                    exp=elems / SFU_EXP_PER_S * 1e3), nbytes
+
+    terms, nbytes = terms_of(dt.element_size())
     term = max(terms, key=terms.get)
-    return dict(max_abs_err=max(float((y - y_ref).abs().max()), float((h - h_ref).abs().max())),
-                ms=median_ms(lambda: ssm_scan(dt, x, Bc, Cc, A, h0), 20),
-                **device_ms(lambda: ssm_scan(dt, x, Bc, Cc, A, h0), 20, 1, "ssm_scan_kernel"),
-                plain_ms=median_ms(lambda: ssm_scan_batched_ref(dt, x, Bc, Cc, A, h0), 3),
-                bound_ms=terms[term], bound_by="bytes" if term == "bytes" else "operations",
-                bound_term=term, bound_terms_ms=terms, library_ms=None,
-                shape=dict(B=B, L=L, D=D, N=N))
+    floor = bound_floor(terms, nbytes)
+    call = lambda: ssm_scan(*ins)  # noqa: E731
+    rec.update(ms=median_ms(call, 20),
+               **device_ms(call, 20, 1, "ssm_scan_kernel", floor_ms=floor),
+               plain_ms=median_ms(lambda: ssm_scan_batched_ref(*ins), 3),
+               bound_ms=terms[term], bound_by="bytes" if term == "bytes" else "operations",
+               bound_term=term, bound_terms_ms=terms, library_ms=None,
+               shape=dict(B=B, L=L, D=D, N=N))
+    if bf16:
+        f32 = lambda: ssm_scan(*wide)  # noqa: E731
+        rec.update(fp32_form_ms=median_ms(f32, 20),
+                   **device_ms(f32, 20, 1, "ssm_scan_kernel", key="fp32_form_device",
+                               floor_ms=bound_floor(*terms_of(4))))
+    return rec
 
 
 def serve_kernels_vs_plain(serve: dict, launches: dict) -> list:
@@ -3647,12 +3822,15 @@ def run_training(dev) -> dict:
     from repro_torch.kernels import common
 
     counts = {k: 0 for k in common.LAUNCHES}
-    for part in (train_full(dev),
-                 train_full(dev, TRAIN_MAMBA_ARCH, TRAIN_MAMBA_LAYERS, "train_mamba"),
-                 train_smoke_vs_cpu(dev), train_resume(dev)):
+    knob_counts = dict(counts)
+    full, full_knob = train_full(dev)
+    mamba, mamba_knob = train_full(dev, TRAIN_MAMBA_ARCH, TRAIN_MAMBA_LAYERS, "train_mamba")
+    for part in (full, mamba, train_smoke_vs_cpu(dev), train_resume(dev)):
         for k in counts:
             counts[k] += part[k]
-    return dict(counts=counts)
+    for k in knob_counts:
+        knob_counts[k] += full_knob[k] + mamba_knob[k]
+    return dict(counts=counts, knob_counts=knob_counts)
 
 
 def train_batch(cfg, step: int, B: int = 4, S: int = 32) -> dict:
@@ -3685,7 +3863,10 @@ def train_full(dev, arch: str = TRAIN_ARCH, layers: int | None = None,
     the filter's circrun and circrun_topk launches; no plain version runs.
     Reports the step times (host clock fenced by the metrics' read),
     tokens/s, peak device memory beside the state's bytes, one profiled
-    step (`profile_<phase>_step`), the dropped rows."""
+    step (`profile_<phase>_step`), the dropped rows.  Then one step of the
+    same state with the model's bf16 knob on (`train_with_knob`, phase
+    bf16_knobs).  Returns the launch counts of the steps, and of the knob's
+    step."""
     import dataclasses
 
     from repro_torch.configs import ARCHS
@@ -3752,9 +3933,10 @@ def train_full(dev, arch: str = TRAIN_ARCH, layers: int | None = None,
     profile_call(lambda: step(state, last),
                  "profile_train_step" if phase == "train_full" else f"profile_{phase}_step",
                  arch=cfg.name, layers=cfg.n_layers, tokens=tokens)
+    knob_counts = train_with_knob(state, cfg, next(pipe), phase)
     del state, pipe, dedup, step, last
     torch.cuda.empty_cache()
-    return counts
+    return counts, knob_counts
 
 
 def train_smoke_vs_cpu(dev) -> dict:
@@ -3944,7 +4126,7 @@ def sdpa_backward(q, k, v, do, kw):
     fail("flash_attn_bwd: no SDPA backend ran the float32 backward")
 
 
-def flash_bwd_record(q, k, v, do, kw: dict) -> dict:
+def flash_bwd_record(q, k, v, do, kw: dict, bf16_probs: bool = False) -> dict:
     """flash_attn_bwd against its plain version on one input: the forward
     kernel's o and lse (written when autograd needs them), then the backward
     kernel twice (bit-identical, or the run fails), against
@@ -3959,7 +4141,14 @@ def flash_bwd_record(q, k, v, do, kw: dict) -> dict:
     five products (2 dh operations each for every unmasked pair: 2.5 times
     the forward's two) at the 3xTF32 rate as the forward's bound takes
     them, and one exp a pair; the float32 pipe's time for the products
-    (`fp32`, the bound of the parent design's FMAs) beside them."""
+    (`fp32`, the bound of the parent design's FMAs) beside them.  With
+    `bf16_probs`, the bf16-P form on the bf16-P forward's o and lse (that
+    lse bit for bit the float32 form's): each of dq, dk, dv held by
+    knob_gap_check to the plain bf16-P backward on the same o and lse (the
+    kernel's function; the plain float32 backward on them gives the knob's
+    gap), dv not the float32 form's, timed beside the float32 form in this
+    call; P^T dO and dO V^T at the bf16 rate in the bound (`products`); no
+    library call (as flash_record's)."""
     from repro_torch.kernels import common
     from repro_torch.kernels.flash_attn import (attn_mask, flash_attention_bwd,
                                                 flash_attention_bwd_ref, flash_attention_ref)
@@ -3967,52 +4156,85 @@ def flash_bwd_record(q, k, v, do, kw: dict) -> dict:
 
     B, Sq, Hq, dh = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
-    o, lse = flash_ops._forward(q, k, v, kw["causal"], kw["window"], kw["softcap"], True)
+    kw = {key: kw[key] for key in ("causal", "window", "softcap")}
+    name, other = (("flash_attn_bwd_bf16", "flash_attn_bwd") if bf16_probs
+                   else ("flash_attn_bwd", "flash_attn_bwd_bf16"))
+    shape = dict(B=B, Sq=Sq, Skv=Skv, Hq=Hq, Hkv=Hkv, dh=dh, **kw)
+    mask_kw = (kw["causal"], kw["window"], kw["softcap"])
+    o, lse = flash_ops._forward(q, k, v, *mask_kw, True, bf16_probs=bf16_probs)
     chunks = flash_ops.bwd_chunks(B, Sq, Skv, Hq, Hkv, dh)
     n_kernels = flash_ops.bwd_kernels(B, Sq, Skv, Hq, Hkv, dh)
-    before = common.launch_counts()["flash_attn_bwd"]
-    got = flash_attention_bwd(q, k, v, o, lse, do, **kw)
-    again = flash_attention_bwd(q, k, v, o, lse, do, **kw)
+    call = lambda: flash_attention_bwd(q, k, v, o, lse, do, bf16_probs=bf16_probs,  # noqa: E731
+                                       **kw)
+    before = common.launch_counts()
+    got = call()
+    again = call()
     torch.cuda.synchronize()
-    if common.launch_counts()["flash_attn_bwd"] != before + 2:
-        fail("flash_attn_bwd: a call did not launch its kernels once")
-    if not all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(got, again)):
-        fail(f"flash_attn_bwd: two runs differ at {tuple(q.shape)} {kw}")
+    if not launched_once(before, name, other, times=2):
+        fail(f"{name}: a call did not launch its kernels once")
+    if not all(bits_equal(a, b) for a, b in zip(got, again)):
+        fail(f"{name}: two runs differ at {shape}")
+    del again
     o_ref, lse_ref = flash_attention_ref(q, k, v, return_lse=True, **kw)
-    ref = flash_attention_bwd_ref(q, k, v, o_ref, lse_ref, do, **kw)
-    errs = {}
-    for tag, a, b in zip(("dq", "dk", "dv"), got, ref):
-        scale = max(float(b.abs().max()), 1e-30)
-        errs[tag] = dict(max_abs_err=float((a - b).abs().max()), largest=scale)
-        if (not bool(torch.isfinite(a).all())
-                or errs[tag]["max_abs_err"] > FLASH_BWD_REL_TOL * scale):
-            fail(f"flash_attn_bwd: {tag} off its plain version at {tuple(q.shape)} {kw}: {errs}")
     finite = torch.isfinite(lse_ref)
     if not torch.equal(torch.isfinite(lse), finite) or not bool(torch.isinf(lse[~finite]).all()):
-        fail("flash_attn_bwd: the forward's lse is not +inf exactly where a row sees no key")
+        fail(f"{name}: the forward's lse is not +inf exactly where a row sees no key")
     torch.testing.assert_close(lse[finite], lse_ref[finite], **FLASH_TOL)
     lse_err = float((lse[finite] - lse_ref[finite]).abs().max())
-    del ref, o_ref, lse_ref, again
+    if bf16_probs:
+        o32, lse32 = flash_ops._forward(q, k, v, *mask_kw, True)
+        if not bits_equal(lse, lse32):
+            fail(f"{name}: the bf16-P forward's lse is not the float32 form's at {shape}")
+        want = flash_attention_bwd_ref(q, k, v, o, lse, do, bf16_probs=True, **kw)
+        plain = flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+        errs = {tag: knob_gap_check(f"{name} {tag}", a, w, w, p, shape)
+                for tag, a, w, p in zip(("dq", "dk", "dv"), got, want, plain)}
+        f32_call = lambda: flash_attention_bwd(q, k, v, o32, lse32, do, **kw)  # noqa: E731
+        if torch.equal(got[2], f32_call()[2]):
+            fail(f"{name}: dv equals the float32 form's at {shape}")
+        del want, plain
+    else:
+        ref = flash_attention_bwd_ref(q, k, v, o_ref, lse_ref, do, **kw)
+        errs = {}
+        for tag, a, b in zip(("dq", "dk", "dv"), got, ref):
+            scale = max(float(b.abs().max()), 1e-30)
+            errs[tag] = dict(max_abs_err=float((a - b).abs().max()), largest=scale)
+            if (not bool(torch.isfinite(a).all())
+                    or errs[tag]["max_abs_err"] > FLASH_BWD_REL_TOL * scale):
+                fail(f"{name}: {tag} off its plain version at {shape}: {errs}")
+        del ref
+    del o_ref, lse_ref, got
     mask = attn_mask(Sq, Skv, causal=kw["causal"], window=kw["window"], device=q.device)
     pairs = int(mask.sum()) * B * Hq
     nbytes = 4 * (4 * B * Sq * Hq * dh + 4 * B * Skv * Hkv * dh + B * Sq * Hq)
-    flops = 10 * dh * pairs
-    terms = dict(bytes=nbytes / HBM_BYTES_PER_S * 1e3, tf32x3=3 * flops / TF32_FLOPS * 1e3,
-                 exp=pairs / SFU_EXP_PER_S * 1e3)
+
+    def terms_of(bf: bool) -> dict:
+        products = (3 * 6 * dh * pairs / TF32_FLOPS + 4 * dh * pairs / BF16_FLOPS if bf
+                    else 3 * 10 * dh * pairs / TF32_FLOPS)
+        return {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+                "products" if bf else "tf32x3": products * 1e3,
+                "exp": pairs / SFU_EXP_PER_S * 1e3}
+
+    terms = terms_of(bf16_probs)
     term = max(terms, key=terms.get)
-    call = lambda: flash_attention_bwd(q, k, v, o, lse, do, **kw)  # noqa: E731
-    sdpa, backend = sdpa_backward(q, k, v, do, kw)
     rec = dict(max_abs_err=max(e["max_abs_err"] for e in errs.values()), errors=errs,
                lse_max_abs_err=lse_err, ms=median_ms(call, 10),
-               **device_ms(call, 10, n_kernels, "flash_attn_bwd"), kernels_per_call=n_kernels,
-               row_chunks=chunks,
-               plain_ms=median_ms(lambda: flash_attention_bwd_ref(q, k, v, o, lse, do, **kw), 3),
+               **device_ms(call, 10, n_kernels, "flash_attn_bwd",
+                           floor_ms=bound_floor(terms, nbytes)),
+               kernels_per_call=n_kernels, row_chunks=chunks,
+               plain_ms=median_ms(lambda: flash_attention_bwd_ref(
+                   q, k, v, o, lse, do, bf16_probs=bf16_probs, **kw), 3),
                bound_ms=terms[term], bound_by="bytes" if term == "bytes" else "operations",
-               bound_term=term, bound_terms_ms=dict(terms, fp32=flops / FP32_FLOPS * 1e3),
-               library_ms=median_ms(sdpa, 10), **device_ms(sdpa, 10, key="library_device"),
-               library_backend=backend, bit_identical_reruns=True,
-               shape=dict(B=B, Sq=Sq, Skv=Skv, Hq=Hq, Hkv=Hkv, dh=dh, **kw,
-                          unmasked_pairs=pairs))
+               bound_term=term, bound_terms_ms=dict(terms, fp32=10 * dh * pairs / FP32_FLOPS * 1e3),
+               bit_identical_reruns=True, shape=dict(shape, unmasked_pairs=pairs))
+    if bf16_probs:
+        rec.update(fp32_form_ms=median_ms(f32_call, 10), library_ms=None,
+                   **device_ms(f32_call, 10, n_kernels, "flash_attn_bwd", key="fp32_form_device",
+                               floor_ms=bound_floor(terms_of(False), nbytes)))
+        return rec
+    sdpa, backend = sdpa_backward(q, k, v, do, kw)
+    rec.update(library_ms=median_ms(sdpa, 10), **device_ms(sdpa, 10, key="library_device"),
+               library_backend=backend)
     return rec
 
 
@@ -4066,7 +4288,13 @@ def scan_bwd_record(ins: list, dy: torch.Tensor) -> dict:
     (dt, x, dy, B, C, A and the checkpoints read once; ddt, dx, dB, dC, dA,
     dh0 written once), one exp a state and step on the SFUs, and 20 float32
     operations a state and step; `exps_kernel` the exps this design takes
-    (SCAN_BWD_SUB: 1.75 a state and step where L is a multiple of 32)."""
+    (SCAN_BWD_SUB: 1.75 a state and step where L is a multiple of 32).
+    With dt, x, B, C in bf16, the bf16 form: ddt, dx, dB, dC bit for bit
+    the float32 form's on the widened inputs, rounded to bf16, and dA, dh0
+    bit for bit (its errors against the plain version reported, not
+    gated: a bf16 gradient lies a rounding step from a float32 sum); timed
+    beside the float32 form in this call; the four and their gradients'
+    bytes in bf16 in the bound."""
     from repro_torch.kernels import common
     from repro_torch.kernels.ssm_scan import ops as scan_ops
     from repro_torch.kernels.ssm_scan import ssm_scan_bwd_ref
@@ -4074,48 +4302,322 @@ def scan_bwd_record(ins: list, dy: torch.Tensor) -> dict:
     dt, x, Bc, Cc, A, h0 = ins
     B, L, D = dt.shape
     N = Bc.shape[2]
+    bf16 = dt.dtype == torch.bfloat16
+    name, other = ("ssm_scan_bwd_bf16", "ssm_scan_bwd") if bf16 else ("ssm_scan_bwd",
+                                                                      "ssm_scan_bwd_bf16")
+    names = ("ddt", "dx", "dB", "dC", "dA", "dh0")
     y0, h_0, _ = scan_ops._forward(*ins, checkpoints=False)
     y1, h_1, ckpt = scan_ops._forward(*ins, checkpoints=True)
     torch.cuda.synchronize()
-    if not (torch.equal(y0.view(torch.int32), y1.view(torch.int32))
-            and torch.equal(h_0.view(torch.int32), h_1.view(torch.int32))):
-        fail(f"ssm_scan: the forward's outputs change when it writes checkpoints, {B, L, D, N}")
+    if not (bits_equal(y0, y1) and bits_equal(h_0, h_1)):
+        fail(f"{name}: the forward's outputs change when it writes checkpoints, {B, L, D, N}")
     del y0, h_0, y1, h_1
-    before = common.launch_counts()["ssm_scan_bwd"]
-    got = scan_ops.ssm_scan_bwd(*ins, ckpt, dy)
-    again = scan_ops.ssm_scan_bwd(*ins, ckpt, dy)
+    call = lambda: scan_ops.ssm_scan_bwd(*ins, ckpt, dy)  # noqa: E731
+    before = common.launch_counts()
+    got = call()
+    again = call()
     torch.cuda.synchronize()
-    if common.launch_counts()["ssm_scan_bwd"] != before + 2:
-        fail("ssm_scan_bwd: a call did not count one launch")
-    if not all(torch.equal(a.view(torch.int32), b.view(torch.int32)) for a, b in zip(got, again)):
-        fail(f"ssm_scan_bwd: two runs differ at {B, L, D, N}")
+    if not launched_once(before, name, other, times=2):
+        fail(f"{name}: a call did not count one launch")
+    if not all(bits_equal(a, b) for a, b in zip(got, again)):
+        fail(f"{name}: two runs differ at {B, L, D, N}")
     del again
+    wide = [t.float() for t in ins[:4]] + ins[4:]
+    if bf16:
+        want = scan_ops.ssm_scan_bwd(*wide, ckpt, dy)
+        for i, (a, c) in enumerate(zip(got, want)):
+            if not bits_equal(a, c.to(torch.bfloat16) if i < 4 else c):
+                fail(f"{name}: {names[i]} is not the float32 form's, rounded, at {B, L, D, N}")
+        del want
     ref, plain_s = sync_time(lambda: ssm_scan_bwd_ref(*ins, dy))
     errs = {}
-    for tag, a, b in zip(("ddt", "dx", "dB", "dC", "dA", "dh0"), got, ref):
+    for tag, a, b in zip(names, got, ref):
+        a, b = a.float(), b.float()
         scale = max(float(b.abs().max()), 1e-30)
         errs[tag] = dict(max_abs_err=float((a - b).abs().max()), largest=scale)
-        if not bool(torch.isfinite(a).all()) or errs[tag]["max_abs_err"] > SCAN_BWD_REL_TOL * scale:
-            fail(f"ssm_scan_bwd: {tag} off its plain version at {B, L, D, N}: {errs}")
+        if not bf16 and (not bool(torch.isfinite(a).all())
+                         or errs[tag]["max_abs_err"] > SCAN_BWD_REL_TOL * scale):
+            fail(f"{name}: {tag} off its plain version at {B, L, D, N}: {errs}")
     del got, ref
     T = -(-L // scan_ops.TILE)
-    nbytes = 4 * (5 * B * L * D + 4 * B * L * N + 2 * D * N + B * T * D * N + B * D * N)
     elems = B * L * D * N
-    terms = dict(bytes=nbytes / HBM_BYTES_PER_S * 1e3, exp=elems / SFU_EXP_PER_S * 1e3,
-                 fp32=20 * elems / FP32_FLOPS * 1e3)
+
+    def terms_of(in_bytes: int) -> tuple[dict, int]:
+        nbytes = in_bytes * (4 * B * L * D + 4 * B * L * N) + 4 * (
+            B * L * D + 2 * D * N + B * T * D * N + B * D * N)
+        return dict(bytes=nbytes / HBM_BYTES_PER_S * 1e3, exp=elems / SFU_EXP_PER_S * 1e3,
+                    fp32=20 * elems / FP32_FLOPS * 1e3), nbytes
+
+    terms, nbytes = terms_of(dt.element_size())
     term = max(terms, key=terms.get)
     subs = lambda steps: -(-steps // SCAN_BWD_SUB)  # noqa: E731
     rerun = sum(SCAN_BWD_SUB * (subs(min(scan_ops.TILE, L - s0)) - 1)
                 for s0 in range(0, L, scan_ops.TILE))
     exps_kernel = (L + rerun) / L * terms["exp"]
-    call = lambda: scan_ops.ssm_scan_bwd(*ins, ckpt, dy)  # noqa: E731
-    return dict(max_abs_err=max(e["max_abs_err"] for e in errs.values()), errors=errs,
-                ms=median_ms(call, 20), **device_ms(call, 20, 2, "ssm_scan_bwd"),
-                kernels_per_call=2, plain_ms=plain_s * 1e3,
-                bound_ms=terms[term], bound_by="bytes" if term == "bytes" else "operations",
-                bound_term=term, bound_terms_ms=dict(terms, exps_kernel=exps_kernel),
-                library_ms=None, bit_identical_reruns=True, checkpoints_leave_forward=True,
-                shape=dict(B=B, L=L, D=D, N=N, tiles=T, channel_blocks=scan_ops.bwd_blocks(D)))
+    rec = dict(max_abs_err=max(e["max_abs_err"] for e in errs.values()), errors=errs,
+               ms=median_ms(call, 20),
+               **device_ms(call, 20, 2, "ssm_scan_bwd", floor_ms=bound_floor(terms, nbytes)),
+               kernels_per_call=2, plain_ms=plain_s * 1e3,
+               bound_ms=terms[term], bound_by="bytes" if term == "bytes" else "operations",
+               bound_term=term, bound_terms_ms=dict(terms, exps_kernel=exps_kernel),
+               library_ms=None, bit_identical_reruns=True, checkpoints_leave_forward=True,
+               shape=dict(B=B, L=L, D=D, N=N, tiles=T, channel_blocks=scan_ops.bwd_blocks(D)))
+    if bf16:
+        f32 = lambda: scan_ops.ssm_scan_bwd(*wide, ckpt, dy)  # noqa: E731
+        rec.update(bits_equal_fp32_form_rounded=True, fp32_form_ms=median_ms(f32, 20),
+                   **device_ms(f32, 20, 2, "ssm_scan_bwd", key="fp32_form_device",
+                               floor_ms=bound_floor(*terms_of(4))))
+    return rec
+
+
+# -- phase bf16_knobs: the models' bf16 activation knobs -----------------------
+
+
+def knob_config(cfg):
+    """cfg with its bf16 knob on: attn_bf16_probs for an attention model,
+    ssm_bf16_acts on the fused Mamba-1 path for falcon-mamba-7b (whose
+    config already sets ssm_fused_chunks)."""
+    import dataclasses
+
+    if "m1" in cfg.pattern:
+        return dataclasses.replace(cfg, ssm_fused_chunks=True, ssm_bf16_acts=True)
+    return dataclasses.replace(cfg, attn_bf16_probs=True)
+
+
+def with_knob(model, cfg_on):
+    """An LM of `cfg_on` that holds `model`'s parameter tensors themselves
+    (built on the meta device, the parameters assigned): the weights already
+    on the card, served or trained with the knob."""
+    from repro_torch.models.lm import LM
+
+    params = dict(model.named_parameters())
+    # assign=True hands each parameter the meta one's requires_grad: match the model's
+    on = LM(cfg_on, device="meta").requires_grad_(next(iter(params.values())).requires_grad)
+    on.load_state_dict(model.state_dict(keep_vars=True), assign=True)
+    other = [n for n, p in on.named_parameters() if p is not params[n]]
+    if other:
+        fail(f"bf16_knobs: the knob's model does not hold the weights {other[:3]}")
+    return on.train(model.training)
+
+
+def knob_form_counts(counts: dict) -> dict:
+    """The launches of a knob-off path with each float32 form's count moved
+    to its bf16 form."""
+    out = {k: 0 for k in counts}
+    for k, v in counts.items():
+        out[BF16_FORM_OF.get(k, k)] += v
+    return out
+
+
+def serve_with_knob(engine, corpus: np.ndarray, n_req: int, off: dict):
+    """Phase bf16_knobs, serving: the engine's model with its bf16 knob on,
+    the same weights (`with_knob`), serves the static run's request stream
+    (`serve_once`: the knob's kernel form once a layer and embedded batch,
+    the float32 form never); top-1 self-retrieval equal to the knob-off
+    run's `off` (top-k printed beside it); the largest relative gap of one batch's embeddings
+    against the knob-off engine's.  The kernel's bf16 arguments are checked
+    at the launch (`_forward`'s inputs) and recorded.  Returns the launch
+    counts and the recorded ((args), kw) of the wrapper's first call."""
+    from repro_torch.kernels.flash_attn import ops as flash_ops
+    from repro_torch.kernels.ssm_scan import ops as scan_ops
+    from repro_torch.serve import RetrievalEngine
+
+    cfg = engine.cfg
+    kernel = KNOB_KERNEL[cfg.name]
+    on = RetrievalEngine(knob_config(cfg), with_knob(engine.model, knob_config(cfg)),
+                         m=SERVE_M, metric="angular", max_batch=SERVE_BATCH, device=engine.device)
+    with plain_versions_refused():
+        counts, got = serve_once(on, corpus, n_req, dynamic=False, kernel=kernel)
+    if counts[kernel.replace("_bf16", "")] != 0:
+        fail(f"bf16_knobs: {cfg.name} served with the knob launched the float32 form: {counts}")
+    batch = corpus[:SERVE_BATCH]
+    module, fn = (flash_ops, "flash_attention") if kernel == "flash_attn_bf16" \
+        else (scan_ops, "ssm_scan")
+    calls, launched = [], []
+    with recording(module, fn, calls, keep=1), recording(module, "_forward", launched, keep=1):
+        e_on = on.embed(batch)
+    e_off = engine.embed(batch)
+    (args, kw), (largs, lkw) = calls[0], launched[0]
+    if kernel == "ssm_scan_bf16":
+        dtypes = [str(t.dtype) for t in largs[:4]]
+        if dtypes != ["torch.bfloat16"] * 4:
+            fail(f"bf16_knobs: the scan's launch got dt, x, B, C as {dtypes}")
+    elif not lkw.get("bf16_probs"):
+        fail(f"bf16_knobs: the attention's launch did not take the bf16-P form: {lkw}")
+    rel = float((e_on - e_off).abs().max() / e_off.abs().max())
+    emit(phase="bf16_knobs", part="serve", arch=cfg.name, kernel=kernel,
+         top1_self_retrieval=got["top1"], top1_knob_off=off["top1"],
+         self_retrieval=got["self_retrieval"], self_retrieval_knob_off=off["self_retrieval"],
+         embedding_max_rel_gap=rel, launches=counts)
+    if got["top1"] != off["top1"]:
+        fail(f"bf16_knobs: {cfg.name} top-1 self-retrieval with the knob {got['top1']} != "
+             f"without {off['top1']}")
+    del on
+    return counts, (args, kw)
+
+
+def train_with_knob(state, cfg, batch: dict, phase: str) -> dict:
+    """Phase bf16_knobs, training: one step of `state` (train_full's, its
+    masters and moments) with the model's bf16 knob on, the same weights
+    (`with_knob`), on `batch`, beside the same state's loss with the knob off
+    on that batch (the step's bf16 forward without the update).  Gates: the
+    loss finite, and for gemma-2b within KNOB_LOSS_REL_TOL of the knob-off
+    loss and not equal to it, for falcon-mamba-7b equal to it; the
+    knob's forward and backward forms once a layer each, nothing else."""
+    from repro_torch.kernels import common
+    from repro_torch.train import make_train_step
+    from repro_torch.train.step import TrainState, _Loss, cast_names
+
+    cfg_on = knob_config(cfg)
+    model = state.model
+    cast = cast_names(cfg, model)
+    with torch.no_grad():
+        args = {f"model.{n}": p.to(torch.bfloat16) if n in cast else p
+                for n, p in model.named_parameters()}
+        loss_off = float(torch.func.functional_call(_Loss(model), args, (batch,))[0])
+    del args
+    step = make_train_step(cfg_on, lambda s: TRAIN["peak_lr"], clip_norm=TRAIN["clip"])
+    want = lm_kernel_layers(cfg)[0]
+    want.update(flash_attn_bwd=want["flash_attn"], ssm_scan_bwd=want["ssm_scan"])
+    want = knob_form_counts(want)
+    common.reset_launch_counts()
+    with plain_versions_refused():
+        (_, metrics), secs = sync_time(lambda: step(TrainState(with_knob(model, cfg_on),
+                                                               state.opt), batch))
+    counts = common.launch_counts()
+    loss = float(metrics["loss"])
+    rel = abs(loss - loss_off) / abs(loss_off)
+    emit(phase="bf16_knobs", part="train", arch=cfg.name, layers=cfg.n_layers, after=phase,
+         loss=loss, loss_knob_off=loss_off, loss_rel_gap=rel, tolerance=KNOB_LOSS_REL_TOL,
+         grad_norm=float(metrics["grad_norm"]), step_ms=secs * 1e3, launches=counts)
+    if counts != want:
+        fail(f"bf16_knobs: {cfg.name}'s step with the knob launched {counts}, expected {want}")
+    exact = "m1" in cfg.pattern  # the bf16 scan reads the bf16 compute's own values
+    if not np.isfinite(loss) or (loss != loss_off if exact
+                                 else not 0.0 < rel <= KNOB_LOSS_REL_TOL):
+        fail(f"bf16_knobs: {cfg.name}'s loss with the knob {loss} vs {loss_off} without "
+             f"({'equal' if exact else f'0 < relative gap <= {KNOB_LOSS_REL_TOL}'} expected)")
+    return counts
+
+
+def knob_gap_check(name: str, got, mirror, plain_on, plain_off, shape) -> dict:
+    """A bf16-P output against its plain versions: the mean |got - mirror|
+    (`mirror` the plain function of the kernel's own roundings) within
+    KNOB_MIRROR_FACTOR of the knob's mean gap (mean |plain_on - plain_off|,
+    the plain bf16-P function against the plain float32 one), the largest
+    |got - plain_on| within KNOB_GAP_FACTOR of the knob's largest gap, and
+    finite, or the run fails."""
+    diff = (plain_on - plain_off).abs()
+    gap, mean_gap = float(diff.max()), float(diff.mean())
+    err = float((got - plain_on).abs().max())
+    mean_err = float((got - mirror).abs().mean())
+    rec = dict(max_abs_err=err, knob_gap=gap, mean_abs_err_vs_mirror=mean_err,
+               knob_mean_gap=mean_gap, mean_share=mean_err / max(mean_gap, 1e-30))
+    if (not bool(torch.isfinite(got).all()) or err > KNOB_GAP_FACTOR * gap
+            or mean_err > KNOB_MIRROR_FACTOR * mean_gap):
+        fail(f"bf16_knobs: {name} off its plain versions at {shape}: {rec}, limits "
+             f"{KNOB_MIRROR_FACTOR} x the mean gap, {KNOB_GAP_FACTOR} x the largest")
+    return rec
+
+
+def knob_refusals(dev) -> None:
+    """A bf16 scan with a bf16 A, or with x left float32 among the bf16
+    four, raises on the card before any launch."""
+    from repro_torch.kernels import common
+    from repro_torch.kernels.ssm_scan import ssm_scan
+
+    bf = lambda *shape: torch.randn(shape, device=dev).to(torch.bfloat16)  # noqa: E731
+    ok = [bf(2, 40, 64), bf(2, 40, 64), bf(2, 40, 16), bf(2, 40, 16),
+          -torch.rand((64, 16), device=dev), torch.zeros((2, 64, 16), device=dev)]
+    before = common.launch_counts()
+    for tag, i, dtype in (("A bf16", 4, torch.bfloat16), ("x float32", 1, torch.float32)):
+        args = list(ok)
+        args[i] = args[i].to(dtype)
+        try:
+            ssm_scan(*args)
+        except TypeError:
+            continue
+        fail(f"bf16_knobs: the scan took a mixed set ({tag}) on the card")
+    if common.launch_counts() != before:
+        fail("bf16_knobs: a refused scan launched a kernel")
+
+
+def knob_kernels_vs_plain(serve: dict, launches: dict) -> list:
+    """Phase bf16_knobs, the kernels: the four bf16 forms against their plain
+    versions at the main paths' shapes -- ssm_scan's at falcon-mamba-7b's
+    serving batch (recorded from the knob's serving run) and training
+    shape, ssm_scan_bwd's at the training shape, flash_attn's at gemma-2b's
+    serving batch (recorded) and, under `prefill`, qwen2-7b's prefill,
+    gemma3-1b's window 512 and zamba2-7b's dh 112, flash_attn_bwd's at
+    gemma-2b's training shape -- each timed beside its float32 form, and
+    the refusals.  Returns the four kernel records."""
+    t0 = time.perf_counter()
+    dev = torch.device("cuda", torch.cuda.current_device())
+    g = torch.Generator(device=dev)
+    g.manual_seed(0)
+
+    def randn(*shape, s=1.0):
+        return s * torch.randn(shape, generator=g, device=dev)
+
+    knob_refusals(dev)
+    (q, k, v), kw = serve["recorded"]["flash_attn_bf16"]
+    serving = flash_record(q, k, v, kw, bf16_probs=True)
+    prefill = {}
+    causal = dict(causal=True, window=0, softcap=0.0)
+    for tag, (B, S, Hq, Hkv, dh), mask in (
+            ("qwen2-7b prefill, B 4, S 640, Hq 28 / Hkv 4, dh 128", (4, 640, 28, 4, 128), causal),
+            ("gemma3-1b local, B 4, S 640, Hq 4 / Hkv 1, dh 256, window 512",
+             (4, 640, 4, 1, 256), dict(causal=True, window=512, softcap=0.0)),
+            ("zamba2-7b shared, B 4, S 640, Hq 32 / Hkv 32, dh 112", (4, 640, 32, 32, 112),
+             causal)):
+        prefill[tag] = flash_record(randn(B, S, Hq, dh), randn(B, S, Hkv, dh),
+                                    randn(B, S, Hkv, dh), mask, bf16_probs=True)
+        torch.cuda.empty_cache()
+    lib_note = ("none: scaled_dot_product_attention on bf16 inputs rounds q, k and the "
+                "softmax's scores too and returns bf16; this function rounds only P and V "
+                "in the P V product")
+    recs = [dict(name="flash_attn_bf16", route="cuda",
+                 source="src/repro_torch/kernels/csrc/flash_attn.cu",
+                 replaces="none on the TPU: the reference's src/repro/models/attention.py:124 "
+                          "jnp path (chunked_attention, bf16_probs)",
+                 launches=launches["flash_attn_bf16"], **serving, library_call=lib_note,
+                 prefill=prefill)]
+    B, S = 8, 64
+    recs.append(dict(name="flash_attn_bwd_bf16", route="cuda",
+                     source="src/repro_torch/kernels/csrc/flash_attn_bwd.cu",
+                     replaces="none on the TPU: jax.value_and_grad of the reference's "
+                              "src/repro/models/attention.py:124 jnp path",
+                     launches=launches["flash_attn_bwd_bf16"],
+                     **flash_bwd_record(randn(B, S, 8, 256), randn(B, S, 1, 256),
+                                        randn(B, S, 1, 256), randn(B, S, 8, 256), causal,
+                                        bf16_probs=True),
+                     library_call=lib_note))
+    (args, _) = serve["recorded"]["ssm_scan_bf16"]
+    D, N = 8192, 16
+    bf = lambda t: t.to(torch.bfloat16)  # noqa: E731
+    train_ins = [bf(torch.nn.functional.softplus(randn(8, 64, D))), bf(randn(8, 64, D)),
+                 bf(randn(8, 64, N)), bf(randn(8, 64, N)), -torch.exp(randn(D, N, s=0.5)),
+                 randn(8, D, N)]
+    scan_rec = scan_record(*[t.clone() for t in args])  # not the embed's inference tensors
+    scan_rec["train"] = {"training, B 8, L 64": scan_record(*train_ins)}
+    recs.append(dict(name="ssm_scan_bf16", route="cuda",
+                     source="src/repro_torch/kernels/csrc/ssm_scan.cu",
+                     replaces="none on the TPU: the reference's src/repro/models/ssm.py:172 jnp "
+                              "path (_mamba1_fused, bf16_acts)",
+                     launches=launches["ssm_scan_bf16"], **scan_rec))
+    recs.append(dict(name="ssm_scan_bwd_bf16", route="cuda",
+                     source="src/repro_torch/kernels/csrc/ssm_scan_bwd.cu",
+                     replaces="none on the TPU: jax.value_and_grad of the reference's "
+                              "src/repro/models/ssm.py:172 jnp path",
+                     launches=launches["ssm_scan_bwd_bf16"],
+                     **scan_bwd_record(train_ins, randn(8, 64, D))))
+    emit(phase="bf16_knobs", part="kernels_vs_plain",
+         kernels=[r["name"] for r in recs],
+         tolerance=dict(ssm_scan_bf16="bit for bit the float32 form on the widened inputs",
+                        ssm_scan_bwd_bf16="bit for bit the float32 form's gradients, rounded",
+                        flash_attn_bf16=KNOB_GATE, flash_attn_bwd_bf16=KNOB_GATE),
+         ok=True, seconds=time.perf_counter() - t0)
+    return recs
 
 
 if __name__ == "__main__":

@@ -68,27 +68,43 @@ SIGNATURES = {
     # q, k, v, o, lse (nullptr: none), B, Sq, Skv, Hq, Hkv, dh, causal, window, softcap,
     # stream
     "flash_attn_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    # the bf16-P form (attn_bf16_probs), the same arguments
+    "flash_attn_bf16_launch": (_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _I, _F, _P),
+    # B, Sq, Hq, Hkv -> (rows a block << 16) | keys a tile of a forward launch (no stream)
+    "flash_attn_tiles": (_I, _I, _I, _I),
     # q, k, v, o, lse, dO, dq, dk, dv, scratch, B, Sq, Skv, Hq, Hkv, dh, causal, window,
     # softcap, stream
     "flash_attn_bwd_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                               _I, _I, _F, _P),
+    # the bf16-P form, the same arguments
+    "flash_attn_bwd_bf16_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I,
+                                   _I, _I, _I, _F, _P),
     # B, Sq, Skv, Hq, Hkv, dh -> the backward's row chunks (no stream: launches nothing)
     "flash_attn_bwd_chunks": (_I, _I, _I, _I, _I, _I),
     # dt, x, Bc, Cc, A, h0, y, h_out, h_ckpt (nullptr: none), B, L, D, N, stream
     "ssm_scan_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
+    # the bf16 form (dt, x, Bc, Cc bf16: ssm_bf16_acts), the same arguments
+    "ssm_scan_bf16_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P),
     # dt, x, Bc, Cc, A, h_ckpt, dy, dh_fin (nullptr: zero), ddt, dx, dB, dC, dA, dh0
     # (nullptr: none), scratch, B, L, D, N, stream
     "ssm_scan_bwd_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                             _I, _I, _P),
+    # the bf16 form (ddt, dx, dB, dC bf16 too), the same arguments
+    "ssm_scan_bwd_bf16_launch": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                                 _I, _I, _I, _P),
 }
 
 # launches per kernel since the last reset: each wrapper adds one where it
 # launches its kernel, and nowhere else; `_count_lock` guards it, since the
-# serving front's replica threads launch kernels side by side
+# serving front's replica threads launch kernels side by side.  The bf16
+# forms of flash_attn and ssm_scan (the models' attn_bf16_probs and
+# ssm_bf16_acts) count apart from their float32 forms.
 LAUNCHES: dict[str, int] = {"csa_probe": 0, "pool_topk": 0, "gather_l2": 0, "gather_q": 0,
                             "gather_l2_topk": 0, "gather_q_topk": 0, "hash_rp": 0,
                             "hash_xp": 0, "circrun": 0, "circrun_topk": 0, "flash_attn": 0,
-                            "flash_attn_bwd": 0, "ssm_scan": 0, "ssm_scan_bwd": 0}
+                            "flash_attn_bwd": 0, "ssm_scan": 0, "ssm_scan_bwd": 0,
+                            "flash_attn_bf16": 0, "flash_attn_bwd_bf16": 0,
+                            "ssm_scan_bf16": 0, "ssm_scan_bwd_bf16": 0}
 
 _lock = threading.Lock()
 _count_lock = threading.Lock()

@@ -13,6 +13,18 @@
 // 2^(x_j - lse); a row with no key holds +inf (every 2^(x - lse) is then 0).
 // A null lse pointer writes nothing else: the serving and decode launches.
 //
+// The bf16-P form (flash_attn_bf16_launch, the models' attn_bf16_probs; a
+// compile-time variant of the P V step, kBf16P): with p_j = 2^(x_j - m) over
+// the row's keys, o = bf16(sum_j bf16(p_j) bf16(v_j)) / max(l, 1e-30), the
+// product accumulated in fp32 and l = sum_j p_j of the unrounded p.  This is
+// the reference's chunked_attention(bf16_probs=True) wherever the keys fit
+// one of its chunks (src/repro/models/attention.py:124-128, kv_chunk 1,024);
+// across key tiles the kernel rounds each tile's p against the running max
+// and rescales, where a single pass would round p against the row's max:
+// the two differ by roundings of the same size as the knob's own, so the
+// kernel is held to the plain mirror of its own walk
+// (ref.py flash_attention_bf16_tiles_ref, its tiles from flash_attn_tiles).
+//
 // Replaces: src/repro/kernels/flash_attn/flash_attn.py, flash_attn_pallas (and
 // the per-(batch, head) vmap of src/repro/kernels/flash_attn/ops.py).  Unlike
 // that kernel it masks with the true lengths, not the padded ones, so it
@@ -85,6 +97,17 @@
 //     at most half an ulp of 1, 6e-8, times c: 3e-6 of a score at c = 50,
 //     far inside FLASH_TOL; e^{2y} overflowing to inf gives 1, and
 //     flushing to 0 gives -1, as tanh does.
+//   * The bf16-P form: the P V step is one mma.sync m16n8k16 bf16 product a
+//     16-key step where the float32 form takes three m16n8k8 TF32 ones a
+//     k step of 8 keys.  P stays in registers, FlashAttention-2's reuse:
+//     the accumulators of S's n-tiles 2 k and 2 k + 1 are the A fragment of
+//     key step k as they are (rows g and g + 8, keys 2 t, 2 t + 1 and 8 more),
+//     rounded and packed two to a register (cvt.rn.bf16x2.f32, round to
+//     nearest even); V is rounded as it is read from shared memory, keys
+//     2 t, 2 t + 1 (and + 8) of column g, the B fragment's order, at the
+//     same conflict-free addresses as the float32 form's.  Q K^T stays 3xTF32,
+//     l keeps the unrounded p, the accumulator is rounded to bf16 after the
+//     last key tile, before the division, and lse is the float32 form's.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -140,7 +163,8 @@ constexpr size_t smem_bytes() {
 // warps: each sums the scores over DW = DP / KS of dh, the partial sums are
 // added through shared memory, and each accumulates DW of the output's
 // columns.
-template <int DP, int kSlabs, int KS, int kBN>
+// kBf16P: the bf16-P form of the P V step (attn_bf16_probs).
+template <int DP, int kSlabs, int KS, int kBN, bool kBf16P>
 __global__ void __launch_bounds__(kSlabs * KS * 32, 1) flash_attn_kernel(const Args a) {
   constexpr int kThreads = kSlabs * KS * 32;
   constexpr int kNS = kBN / 8;     // n-tiles of 8 keys in a tile's scores
@@ -163,6 +187,8 @@ __global__ void __launch_bounds__(kSlabs * KS * 32, 1) flash_attn_kernel(const A
   // gemma-2b's batch against 14.5 alone; rolled: 17)
   constexpr int kUnrollD = KS > 1 ? 1 : DW / 16;
   constexpr int kUnrollK = KS > 1 ? 1 : kNS;
+  constexpr int kUnrollK16 = KS > 1 ? 1 : kNS / 2;  // the bf16-P form's 16-key steps
+  static_assert(!kBf16P || kNS % 2 == 0, "whole 16-key steps");
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int slab = warp % kSlabs, part = warp / kSlabs;  // rows 16 slab ..; columns DW part ..
@@ -360,36 +386,62 @@ __global__ void __launch_bounds__(kSlabs * KS * 32, 1) flash_attn_kernel(const A
 #pragma unroll
         for (int e = 0; e < 4; ++e) pw[(4 * n + e) * 32] = s[n][e];
     }
-#pragma unroll kUnrollK
-    for (int kst = 0; kst < kNS; ++kst) {
-      float p[4];
-      if constexpr (KS > 1) {
+    if constexpr (kBf16P) {
+      // one bf16 product a 16-key step: n-tiles 2 kst and 2 kst + 1 of S
+      // are its A fragment as they lie
+#pragma unroll kUnrollK16
+      for (int kst = 0; kst < kNS / 2; ++kst) {
+        float p[8];
 #pragma unroll
-        for (int e = 0; e < 4; ++e) p[e] = pw[(4 * kst + e) * 32];
-      } else {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) p[e] = s[kst][e];
-      }
-      uint32_t pb[4], ps[4];
-      split(p[0], pb[0], ps[0]);
-      split(p[2], pb[1], ps[1]);
-      split(p[1], pb[2], ps[2]);
-      split(p[3], pb[3], ps[3]);
-      const float* v0 = vs + (8 * kst + 2 * t) * VLD + DW * part + g;
-#pragma unroll
-      for (int n0 = 0; n0 < NT; n0 += kG) {
-        uint32_t wb[kG][2], ws[kG][2];
-#pragma unroll
-        for (int u = 0; u < kG; ++u) {
-          split(v0[8 * (n0 + u)], wb[u][0], ws[u][0]);
-          split(v0[VLD + 8 * (n0 + u)], wb[u][1], ws[u][1]);
+        for (int e = 0; e < 4; ++e) {
+          if constexpr (KS > 1) {
+            p[e] = pw[(8 * kst + e) * 32];
+            p[4 + e] = pw[(8 * kst + 4 + e) * 32];
+          } else {
+            p[e] = s[2 * kst][e];
+            p[4 + e] = s[2 * kst + 1][e];
+          }
         }
+        const uint32_t pa[4] = {pack_bf16(p[0], p[1]), pack_bf16(p[2], p[3]),
+                                pack_bf16(p[4], p[5]), pack_bf16(p[6], p[7])};
+        const float* v0 = vs + (16 * kst + 2 * t) * VLD + DW * part + g;
 #pragma unroll
-        for (int u = 0; u < kG; ++u) mma(o[n0 + u], ps, wb[u][0], wb[u][1]);
+        for (int n = 0; n < NT; ++n)
+          mma_bf16(o[n], pa, pack_bf16(v0[8 * n], v0[VLD + 8 * n]),
+                   pack_bf16(v0[8 * VLD + 8 * n], v0[9 * VLD + 8 * n]));
+      }
+    } else {
+#pragma unroll kUnrollK
+      for (int kst = 0; kst < kNS; ++kst) {
+        float p[4];
+        if constexpr (KS > 1) {
 #pragma unroll
-        for (int u = 0; u < kG; ++u) mma(o[n0 + u], pb, ws[u][0], ws[u][1]);
+          for (int e = 0; e < 4; ++e) p[e] = pw[(4 * kst + e) * 32];
+        } else {
 #pragma unroll
-        for (int u = 0; u < kG; ++u) mma(o[n0 + u], pb, wb[u][0], wb[u][1]);
+          for (int e = 0; e < 4; ++e) p[e] = s[kst][e];
+        }
+        uint32_t pb[4], ps[4];
+        split(p[0], pb[0], ps[0]);
+        split(p[2], pb[1], ps[1]);
+        split(p[1], pb[2], ps[2]);
+        split(p[3], pb[3], ps[3]);
+        const float* v0 = vs + (8 * kst + 2 * t) * VLD + DW * part + g;
+#pragma unroll
+        for (int n0 = 0; n0 < NT; n0 += kG) {
+          uint32_t wb[kG][2], ws[kG][2];
+#pragma unroll
+          for (int u = 0; u < kG; ++u) {
+            split(v0[8 * (n0 + u)], wb[u][0], ws[u][0]);
+            split(v0[VLD + 8 * (n0 + u)], wb[u][1], ws[u][1]);
+          }
+#pragma unroll
+          for (int u = 0; u < kG; ++u) mma(o[n0 + u], ps, wb[u][0], wb[u][1]);
+#pragma unroll
+          for (int u = 0; u < kG; ++u) mma(o[n0 + u], pb, ws[u][0], ws[u][1]);
+#pragma unroll
+          for (int u = 0; u < kG; ++u) mma(o[n0 + u], pb, wb[u][0], wb[u][1]);
+        }
       }
     }
   }
@@ -413,7 +465,12 @@ __global__ void __launch_bounds__(kSlabs * KS * 32, 1) flash_attn_kernel(const A
 #pragma unroll
     for (int n = 0; n < NT; ++n) {
       const int c = 8 * n + 2 * t, left = a.dh - DW * part;  // columns left from orow
-      const float v0 = o[n][2 * u] * inv, v1 = o[n][2 * u + 1] * inv;
+      float acc0 = o[n][2 * u], acc1 = o[n][2 * u + 1];
+      if constexpr (kBf16P) {  // the product's sum rounded once, as the reference's
+        acc0 = __bfloat162float(__float2bfloat16_rn(acc0));
+        acc1 = __bfloat162float(__float2bfloat16_rn(acc1));
+      }
+      const float v0 = acc0 * inv, v1 = acc1 * inv;
       if (a.st2 && c + 1 < left) {
         *reinterpret_cast<float2*>(orow + c) = make_float2(v0, v1);
       } else {
@@ -424,7 +481,7 @@ __global__ void __launch_bounds__(kSlabs * KS * 32, 1) flash_attn_kernel(const A
   }
 }
 
-template <int DP, int kSlabs, int KS, int kBN>
+template <int DP, int kSlabs, int KS, int kBN, bool kBf16P>
 cudaError_t launch_tiles(const Args& a, int B, cudaStream_t stream) {
   constexpr int BM = 16 * kSlabs;
   constexpr size_t kSmem = smem_bytes<DP, kSlabs, KS, kBN>();
@@ -433,32 +490,35 @@ cudaError_t launch_tiles(const Args& a, int B, cudaStream_t stream) {
   int sms = 0;
   const cudaError_t err = once.get(
       [] {
-        return cudaFuncSetAttribute(flash_attn_kernel<DP, kSlabs, KS, kBN>,
+        return cudaFuncSetAttribute(flash_attn_kernel<DP, kSlabs, KS, kBN, kBf16P>,
                                     cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kSmem);
       },
       &sms);
   if (err != cudaSuccess) return err;
   dim3 grid((unsigned)(B * a.Hkv), (unsigned)((a.rows + BM - 1) / BM));
-  flash_attn_kernel<DP, kSlabs, KS, kBN><<<grid, kSlabs * KS * 32, kSmem, stream>>>(a);
+  flash_attn_kernel<DP, kSlabs, KS, kBN, kBf16P><<<grid, kSlabs * KS * 32, kSmem, stream>>>(a);
   return cudaGetLastError();
 }
 
 // 8 slabs (128 rows) a block where that gives every SM a block; else 4
 // slabs of kShortKS warps each: more warps on the same rows
-template <int DP>
+bool long_tiles(int B, int Hkv, long long rows, int sms) {
+  return (long long)B * Hkv * ((rows + 127) / 128) >= sms;
+}
+
+template <int DP, bool kBf16P>
 cudaError_t launch(const Args& a, int B, int sms, cudaStream_t stream) {
-  if ((long long)B * a.Hkv * ((a.rows + 127) / 128) >= sms)
-    return launch_tiles<DP, 8, 1, kLongBN>(a, B, stream);
-  return launch_tiles<DP, kShortSlabs, kShortKS, kShortBN>(a, B, stream);
+  if (long_tiles(B, a.Hkv, a.rows, sms))
+    return launch_tiles<DP, 8, 1, kLongBN, kBf16P>(a, B, stream);
+  return launch_tiles<DP, kShortSlabs, kShortKS, kShortBN, kBf16P>(a, B, stream);
 }
 
 bool aligned(const void* p, uintptr_t n) { return reinterpret_cast<uintptr_t>(p) % n == 0; }
 
-}  // namespace
-
-extern "C" int flash_attn_launch(const void* q, const void* k, const void* v, void* o,
-                                 void* lse, int B, int Sq, int Skv, int Hq, int Hkv, int dh,
-                                 int causal, int window, float softcap, void* stream) {
+template <bool kBf16P>
+int attend(const void* q, const void* k, const void* v, void* o, void* lse, int B, int Sq,
+           int Skv, int Hq, int Hkv, int dh, int causal, int window, float softcap,
+           void* stream) {
   if (B < 0 || Sq < 0 || Skv < 0 || Hq < 1 || Hkv < 1 || Hq % Hkv != 0 || dh < 1 || dh > 256)
     return (int)cudaErrorInvalidValue;
   const long long rows = (long long)Sq * (Hq / Hkv);
@@ -478,9 +538,41 @@ extern "C" int flash_attn_launch(const void* q, const void* k, const void* v, vo
          dh % 2 == 0 && aligned(o, 8)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch ((dh + 63) / 64) {
-    case 1: return (int)launch<64>(a, B, sms, st);
-    case 2: return (int)launch<128>(a, B, sms, st);
-    case 3: return (int)launch<192>(a, B, sms, st);
-    default: return (int)launch<256>(a, B, sms, st);
+    case 1: return (int)launch<64, kBf16P>(a, B, sms, st);
+    case 2: return (int)launch<128, kBf16P>(a, B, sms, st);
+    case 3: return (int)launch<192, kBf16P>(a, B, sms, st);
+    default: return (int)launch<256, kBf16P>(a, B, sms, st);
   }
+}
+
+}  // namespace
+
+extern "C" int flash_attn_launch(const void* q, const void* k, const void* v, void* o,
+                                 void* lse, int B, int Sq, int Skv, int Hq, int Hkv, int dh,
+                                 int causal, int window, float softcap, void* stream) {
+  return attend<false>(q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, dh, causal, window, softcap,
+                       stream);
+}
+
+// The tiles a launch walks on the current device, as (rows a block << 16) |
+// keys a tile, or a negative cudaError: each block's key tiles start at the
+// first key any of its rows may see, so a bf16-P row's roundings depend on
+// them (ref.py flash_attention_bf16_tiles_ref mirrors that walk).
+extern "C" int flash_attn_tiles(int B, int Sq, int Hq, int Hkv) {
+  if (B < 0 || Sq < 0 || Hq < 1 || Hkv < 1 || Hq % Hkv != 0) return -(int)cudaErrorInvalidValue;
+  static hash_tile::DeviceOnce once;
+  int sms = 0;
+  const cudaError_t err = once.get([] { return cudaSuccess; }, &sms);
+  if (err != cudaSuccess) return -(int)err;
+  if (long_tiles(B, Hkv, (long long)Sq * (Hq / Hkv), sms)) return (16 * 8) << 16 | kLongBN;
+  return (16 * kShortSlabs) << 16 | kShortBN;
+}
+
+// the bf16-P form (attn_bf16_probs): the same arguments, all float32
+extern "C" int flash_attn_bf16_launch(const void* q, const void* k, const void* v, void* o,
+                                      void* lse, int B, int Sq, int Skv, int Hq, int Hkv,
+                                      int dh, int causal, int window, float softcap,
+                                      void* stream) {
+  return attend<true>(q, k, v, o, lse, B, Sq, Skv, Hq, Hkv, dh, causal, window, softcap,
+                      stream);
 }

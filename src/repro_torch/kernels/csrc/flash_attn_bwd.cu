@@ -13,6 +13,18 @@
 // (flash_attn_bwd_chunks: C > 1 row chunks, then 2 C partial dK / dV of k's
 // size, and delta (B, Sq, Hq) after them).
 //
+// The bf16-P form (flash_attn_bwd_bf16_launch, the models' attn_bf16_probs;
+// a compile-time variant, kBf16P) is the gradient of flash_attn.cu's bf16-P
+// form, taking each rounding's derivative as 1, as JAX's astype transposes:
+// dV = bf16(P)^T bf16(dO) and dP = bf16(dO) bf16(V)^T (dO rounded as the
+// reference's cotangent cast rounds it), each one mma.sync m16n8k16 bf16
+// product a 16-row or 16-d step; dS = p (dP - delta) of the unrounded p and
+// delta = rowsum(dO o) in float32; S, dQ and dK stay 3xTF32.  P^T goes to
+// the dV product as bf16 A fragments through shared memory (the n-tiles of
+// one 16-row step come from two warps when the score products are split
+// over dh), in place of its split TF32 halves; the kernels, grids and row
+// chunks are the float32 form's.
+//
 // Replaces no TPU kernel: the reference differentiates its jnp forward
 // (src/repro/models/attention.py:72 chunked_attention) through
 // jax.value_and_grad (src/repro/train/step.py:47-53), and its Pallas kernel
@@ -285,6 +297,45 @@ __device__ __forceinline__ void two_products(const float* a1, const float* a2, c
   }
 }
 
+// The bf16-P form's pair: c1 as two_products' (3xTF32), c2[i] = bf16(A2)
+// bf16(B2_i)^T on the bf16 tensor cores, the operands rounded as they are
+// read.  a2r and b2r point at column 0 of the A2 tile's row g and of the B2
+// tile (lane (g, t) reads columns d + 2 t, + 1 and d + 2 t + 8, + 9 of its
+// rows as float2s: 8-byte reads, conflict-free at the row stride DP + 4)
+template <int DP, int LD, int N>
+__device__ __forceinline__ void two_products_bf16(const float* a1, const float* a2r,
+                                                  const float* b1, const float* b2r,
+                                                  const int (&brow)[N], float (&c1)[N][4],
+                                                  float (&c2)[N][4]) {
+  const int t = threadIdx.x & 3;
+  auto pack2 = [](const float* p) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    return pack_bf16(v.x, v.y);
+  };
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) c1[i][e] = c2[i][e] = 0.f;
+#pragma unroll 2
+  for (int d = 0; d < DP; d += 16) {
+#pragma unroll
+    for (int h = 0; h < 16; h += 8) {  // S's two k steps of 8
+      uint32_t xb[4], xs[4];
+      load_a<LD>(a1, d + h, xb, xs);
+#pragma unroll
+      for (int i = 0; i < N; ++i)
+        mma3(c1[i], xb, xs, b1[brow[i] * LD + d + h], b1[brow[i] * LD + d + h + 4]);
+    }
+    const float* ar = a2r + d + 2 * t;
+    const uint32_t af[4] = {pack2(ar), pack2(ar + 8 * LD), pack2(ar + 8), pack2(ar + 8 * LD + 8)};
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const float* br = b2r + brow[i] * LD + d + 2 * t;
+      mma_bf16(c2[i], af, pack2(br), pack2(br + 8));
+    }
+  }
+}
+
 __device__ __forceinline__ void slab_sync(int slab, int threads) {
   asm volatile("bar.sync %0, %1;" ::"r"(1 + slab), "r"(threads) : "memory");
 }
@@ -371,7 +422,7 @@ struct QTile {
                                   sizeof(float);
 };
 
-template <int DP, int kSlabs, int KS, int KD, int BK>
+template <int DP, int kSlabs, int KS, int KD, int BK, bool kBf16P>
 __global__ void __launch_bounds__(kSlabs * KS * 32, 1) flash_attn_bwd_dq_kernel(const BwdArgs a) {
   using T = QTile<DP, kSlabs, KS, KD, BK>;
   constexpr int LD = T::LD, BM = T::BM;
@@ -470,8 +521,12 @@ __global__ void __launch_bounds__(kSlabs * KS * 32, 1) flash_attn_bwd_dq_kernel(
 #pragma unroll
     for (int i = 0; i < T::NN; ++i) brow[i] = 8 * (grp * T::NN + i) + g;
     const int d_lo = dpart * (DP / KD);
-    two_products<DP / KD, LD, T::NN>(qa + d_lo, da + d_lo, ks + t + d_lo, vs + t + d_lo, brow,
-                                     sc, dp);
+    if constexpr (kBf16P)  // dP = bf16(dO) bf16(V)^T
+      two_products_bf16<DP / KD, LD, T::NN>(qa + d_lo, da - t + d_lo, ks + t + d_lo, vs + d_lo,
+                                            brow, sc, dp);
+    else
+      two_products<DP / KD, LD, T::NN>(qa + d_lo, da + d_lo, ks + t + d_lo, vs + t + d_lo,
+                                       brow, sc, dp);
     add_parts<KD, T::NN>(xs0 + slab * T::XS, grp, dpart, sc, dp, slab, 32 * KS);
     // dS of this warp's whole n-tiles, stored as the A fragment of k step kk
     // (keys 8 kk ..): k index t stands for key 8 kk + 2 t and t + 4 for
@@ -533,7 +588,7 @@ struct KvTile {
       sizeof(float);
 };
 
-template <int DP, int kSlabs, int KS, int KD, int BR>
+template <int DP, int kSlabs, int KS, int KD, int BR, bool kBf16P>
 __global__ void __launch_bounds__(kSlabs * KS * 32, 1)
     flash_attn_bwd_dkdv_kernel(const BwdArgs a) {
   using T = KvTile<DP, kSlabs, KS, KD, BR>;
@@ -624,8 +679,12 @@ __global__ void __launch_bounds__(kSlabs * KS * 32, 1)
 #pragma unroll
     for (int i = 0; i < T::NR; ++i) brow[i] = 8 * (grp * T::NR + i) + g;
     const int d_lo = dpart * (DP / KD);
-    two_products<DP / KD, LD, T::NR>(ka + d_lo, va + d_lo, qs + t + d_lo, dos + t + d_lo, brow,
-                                     sc, dp);
+    if constexpr (kBf16P)  // dP^T = bf16(V) bf16(dO)^T
+      two_products_bf16<DP / KD, LD, T::NR>(ka + d_lo, va - t + d_lo, qs + t + d_lo, dos + d_lo,
+                                            brow, sc, dp);
+    else
+      two_products<DP / KD, LD, T::NR>(ka + d_lo, va + d_lo, qs + t + d_lo, dos + t + d_lo,
+                                       brow, sc, dp);
     if constexpr (KD > 1) {
       add_parts<KD, T::NR>(reinterpret_cast<float*>(pb) + slab * T::NK * 4 * 32 * 4, grp, dpart,
                            sc, dp, slab, 32 * KS);
@@ -650,25 +709,49 @@ __global__ void __launch_bounds__(kSlabs * KS * 32, 1)
         ds[e] = p[e] * (dp[i][e] - del_s[rr]) * dcap;
       }
       uint32_t* dst = pb + ((slab * T::NK + kk) * 4 * 32 + lane) * 4;
-      const float pf[4] = {p[0], p[2], p[1], p[3]}, df[4] = {ds[0], ds[2], ds[1], ds[3]};
-      put_a(dst, pf);
+      const float df[4] = {ds[0], ds[2], ds[1], ds[3]};
+      if constexpr (kBf16P) {
+        // P^T's bf16 A fragment of the 16-row step kk / 2, in the P^T area
+        // of its first 8-row step: this n-tile is its half kk % 2 (keys g and
+        // g + 8, rows 2 t and 2 t + 1 of the half), its accumulator as it lies
+        uint32_t* frag = pb + ((slab * T::NK + (kk & ~1)) * 4 * 32 + lane) * 4 + 2 * (kk & 1);
+        *reinterpret_cast<uint2*>(frag) = make_uint2(pack_bf16(p[0], p[1]), pack_bf16(p[2], p[3]));
+      } else {
+        const float pf[4] = {p[0], p[2], p[1], p[3]};
+        put_a(dst, pf);
+      }
       put_a(dst + 2 * 32 * 4, df);
     }
     slab_sync(slab, 32 * KS);
 
     // dV += P^T dO and dK += dS^T Q over the tile's rows, this warp's DW columns
+    if constexpr (kBf16P) {  // dV: a bf16 product a 16-row step, dO rounded as read
+      static_assert(T::NK % 2 == 0, "whole 16-row steps");
+#pragma unroll
+      for (int k2 = 0; k2 < T::NK / 2; ++k2) {
+        const uint4 f = reinterpret_cast<const uint4*>(pb)[(slab * T::NK + 2 * k2) * 4 * 32 + lane];
+        const uint32_t pa[4] = {f.x, f.y, f.z, f.w};
+        const float* d0 = dos + (16 * k2 + 2 * t) * LD + part * T::DW + g;
+#pragma unroll
+        for (int n = 0; n < T::NT; ++n)
+          mma_bf16(dv[n], pa, pack_bf16(d0[8 * n], d0[LD + 8 * n]),
+                   pack_bf16(d0[8 * LD + 8 * n], d0[9 * LD + 8 * n]));
+      }
+    }
 #pragma unroll
     for (int kk = 0; kk < T::NK; ++kk) {
       const uint32_t* src = pb + ((slab * T::NK + kk) * 4 * 32 + lane) * 4;
-      uint32_t pbig[4], psm[4], dbig[4], dsm[4];
-      get_a(src, pbig, psm);
+      uint32_t dbig[4], dsm[4];
       get_a(src + 2 * 32 * 4, dbig, dsm);
       const int c0 = (8 * kk + 2 * t) * LD + part * T::DW + g;
+      if constexpr (!kBf16P) {
+        uint32_t pbig[4], psm[4];
+        get_a(src, pbig, psm);
 #pragma unroll
-      for (int n = 0; n < T::NT; ++n) {
-        mma3(dv[n], pbig, psm, dos[c0 + 8 * n], dos[c0 + LD + 8 * n]);
-        mma3(dk[n], dbig, dsm, qs[c0 + 8 * n], qs[c0 + LD + 8 * n]);
+        for (int n = 0; n < T::NT; ++n) mma3(dv[n], pbig, psm, dos[c0 + 8 * n], dos[c0 + LD + 8 * n]);
       }
+#pragma unroll
+      for (int n = 0; n < T::NT; ++n) mma3(dk[n], dbig, dsm, qs[c0 + 8 * n], qs[c0 + LD + 8 * n]);
     }
   }
   hash_tile::wait<0>();
@@ -725,7 +808,7 @@ int chunks(long long B, long long Sq, long long Skv, long long Hq, long long Hkv
   return (int)std::max(1LL, std::min({slots / blocks, row_tiles, 65535LL}));
 }
 
-template <int DP>
+template <int DP, bool kBf16P>
 cudaError_t launch(const BwdArgs& a, int B, int C, int sms, cudaStream_t stream) {
   using QT = QTile<DP, kQSlabs, kQKS, kQKD, kQBK>;
   using KT = KvTile<DP, kKvSlabs, kKvKS, kKvKD, kKvBR>;
@@ -734,20 +817,23 @@ cudaError_t launch(const BwdArgs& a, int B, int C, int sms, cudaStream_t stream)
   int dev_sms = 0;
   cudaError_t err = once.get(
       [] {
-        cudaError_t e = cudaFuncSetAttribute(flash_attn_bwd_dq_kernel<DP, kQSlabs, kQKS, kQKD, kQBK>,
+        cudaError_t e = cudaFuncSetAttribute(
+            flash_attn_bwd_dq_kernel<DP, kQSlabs, kQKS, kQKD, kQBK, kBf16P>,
                                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                                              (int)QT::kSmem);
         if (e != cudaSuccess) return e;
-        return cudaFuncSetAttribute(flash_attn_bwd_dkdv_kernel<DP, kKvSlabs, kKvKS, kKvKD, kKvBR>,
+        return cudaFuncSetAttribute(
+            flash_attn_bwd_dkdv_kernel<DP, kKvSlabs, kKvKS, kKvKD, kKvBR, kBf16P>,
                                     cudaFuncAttributeMaxDynamicSharedMemorySize, (int)KT::kSmem);
       },
       &dev_sms);
   if (err != cudaSuccess) return err;
   dim3 qgrid((unsigned)(B * a.Hkv), (unsigned)((a.rows + QT::BM - 1) / QT::BM));
-  flash_attn_bwd_dq_kernel<DP, kQSlabs, kQKS, kQKD, kQBK><<<qgrid, QT::kThreads, QT::kSmem, stream>>>(a);
+  flash_attn_bwd_dq_kernel<DP, kQSlabs, kQKS, kQKD, kQBK, kBf16P>
+      <<<qgrid, QT::kThreads, QT::kSmem, stream>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess || a.Skv == 0) return err;
   dim3 kgrid((unsigned)(B * a.Hkv), (unsigned)((a.Skv + KT::BT - 1) / KT::BT), (unsigned)C);
-  flash_attn_bwd_dkdv_kernel<DP, kKvSlabs, kKvKS, kKvKD, kKvBR>
+  flash_attn_bwd_dkdv_kernel<DP, kKvSlabs, kKvKS, kKvKD, kKvBR, kBf16P>
       <<<kgrid, KT::kThreads, KT::kSmem, stream>>>(a);
   if ((err = cudaGetLastError()) != cudaSuccess || C == 1) return err;
   const long long n = a.kv_elems;
@@ -780,29 +866,10 @@ int device_sms(int* sms) {
   return (int)once.get([] { return cudaSuccess; }, sms);
 }
 
-}  // namespace
-
-// The row chunks C of the dK / dV pass on the current device (the launch's
-// scratch holds 2 C B Skv Hkv dh floats of partial dK and dV ahead of delta
-// when C > 1), or a negative cudaError.
-extern "C" int flash_attn_bwd_chunks(int B, int Sq, int Skv, int Hq, int Hkv, int dh) {
-  if (!valid(B, Sq, Skv, Hq, Hkv, dh)) return -(int)cudaErrorInvalidValue;
-  int sms = 0;
-  const int err = device_sms(&sms);
-  if (err != (int)cudaSuccess) return -err;
-  return chunks(B, Sq, Skv, Hq, Hkv, sms);
-}
-
-// dq, dk, dv of the attention whose forward wrote o and lse (flash_attn_launch
-// with an lse pointer), given dO; `scratch` holds (flash_attn_bwd_chunks C
-// > 1) 2 C B Skv Hkv dh floats, then B Sq Hq (delta).  Two kernels on
-// `stream`, the dQ pass (with delta) and the dK / dV pass, and the chunks'
-// reduce when C > 1.
-extern "C" int flash_attn_bwd_launch(const void* q, const void* k, const void* v, const void* o,
-                                     const void* lse, const void* dO, void* dq, void* dk,
-                                     void* dv, void* scratch, int B, int Sq, int Skv, int Hq,
-                                     int Hkv, int dh, int causal, int window, float softcap,
-                                     void* stream) {
+template <bool kBf16P>
+int backward(const void* q, const void* k, const void* v, const void* o, const void* lse,
+             const void* dO, void* dq, void* dk, void* dv, void* scratch, int B, int Sq, int Skv,
+             int Hq, int Hkv, int dh, int causal, int window, float softcap, void* stream) {
   if (!valid(B, Sq, Skv, Hq, Hkv, dh)) return (int)cudaErrorInvalidValue;
   if (B == 0 || Sq == 0) return (int)cudaSuccess;
   int sms = 0;
@@ -827,9 +894,49 @@ extern "C" int flash_attn_bwd_launch(const void* q, const void* k, const void* v
             softcap > 0.f ? 2.f * kLog2e * scale / softcap : 0.f, softcap * kLog2e, vec};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch ((dh + 63) / 64) {
-    case 1: return (int)launch<64>(a, B, C, sms, st);
-    case 2: return (int)launch<128>(a, B, C, sms, st);
-    case 3: return (int)launch<192>(a, B, C, sms, st);
-    default: return (int)launch<256>(a, B, C, sms, st);
+    case 1: return (int)launch<64, kBf16P>(a, B, C, sms, st);
+    case 2: return (int)launch<128, kBf16P>(a, B, C, sms, st);
+    case 3: return (int)launch<192, kBf16P>(a, B, C, sms, st);
+    default: return (int)launch<256, kBf16P>(a, B, C, sms, st);
   }
 }
+
+
+}  // namespace
+
+// The row chunks C of the dK / dV pass on the current device (the launch's
+// scratch holds 2 C B Skv Hkv dh floats of partial dK and dV ahead of delta
+// when C > 1), or a negative cudaError.
+extern "C" int flash_attn_bwd_chunks(int B, int Sq, int Skv, int Hq, int Hkv, int dh) {
+  if (!valid(B, Sq, Skv, Hq, Hkv, dh)) return -(int)cudaErrorInvalidValue;
+  int sms = 0;
+  const int err = device_sms(&sms);
+  if (err != (int)cudaSuccess) return -err;
+  return chunks(B, Sq, Skv, Hq, Hkv, sms);
+}
+
+// dq, dk, dv of the attention whose forward wrote o and lse (flash_attn_launch
+// with an lse pointer), given dO; `scratch` holds (flash_attn_bwd_chunks C
+// > 1) 2 C B Skv Hkv dh floats, then B Sq Hq (delta).  Two kernels on
+// `stream`, the dQ pass (with delta) and the dK / dV pass, and the chunks'
+// reduce when C > 1.
+extern "C" int flash_attn_bwd_launch(const void* q, const void* k, const void* v, const void* o,
+                                     const void* lse, const void* dO, void* dq, void* dk,
+                                     void* dv, void* scratch, int B, int Sq, int Skv, int Hq,
+                                     int Hkv, int dh, int causal, int window, float softcap,
+                                     void* stream) {
+  return backward<false>(q, k, v, o, lse, dO, dq, dk, dv, scratch, B, Sq, Skv, Hq, Hkv, dh,
+                         causal, window, softcap, stream);
+}
+
+// the bf16-P form (attn_bf16_probs): the same arguments, all float32, the
+// same kernels and scratch
+extern "C" int flash_attn_bwd_bf16_launch(const void* q, const void* k, const void* v,
+                                          const void* o, const void* lse, const void* dO,
+                                          void* dq, void* dk, void* dv, void* scratch, int B,
+                                          int Sq, int Skv, int Hq, int Hkv, int dh, int causal,
+                                          int window, float softcap, void* stream) {
+  return backward<true>(q, k, v, o, lse, dO, dq, dk, dv, scratch, B, Sq, Skv, Hq, Hkv, dh,
+                        causal, window, softcap, stream);
+}
+

@@ -3,7 +3,12 @@
 // for every (batch row b, channel d), over all L steps of dt, x (B, L, D),
 // Bc, Cc (B, L, N) and A (D, N), starting from h0 (B, D, N); writes y
 // (B, L, D) and the final state to h_out (B, D, N).  All float32,
-// contiguous, N <= 16.  One launch scans the whole sequence: the state lives
+// contiguous, N <= 16; or, in the bf16 form (ssm_scan_bf16_launch, the
+// model's ssm_bf16_acts), dt, x, Bc and Cc in bf16 and the rest float32: the
+// input type is a template parameter of the kernel, a bf16 value is widened
+// to float32 as it is read from shared memory, and the arithmetic after
+// that is the float32 kernel's, so the outputs are bit for bit the float32
+// kernel's on the inputs widened first.  One launch scans the whole sequence: the state lives
 // in registers for any L.  On the training path (a non-null h_ckpt) it also
 // writes the state entering each 32-step tile to h_ckpt (B, ceil(L / 32), D,
 // N), from which the backward (ssm_scan_bwd.cu) recomputes a tile's states;
@@ -17,7 +22,9 @@
 // an SM on compute capability 9.0), against the bytes of dt, x and y (12 a
 // channel and step) and of h0 and h_out.  At N 16 the exps weigh about as
 // much as the bytes: 0.032 ms of exps against 0.040 of bytes at 32 x 32
-// steps x 8192 channels, 0.257 against 0.242 at 4 x 2048.  The recurrence
+// steps x 8192 channels, 0.257 against 0.242 at 4 x 2048; the bf16 form
+// reads half the bytes of dt, x, B and C (0.030 at 32 x 32 x 8192), so there
+// the exps bound it.  The recurrence
 // itself is one dependent FMA a step; the exps and the loads do not depend
 // on h, so they can run ahead of it.  What the card runs out of first,
 // though, is shared memory's bandwidth: a lane reads 2 values a state and
@@ -35,7 +42,8 @@
 //   * a warp's h0, A and h_out accesses are 16-byte vectors (when N is a
 //     multiple of 4 and the pointers are 16-byte aligned; else scalar);
 //   * tiles of 32 steps of dt, x, B and C are copied into shared memory with
-//     cp.async in 16-byte pieces (4-byte ones where D or N forbid them), in a
+//     cp.async in 16-byte pieces (4 float32 or 8 bf16 values; 4-byte ones
+//     of float32, or loads and stores of bf16, where D or N forbid them), in a
 //     ring of two stages, or four for a long sequence in a small batch, so
 //     that three tiles load while one is scanned; a lane reads dt_t and x_t of its channels as a
 //     broadcast and its 4 states of B_t and C_t as one 16-byte broadcast;
@@ -69,12 +77,12 @@ constexpr int kSteps = 32;  // time steps a tile
 using ssm::kLog2e;
 static_assert(kSteps % 4 == 0, "a tile holds whole groups of G steps");
 
-// One stage of a block of kC channels a thread: dt and x (kSteps x
-// kChannels each), then B and C (kSteps x kMaxN each).
+// One stage of a block of kC channels a thread, in values of the input type:
+// dt and x (kSteps x kChannels each), then B and C (kSteps x kMaxN each).
 template <int kC>
 struct Stage {
   static constexpr int kChannels = kGroups * kC;
-  static constexpr int kFloats = 2 * kSteps * kChannels + 2 * kSteps * kMaxN;
+  static constexpr int kValues = 2 * kSteps * kChannels + 2 * kSteps * kMaxN;
 };
 
 // The G lanes of a channel hold partial dots p[i] of G consecutive steps i;
@@ -99,7 +107,7 @@ __device__ __forceinline__ float transpose_sum(const float (&p)[G], int g) {
   }
 }
 
-// dt_t or x_t of this thread's kC neighbouring channels
+// dt_t or x_t of this thread's kC neighbouring channels, as float32
 template <int kC>
 __device__ __forceinline__ void load_channels(const float* p, float (&v)[kC]) {
   if constexpr (kC == 2) {
@@ -110,19 +118,29 @@ __device__ __forceinline__ void load_channels(const float* p, float (&v)[kC]) {
   }
 }
 
+template <int kC>
+__device__ __forceinline__ void load_channels(const __nv_bfloat16* p, float (&v)[kC]) {
+  if constexpr (kC == 2) {
+    const float2 t = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+    v[0] = t.x, v[1] = t.y;
+  } else {
+    v[0] = __bfloat162float(*p);
+  }
+}
+
 // The scan of one tile of `steps` steps (kSteps when kFull) from stage `st`
 // for the kC channels of this thread; stores y of the steps before
 // `steps`.  `y_col` points at y of its first channel at the tile's first
 // step; y2: two channels' y as one 8-byte store.
-template <int G, int kC, bool kFull>
-__device__ __forceinline__ void scan_tile(const float* st, int steps, int q, int g,
+template <int G, int kC, bool kFull, class T>
+__device__ __forceinline__ void scan_tile(const T* st, int steps, int q, int g,
                                           float (&h)[kC][kS], const float (&a2)[kC][kS],
                                           float* y_col, long long D, int live, bool y2) {
   constexpr int kCh = Stage<kC>::kChannels;
-  const float* dts = st;
-  const float* xs = st + kSteps * kCh;
-  const float* bs = st + 2 * kSteps * kCh;
-  const float* cs = bs + kSteps * kMaxN;
+  const T* dts = st;
+  const T* xs = st + kSteps * kCh;
+  const T* bs = st + 2 * kSteps * kCh;
+  const T* cs = bs + kSteps * kMaxN;
 #pragma unroll
   for (int j = 0; j < kSteps; j += G) {
     if (!kFull && j >= steps) break;
@@ -133,8 +151,8 @@ __device__ __forceinline__ void scan_tile(const float* st, int steps, int q, int
       float dtv[kC], xv[kC];
       load_channels<kC>(dts + s * kCh + kC * q, dtv);
       load_channels<kC>(xs + s * kCh + kC * q, xv);
-      const float4 bv = hash_tile::lds4(bs + s * kMaxN + kS * g);
-      const float4 cv = hash_tile::lds4(cs + s * kMaxN + kS * g);
+      const float4 bv = ssm::load4(bs + s * kMaxN + kS * g);
+      const float4 cv = ssm::load4(cs + s * kMaxN + kS * g);
 #pragma unroll
       for (int u = 0; u < kC; ++u) {
         const float dtx = dtv[u] * xv[u];
@@ -163,13 +181,16 @@ __device__ __forceinline__ void scan_tile(const float* st, int steps, int q, int
   }
 }
 
+// T: the type of dt, x, Bc and Cc (float or __nv_bfloat16)
+template <class T>
 struct Args {
-  const float *dt, *x, *Bc, *Cc, *A, *h0;
+  const T *dt, *x, *Bc, *Cc;
+  const float *A, *h0;
   float *y, *h_out;
   float* h_ckpt;  // the state entering each tile (B, tiles, D, N), or nullptr
   int L, D, N;
   int stages;   // stages allocated (fewer than kStages when the sequence has fewer tiles)
-  bool vec_dx;  // dt and x rows in 16-byte pieces: D % 4 == 0, both 16-byte aligned
+  bool vec_dx;  // dt and x rows in 16-byte pieces: D a multiple of a piece, both 16-byte aligned
   bool vec_bc;  // B and C steps in 16-byte pieces: N == 16, both 16-byte aligned
   bool vec_h;   // h0, A, h_out (and h_ckpt) in 16-byte pieces: N % 4 == 0, all 16-byte aligned
   bool y2;      // y in 8-byte pieces: D even, y 8-byte aligned
@@ -196,13 +217,16 @@ __device__ __forceinline__ void store_states(float* row, const float (&h)[kC][kS
 }
 
 // G lanes a channel, kC channels a thread, kStages stages, at most kRegs
-// registers a thread (so that 65536 / (kRegs * 32 G) blocks share an SM)
-template <int G, int kC, int kStages, int kRegs>
+// registers a thread (so that 65536 / (kRegs * 32 G) blocks share an SM);
+// T the input type of dt, x, Bc and Cc
+template <int G, int kC, int kStages, int kRegs, class T>
 __global__ void __launch_bounds__(kGroups * G, 65536 / kRegs / (kGroups * G))
-ssm_scan_kernel(const Args a) {
+ssm_scan_kernel(const Args<T> a) {
   constexpr int kThreads = kGroups * G;
-  constexpr int kCh = Stage<kC>::kChannels, kStageFloats = Stage<kC>::kFloats;
-  extern __shared__ __align__(16) float smem[];
+  constexpr int kCh = Stage<kC>::kChannels, kStageFloats = Stage<kC>::kValues;
+  constexpr int kP = ssm::kPiece<T>;  // values a 16-byte piece
+  extern __shared__ __align__(16) float smem_f[];
+  T* smem = reinterpret_cast<T*>(smem_f);
   const int tid = threadIdx.x;
   const int q = tid / G, g = tid % G;
   const int L = a.L, D = a.D, N = a.N;
@@ -216,50 +240,50 @@ ssm_scan_kernel(const Args a) {
     for (int e = tid; e < a.stages * kSteps * kMaxN; e += kThreads) {
       const int n = e % kMaxN, s = e / kMaxN;
       if (n < N) continue;
-      float* bs = smem + (s / kSteps) * kStageFloats + 2 * kSteps * kCh;
-      bs[(s % kSteps) * kMaxN + n] = 0.f;
-      bs[kSteps * kMaxN + (s % kSteps) * kMaxN + n] = 0.f;
+      T* bs = smem + (s / kSteps) * kStageFloats + 2 * kSteps * kCh;
+      bs[(s % kSteps) * kMaxN + n] = T(0.f);
+      bs[kSteps * kMaxN + (s % kSteps) * kMaxN + n] = T(0.f);
     }
   }
 
   // copy tile t's dt, x, B and C into its stage, zeros past L and past D
   auto issue = [&](int t) {
-    float* st = smem + (t % kStages) * kStageFloats;
+    T* st = smem + (t % kStages) * kStageFloats;
     const int s0 = t * kSteps, steps = min(kSteps, L - s0);
     if (a.vec_dx) {
-      constexpr int kPieces = kCh / 4;  // 16-byte pieces a step
+      constexpr int kPieces = kCh / kP;  // 16-byte pieces a step
       for (int e = tid; e < kSteps * kPieces; e += kThreads) {
-        const int s = e / kPieces, cc = 4 * (e % kPieces);
+        const int s = e / kPieces, cc = kP * (e % kPieces);
         const bool in = s < steps && d0 + cc < D;
         const long long at = in ? (row + s0 + s) * D + d0 + cc : 0;
-        hash_tile::copy<16>(st + 4 * e, a.dt + at, in ? 16 : 0);
-        hash_tile::copy<16>(st + kSteps * kCh + 4 * e, a.x + at, in ? 16 : 0);
+        ssm::copy16(st + kP * e, a.dt + at, in);
+        ssm::copy16(st + kSteps * kCh + kP * e, a.x + at, in);
       }
     } else {
       for (int e = tid; e < kSteps * kCh; e += kThreads) {
         const int s = e / kCh, cc = e % kCh;
         const bool in = s < steps && d0 + cc < D;
         const long long at = in ? (row + s0 + s) * D + d0 + cc : 0;
-        hash_tile::copy<4>(st + e, a.dt + at, in ? 4 : 0);
-        hash_tile::copy<4>(st + kSteps * kCh + e, a.x + at, in ? 4 : 0);
+        ssm::copy1(st + e, a.dt + at, in);
+        ssm::copy1(st + kSteps * kCh + e, a.x + at, in);
       }
     }
-    float* bs = st + 2 * kSteps * kCh;
+    T* bs = st + 2 * kSteps * kCh;
     const long long first = (row + s0) * N;
     if (a.vec_bc) {  // the stage's rows are the steps' rows: one run of 16-byte pieces
-      constexpr int kPieces = kSteps * kMaxN / 4;
+      constexpr int kPieces = kSteps * kMaxN / kP;
       for (int e = tid; e < 2 * kPieces; e += kThreads) {
         const bool is_c = e >= kPieces;
         const int p = is_c ? e - kPieces : e;
-        const int bytes = 4 * p < steps * kMaxN ? 16 : 0;
-        hash_tile::copy<16>(bs + (is_c ? kSteps * kMaxN : 0) + 4 * p,
-                            (is_c ? a.Cc : a.Bc) + (bytes ? first + 4 * p : 0), bytes);
+        const bool in = kP * p < steps * kMaxN;
+        ssm::copy16(bs + (is_c ? kSteps * kMaxN : 0) + kP * p,
+                    (is_c ? a.Cc : a.Bc) + (in ? first + kP * p : 0), in);
       }
     } else {
       for (int e = tid; e < steps * N; e += kThreads) {
         const int s = e / N, n = e - s * N;
-        hash_tile::copy<4>(bs + s * kMaxN + n, a.Bc + first + e, 4);
-        hash_tile::copy<4>(bs + kSteps * kMaxN + s * kMaxN + n, a.Cc + first + e, 4);
+        ssm::copy1(bs + s * kMaxN + n, a.Bc + first + e, true);
+        ssm::copy1(bs + kSteps * kMaxN + s * kMaxN + n, a.Cc + first + e, true);
       }
     }
   };
@@ -299,7 +323,7 @@ ssm_scan_kernel(const Args a) {
     if (a.h_ckpt)  // the state entering tile t
       store_states<kC>(a.h_ckpt + (((long long)b * tiles + t) * D + d) * N, h, live, g, N,
                        a.vec_h);
-    const float* st = smem + (t % kStages) * kStageFloats;
+    const T* st = smem + (t % kStages) * kStageFloats;
     const int steps = min(kSteps, L - t * kSteps);
     float* yt = y_col + (long long)t * kSteps * D;
     if (steps == kSteps)
@@ -316,15 +340,15 @@ bool aligned(const void* p, int bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
-template <int G, int kC, int kStages, int kRegs>
-cudaError_t launch(Args a, int B, cudaStream_t stream) {
+template <int G, int kC, int kStages, int kRegs, class T>
+cudaError_t launch(Args<T> a, int B, cudaStream_t stream) {
   static hash_tile::DeviceOnce once;
   constexpr int kCh = Stage<kC>::kChannels;
-  constexpr size_t kStageBytes = Stage<kC>::kFloats * sizeof(float);
+  constexpr size_t kStageBytes = Stage<kC>::kValues * sizeof(T);
   int sms = 0;
   cudaError_t err = once.get(
       [] {
-        return cudaFuncSetAttribute(ssm_scan_kernel<G, kC, kStages, kRegs>,
+        return cudaFuncSetAttribute(ssm_scan_kernel<G, kC, kStages, kRegs, T>,
                                     cudaFuncAttributeMaxDynamicSharedMemorySize,
                                     (int)(kStages * kStageBytes));
       },
@@ -333,7 +357,7 @@ cudaError_t launch(Args a, int B, cudaStream_t stream) {
   const int tiles = (a.L + kSteps - 1) / kSteps;
   a.stages = max(1, min(kStages, tiles));  // a short sequence takes fewer stages
   dim3 grid((unsigned)((a.D + kCh - 1) / kCh), (unsigned)B);
-  ssm_scan_kernel<G, kC, kStages, kRegs>
+  ssm_scan_kernel<G, kC, kStages, kRegs, T>
       <<<grid, kGroups * G, a.stages * kStageBytes, stream>>>(a);
   return cudaGetLastError();
 }
@@ -351,8 +375,8 @@ cudaError_t launch(Args a, int B, cudaStream_t stream) {
 //   * a long sequence in a smaller batch (a single sequence): one channel a
 //     thread, for twice the warps, four stages, so that three tiles (96
 //     steps) load while one is scanned, at most 128 registers (16 warps).
-template <int G>
-cudaError_t launch_lanes(const Args& a, int B, cudaStream_t stream) {
+template <int G, class T>
+cudaError_t launch_lanes(const Args<T>& a, int B, cudaStream_t stream) {
   static hash_tile::DeviceOnce once;
   int sms = 0;
   cudaError_t err = once.get([] { return cudaSuccess; }, &sms);
@@ -363,19 +387,20 @@ cudaError_t launch_lanes(const Args& a, int B, cudaStream_t stream) {
   return launch<G, 1, 4, 128>(a, B, stream);
 }
 
-}  // namespace
-
-extern "C" int ssm_scan_launch(const void* dt, const void* x, const void* Bc, const void* Cc,
-                               const void* A, const void* h0, void* y, void* h_out,
-                               void* h_ckpt, int B, int L, int D, int N, void* stream) {
+// the scan with dt, x, Bc and Cc of type T
+template <class T>
+int scan(const void* dt, const void* x, const void* Bc, const void* Cc, const void* A,
+         const void* h0, void* y, void* h_out, void* h_ckpt, int B, int L, int D, int N,
+         void* stream) {
   if (B < 0 || L < 0 || D < 0 || N < 1 || N > kMaxN || B > 65535)
     return (int)cudaErrorInvalidValue;
   if (B == 0 || D == 0) return (int)cudaSuccess;
+  auto in = [](const void* p) { return static_cast<const T*>(p); };
   auto f = [](const void* p) { return static_cast<const float*>(p); };
-  Args a{f(dt), f(x), f(Bc), f(Cc), f(A), f(h0), static_cast<float*>(y),
-         static_cast<float*>(h_out), static_cast<float*>(h_ckpt), L, D, N, 1, false, false,
-         false, false};
-  a.vec_dx = D % 4 == 0 && aligned(dt, 16) && aligned(x, 16);
+  Args<T> a{in(dt), in(x), in(Bc), in(Cc), f(A), f(h0), static_cast<float*>(y),
+            static_cast<float*>(h_out), static_cast<float*>(h_ckpt), L, D, N, 1, false, false,
+            false, false};
+  a.vec_dx = D % ssm::kPiece<T> == 0 && aligned(dt, 16) && aligned(x, 16);
   a.vec_bc = N == kMaxN && aligned(Bc, 16) && aligned(Cc, 16);
   a.vec_h = N % kS == 0 && aligned(A, 16) && aligned(h0, 16) && aligned(h_out, 16) &&
             aligned(h_ckpt, 16);
@@ -389,4 +414,20 @@ extern "C" int ssm_scan_launch(const void* dt, const void* x, const void* Bc, co
   else
     err = launch_lanes<4>(a, B, s);
   return (int)err;
+}
+
+}  // namespace
+
+extern "C" int ssm_scan_launch(const void* dt, const void* x, const void* Bc, const void* Cc,
+                               const void* A, const void* h0, void* y, void* h_out,
+                               void* h_ckpt, int B, int L, int D, int N, void* stream) {
+  return scan<float>(dt, x, Bc, Cc, A, h0, y, h_out, h_ckpt, B, L, D, N, stream);
+}
+
+// the bf16 form: dt, x, Bc and Cc in bf16; A, h0 and the outputs float32
+extern "C" int ssm_scan_bf16_launch(const void* dt, const void* x, const void* Bc,
+                                    const void* Cc, const void* A, const void* h0, void* y,
+                                    void* h_out, void* h_ckpt, int B, int L, int D, int N,
+                                    void* stream) {
+  return scan<__nv_bfloat16>(dt, x, Bc, Cc, A, h0, y, h_out, h_ckpt, B, L, D, N, stream);
 }

@@ -7,7 +7,15 @@
 //   ddt_t = sum_n g_t (A a_t h_{t-1} + x_t B_t),  dx_t = dt_t sum_n g_t B_t,
 //   dB_t = sum_d g_t dt_t x_t,  dC_t = sum_d dy_t h_t,
 //   dA = sum_{b,t} g_t dt_t a_t h_{t-1},  dh0 = a_0 g_0 (nullptr: not written).
-// All float32, contiguous, N <= 16.
+// All float32, contiguous, N <= 16; or, in the bf16 form
+// (ssm_scan_bwd_bf16_launch, the model's ssm_bf16_acts), dt, x, Bc and Cc in
+// bf16 and their gradients ddt, dx, dB and dC written in bf16 (the float32
+// sums rounded once, to nearest even), dy, the checkpoints, A, dA and dh0
+// float32.  The input type is a template parameter: a bf16 value is widened
+// as it is read from shared memory, and the arithmetic after that is the
+// float32 kernel's, so the float32 outputs are bit for bit the float32
+// kernel's on the inputs widened first, and the bf16 ones its outputs
+// rounded.
 //
 // Replaces no TPU kernel: the reference trains Mamba-1 by jax.value_and_grad
 // through _mamba1_fused (src/repro/models/ssm.py:103) or _mamba1_scan (:74).
@@ -98,34 +106,59 @@ constexpr int kRegs = 128;  // registers a thread at most
 constexpr int kSubs = kSteps / kSub;
 static_assert(kSteps % kFlush == 0 && kFlush % kSub == 0, "flushes of whole sub-tiles");
 
-// One stage of the ring, in floats: dt, x, dy (kSteps x kCh), B, C (kSteps x
-// kMaxN) and the tile's checkpoint slice (kCh channels x N, packed)
+// One stage of the ring, in bytes: the float32 dy (kSteps x kCh) and the
+// tile's checkpoint slice (kCh channels x N, packed), then dt, x (kSteps x
+// kCh) and B, C (kSteps x kMaxN) of the input type T
+template <class T>
 struct Stage {
-  static constexpr int kDt = 0, kX = kSteps * kCh, kDy = 2 * kSteps * kCh,
-                       kB = 3 * kSteps * kCh, kC = kB + kSteps * kMaxN,
-                       kCk = kC + kSteps * kMaxN, kFloats = kCk + kCh * kMaxN;
+  static constexpr int kDy = 0, kCk = kDy + 4 * kSteps * kCh, kDt = kCk + 4 * kCh * kMaxN,
+                       kX = kDt + (int)sizeof(T) * kSteps * kCh,
+                       kB = kX + (int)sizeof(T) * kSteps * kCh,
+                       kC = kB + (int)sizeof(T) * kSteps * kMaxN,
+                       kBytes = kC + (int)sizeof(T) * kSteps * kMaxN;
+  static_assert(kBytes % 16 == 0, "stages of whole 16-byte pieces");
 };
 
-// Shared memory of a block of G lanes a channel, in floats: the ring; two
-// flush buffers, each ddt and dx (kFlush x kCh) and the warps' dB / dC sums
-// (kFlush x G warps x 8 values x G state groups); the states entering the
-// sub-tiles after the first (kSubs - 1 x a float4 a thread)
-template <int G>
+// a stage's arrays
+template <class T>
+struct StageView {
+  const float* dy;
+  const float* ck;
+  const T *dt, *x, *b, *c;
+  __device__ __forceinline__ explicit StageView(const unsigned char* st)
+      : dy(reinterpret_cast<const float*>(st + Stage<T>::kDy)),
+        ck(reinterpret_cast<const float*>(st + Stage<T>::kCk)),
+        dt(reinterpret_cast<const T*>(st + Stage<T>::kDt)),
+        x(reinterpret_cast<const T*>(st + Stage<T>::kX)),
+        b(reinterpret_cast<const T*>(st + Stage<T>::kB)),
+        c(reinterpret_cast<const T*>(st + Stage<T>::kC)) {}
+};
+
+// Shared memory of a block of G lanes a channel: the ring (bytes); then, in
+// floats, two flush buffers, each ddt and dx (kFlush x kCh) and the warps'
+// dB / dC sums (kFlush x G warps x 8 values x G state groups); the states
+// entering the sub-tiles after the first (kSubs - 1 x a float4 a thread)
+template <int G, class T>
 struct Smem {
   static constexpr int kThreads = kCh * G;
   static constexpr int kWarps = kThreads / 32;
   static constexpr int kDdt = 0, kDx = kFlush * kCh, kRed = 2 * kFlush * kCh,
                        kOut = kRed + kFlush * kWarps * 8 * G;
   static constexpr int kEnt = (kSubs - 1) * kThreads * kS;
-  static constexpr int kFloats = kStages * Stage::kFloats + 2 * kOut + kEnt;
+  static constexpr int kRing = kStages * Stage<T>::kBytes;
+  static constexpr int kBytes = kRing + (2 * kOut + kEnt) * 4;
 };
 
+// T: the type of dt, x, Bc, Cc and of their gradients (float or __nv_bfloat16)
+template <class T>
 struct BwdArgs {
-  const float *dt, *x, *Bc, *Cc, *A, *ckpt, *dy, *dh_fin;
-  float *ddt, *dx, *dh0;
+  const T *dt, *x, *Bc, *Cc;
+  const float *A, *ckpt, *dy, *dh_fin;
+  T *ddt, *dx;
+  float* dh0;
   float *pB, *pC, *dA_part;  // partials: (B, blocks, L, N) twice, (B, D, N)
   int L, D, N, blocks;
-  bool vec_dx;  // dt, x, dy in 16-byte pieces: D % 4 == 0, all 16-byte aligned
+  bool vec_dx;  // dt, x, dy in 16-byte pieces: D a multiple of a piece of T, all 16-byte aligned
   bool vec_bc;  // B, C in 16-byte pieces: N == 16, both 16-byte aligned
   bool vec_ck;  // checkpoints in 16-byte pieces: D N % 4 == 0, 16-byte aligned
 };
@@ -158,18 +191,18 @@ __device__ __forceinline__ float warp_channel_sum(float (&v)[8], int lane) {
 // recomputed forwards, then walked backwards, carrying gn (the gradient
 // flowing into h from later steps) and dA.  Stages ddt, dx and the warps' dB
 // / dC sums of its steps in the flush buffer `ob` at the steps' slots.
-template <int G, bool kFull>
-__device__ __forceinline__ void sub_tile(const float* st, float* ob, int j0, int steps,
+template <int G, bool kFull, class T>
+__device__ __forceinline__ void sub_tile(const StageView<T>& st, float* ob, int j0, int steps,
                                          const float (&h0)[kS], int q, int g, int lane, int w,
                                          const float (&Av)[kS], const float (&a2)[kS],
                                          float (&gn)[kS], float (&dA)[kS]) {
-  using S = Smem<G>;
+  using S = Smem<G, T>;
   constexpr unsigned kAll = 0xffffffffu;
-  const float* dts = st + Stage::kDt;
-  const float* xs = st + Stage::kX;
-  const float* dys = st + Stage::kDy;
-  const float* bs = st + Stage::kB;
-  const float* cs = st + Stage::kC;
+  const T* dts = st.dt;
+  const T* xs = st.x;
+  const float* dys = st.dy;
+  const T* bs = st.b;
+  const T* cs = st.c;
 
   // hs[j]: the state entering step j0 + j (hs[kSub]: leaving the sub-tile);
   // ea[j]: that step's a_s
@@ -182,8 +215,8 @@ __device__ __forceinline__ void sub_tile(const float* st, float* ob, int j0, int
 #pragma unroll
     for (int k = 0; k < kS; ++k) hs[j + 1][k] = hs[j][k], ea[j][k] = 1.f;
     if (kFull || s < steps) {
-      const float dtv = dts[s * kCh + q], xv = xs[s * kCh + q];
-      const float4 b4 = hash_tile::lds4(bs + s * kMaxN + kS * g);
+      const float dtv = ssm::to_f(dts[s * kCh + q]), xv = ssm::to_f(xs[s * kCh + q]);
+      const float4 b4 = ssm::load4(bs + s * kMaxN + kS * g);
       const float bv[kS] = {b4.x, b4.y, b4.z, b4.w};
       const float dtx = dtv * xv;
 #pragma unroll
@@ -197,9 +230,10 @@ __device__ __forceinline__ void sub_tile(const float* st, float* ob, int j0, int
   for (int j = kSub - 1; j >= 0; --j) {
     const int s = j0 + j, slot = slot0 + j;
     if (!kFull && s >= steps) continue;
-    const float dtv = dts[s * kCh + q], xv = xs[s * kCh + q], dyv = dys[s * kCh + q];
-    const float4 b4 = hash_tile::lds4(bs + s * kMaxN + kS * g);
-    const float4 c4 = hash_tile::lds4(cs + s * kMaxN + kS * g);
+    const float dtv = ssm::to_f(dts[s * kCh + q]), xv = ssm::to_f(xs[s * kCh + q]);
+    const float dyv = dys[s * kCh + q];
+    const float4 b4 = ssm::load4(bs + s * kMaxN + kS * g);
+    const float4 c4 = ssm::load4(cs + s * kMaxN + kS * g);
     const float bv[kS] = {b4.x, b4.y, b4.z, b4.w}, cv[kS] = {c4.x, c4.y, c4.z, c4.w};
     const float dtx = dtv * xv;
     float v[8], px = 0.f, pdt = 0.f;
@@ -232,30 +266,30 @@ __device__ __forceinline__ void sub_tile(const float* st, float* ob, int j0, int
 
 // this lane's states of the tile's checkpoint in stage `st`: zeros past D
 // (the stage's) and past N
-__device__ __forceinline__ void checkpoint(const float* st, int q, int g, int N,
+__device__ __forceinline__ void checkpoint(const float* ck, int q, int g, int N,
                                            float (&h)[kS]) {
 #pragma unroll
   for (int k = 0; k < kS; ++k) {
     const int n = kS * g + k;
-    h[k] = n < N ? st[Stage::kCk + q * N + n] : 0.f;
+    h[k] = n < N ? ck[q * N + n] : 0.f;
   }
 }
 
 // ddt and dx of the n steps from step `first` of the row, staged in `ob`, to
-// device memory; the warps' dB / dC sums of those steps added in warp order
-// into the block's partials
-template <int G>
-__device__ __forceinline__ void flush(const BwdArgs& a, const float* ob, int b, int blk,
+// device memory (as T); the warps' dB / dC sums of those steps added in warp
+// order into the block's partials
+template <int G, class T>
+__device__ __forceinline__ void flush(const BwdArgs<T>& a, const float* ob, int b, int blk,
                                       long long row, int first, int n, int tid) {
-  using S = Smem<G>;
+  using S = Smem<G, T>;
   const int D = a.D, N = a.N, d0 = blk * kCh;
 #pragma unroll 1
   for (int e = tid; e < n * kCh; e += S::kThreads) {
     const int s = e / kCh, c = e % kCh;
     if (d0 + c >= D) continue;
     const long long at = (row + first + s) * D + d0 + c;
-    a.ddt[at] = ob[S::kDdt + e];
-    a.dx[at] = ob[S::kDx + e];
+    ssm::store_as(a.ddt + at, ob[S::kDdt + e]);
+    ssm::store_as(a.dx + at, ob[S::kDx + e]);
   }
   const float* red = ob + S::kRed;
 #pragma unroll 1
@@ -274,13 +308,16 @@ __device__ __forceinline__ void flush(const BwdArgs& a, const float* ob, int b, 
   }
 }
 
-template <int G>
+template <int G, class T>
 __global__ void __launch_bounds__(kCh * G, 65536 / kRegs / (kCh * G))
-ssm_scan_bwd_kernel(const BwdArgs a) {
-  using S = Smem<G>;
+ssm_scan_bwd_kernel(const BwdArgs<T> a) {
+  using S = Smem<G, T>;
+  using St = Stage<T>;
   constexpr int kThreads = S::kThreads;
-  extern __shared__ __align__(16) float smem[];
-  float* out = smem + kStages * Stage::kFloats;  // the two flush buffers
+  constexpr int kP = ssm::kPiece<T>;  // values of T a 16-byte piece
+  extern __shared__ __align__(16) float smem_f[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(smem_f);
+  float* out = reinterpret_cast<float*>(smem + S::kRing);  // the two flush buffers
   float* ents = out + 2 * S::kOut;                // this thread's at ents + kS tid
 
   const int tid = threadIdx.x, q = tid / G, g = tid % G, lane = tid & 31, w = tid >> 5;
@@ -295,18 +332,31 @@ ssm_scan_bwd_kernel(const BwdArgs a) {
   // each iteration's indices were hoisted out of the tile loop, past the
   // registers the walk leaves free, into local memory.
   auto issue = [&](int t, int slot) {
-    float* st = smem + slot * Stage::kFloats;
+    unsigned char* st = smem + slot * St::kBytes;
+    float* st_dy = reinterpret_cast<float*>(st + St::kDy);
+    float* st_ck = reinterpret_cast<float*>(st + St::kCk);
+    T* st_dt = reinterpret_cast<T*>(st + St::kDt);
+    T* st_x = reinterpret_cast<T*>(st + St::kX);
+    T* st_b = reinterpret_cast<T*>(st + St::kB);
+    T* st_c = reinterpret_cast<T*>(st + St::kC);
     const int s0 = t * kSteps, steps = min(kSteps, L - s0);
     if (a.vec_dx) {
-      constexpr int kPieces = kCh / 4;  // 16-byte pieces a step
+      constexpr int kPieces = kCh / kP;  // 16-byte pieces of dt, x a step
 #pragma unroll 1
       for (int e = tid; e < kSteps * kPieces; e += kThreads) {
-        const int s = e / kPieces, c = 4 * (e % kPieces);
+        const int s = e / kPieces, c = kP * (e % kPieces);
         const bool in = s < steps && d0 + c < D;
         const long long at = in ? (row + s0 + s) * D + d0 + c : 0;
-        hash_tile::copy<16>(st + Stage::kDt + 4 * e, a.dt + at, in ? 16 : 0);
-        hash_tile::copy<16>(st + Stage::kX + 4 * e, a.x + at, in ? 16 : 0);
-        hash_tile::copy<16>(st + Stage::kDy + 4 * e, a.dy + at, in ? 16 : 0);
+        ssm::copy16(st_dt + kP * e, a.dt + at, in);
+        ssm::copy16(st_x + kP * e, a.x + at, in);
+      }
+      constexpr int kDyPieces = kCh / 4;  // of dy
+#pragma unroll 1
+      for (int e = tid; e < kSteps * kDyPieces; e += kThreads) {
+        const int s = e / kDyPieces, c = 4 * (e % kDyPieces);
+        const bool in = s < steps && d0 + c < D;
+        const long long at = in ? (row + s0 + s) * D + d0 + c : 0;
+        ssm::copy16(st_dy + 4 * e, a.dy + at, in);
       }
     } else {
 #pragma unroll 1
@@ -314,21 +364,21 @@ ssm_scan_bwd_kernel(const BwdArgs a) {
         const int s = e / kCh, c = e % kCh;
         const bool in = s < steps && d0 + c < D;
         const long long at = in ? (row + s0 + s) * D + d0 + c : 0;
-        hash_tile::copy<4>(st + Stage::kDt + e, a.dt + at, in ? 4 : 0);
-        hash_tile::copy<4>(st + Stage::kX + e, a.x + at, in ? 4 : 0);
-        hash_tile::copy<4>(st + Stage::kDy + e, a.dy + at, in ? 4 : 0);
+        ssm::copy1(st_dt + e, a.dt + at, in);
+        ssm::copy1(st_x + e, a.x + at, in);
+        ssm::copy1(st_dy + e, a.dy + at, in);
       }
     }
     const long long first = (row + s0) * N;
     if (a.vec_bc) {  // the stage's rows are the steps' rows: one run of 16-byte pieces
-      constexpr int kPieces = kSteps * kMaxN / 4;
+      constexpr int kPieces = kSteps * kMaxN / kP;
 #pragma unroll 1
       for (int e = tid; e < 2 * kPieces; e += kThreads) {
         const bool is_c = e >= kPieces;
         const int p = is_c ? e - kPieces : e;
-        const int bytes = 4 * p < steps * kMaxN ? 16 : 0;
-        hash_tile::copy<16>(st + (is_c ? Stage::kC : Stage::kB) + 4 * p,
-                            (is_c ? a.Cc : a.Bc) + (bytes ? first + 4 * p : 0), bytes);
+        const bool in = kP * p < steps * kMaxN;
+        ssm::copy16((is_c ? st_c : st_b) + kP * p,
+                    (is_c ? a.Cc : a.Bc) + (in ? first + kP * p : 0), in);
       }
     } else {
 #pragma unroll 1
@@ -336,8 +386,8 @@ ssm_scan_bwd_kernel(const BwdArgs a) {
         const int s = e / kMaxN, n = e % kMaxN;
         const bool in = s < steps && n < N;
         const long long at = in ? first + s * N + n : 0;
-        hash_tile::copy<4>(st + Stage::kB + e, a.Bc + at, in ? 4 : 0);
-        hash_tile::copy<4>(st + Stage::kC + e, a.Cc + at, in ? 4 : 0);
+        ssm::copy1(st_b + e, a.Bc + at, in);
+        ssm::copy1(st_c + e, a.Cc + at, in);
       }
     }
     // the slice (b, t, d0 .. d0 + 31, :) is one run of (channels in D) x N
@@ -347,14 +397,13 @@ ssm_scan_bwd_kernel(const BwdArgs a) {
 #pragma unroll 1
       for (int e = tid; e < kCh * kMaxN / 4; e += kThreads) {
         const bool in = 4 * e < count;
-        hash_tile::copy<16>(st + Stage::kCk + 4 * e, a.ckpt + (in ? ck + 4 * e : 0),
-                            in ? 16 : 0);
+        ssm::copy16(st_ck + 4 * e, a.ckpt + (in ? ck + 4 * e : 0), in);
       }
     } else {
 #pragma unroll 1
       for (int e = tid; e < kCh * kMaxN; e += kThreads) {
         const bool in = e < count;
-        hash_tile::copy<4>(st + Stage::kCk + e, a.ckpt + (in ? ck + e : 0), in ? 4 : 0);
+        ssm::copy1(st_ck + e, a.ckpt + (in ? ck + e : 0), in);
       }
     }
   };
@@ -384,7 +433,7 @@ ssm_scan_bwd_kernel(const BwdArgs a) {
     __syncthreads();  // tile t is in its stage for every thread
     // Every read of a stage comes before the barrier of the tile's last
     // flush (its sub-tile at step 0), so the next iteration may refill it.
-    const float* st = smem + (i % kStages) * Stage::kFloats;
+    const StageView<T> st(smem + (i % kStages) * St::kBytes);
     const int s0 = t * kSteps, steps = min(kSteps, L - s0);
     const int subs = (steps + kSub - 1) / kSub;
 
@@ -394,14 +443,14 @@ ssm_scan_bwd_kernel(const BwdArgs a) {
     // reads back only what it wrote: no barrier.
     {
       float h[kS];
-      checkpoint(st, q, g, N, h);
+      checkpoint(st.ck, q, g, N, h);
 #pragma unroll 1
       for (int u = 0; u + 1 < subs; ++u) {
 #pragma unroll
         for (int j = 0; j < kSub; ++j) {
           const int s = u * kSub + j;
-          const float dtv = st[Stage::kDt + s * kCh + q], xv = st[Stage::kX + s * kCh + q];
-          const float4 b4 = hash_tile::lds4(st + Stage::kB + s * kMaxN + kS * g);
+          const float dtv = ssm::to_f(st.dt[s * kCh + q]), xv = ssm::to_f(st.x[s * kCh + q]);
+          const float4 b4 = ssm::load4(st.b + s * kMaxN + kS * g);
           const float dtx = dtv * xv;
           h[0] = ssm::step(h[0], dtv, a2[0], dtx, b4.x);
           h[1] = ssm::step(h[1], dtv, a2[1], dtx, b4.y);
@@ -417,7 +466,7 @@ ssm_scan_bwd_kernel(const BwdArgs a) {
     for (int u = subs - 1; u >= 0; --u) {
       float h0[kS];
       if (u == 0) {
-        checkpoint(st, q, g, N, h0);
+        checkpoint(st.ck, q, g, N, h0);
       } else {
         const float4 e = hash_tile::lds4(ents + ((u - 1) * kThreads + tid) * kS);
         h0[0] = e.x, h0[1] = e.y, h0[2] = e.z, h0[3] = e.w;
@@ -430,7 +479,7 @@ ssm_scan_bwd_kernel(const BwdArgs a) {
         sub_tile<G, false>(st, ob, j0, steps, h0, q, g, lane, w, Av, a2, gn, dA);
       if (j0 % kFlush == 0) {
         __syncthreads();  // the flush group's ddt, dx and warp sums are staged
-        flush<G>(a, ob, b, blk, row, s0 + j0, min(kFlush, steps - j0), tid);
+        flush<G, T>(a, ob, b, blk, row, s0 + j0, min(kFlush, steps - j0), tid);
         buf ^= 1;  // the next group fills the other buffer, read after the next barrier
       }
     }
@@ -446,11 +495,12 @@ ssm_scan_bwd_kernel(const BwdArgs a) {
   }
 }
 
-// dB and dC: the channel blocks' partials summed in block order; dA: the
-// batch rows' sums in row order.  One thread an output.
+// dB and dC: the channel blocks' partials summed in block order (written as
+// T); dA: the batch rows' sums in row order.  One thread an output.
+template <class T>
 __global__ void ssm_scan_bwd_reduce(const float* pB, const float* pC, const float* dA_part,
-                                    float* dB, float* dC, float* dA, int B, int L, int D,
-                                    int N, int blocks) {
+                                    T* dB, T* dC, float* dA, int B, int L, int D, int N,
+                                    int blocks) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   const long long ln = (long long)L * N, nbc = (long long)B * ln, dn = (long long)D * N;
   if (i < 2 * nbc) {
@@ -459,7 +509,7 @@ __global__ void ssm_scan_bwd_reduce(const float* pB, const float* pC, const floa
     const float* p = (is_c ? pC : pB) + b * blocks * ln + j % ln;
     float s = 0.f;
     for (int k = 0; k < blocks; ++k) s += p[k * ln];
-    (is_c ? dC : dB)[j] = s;
+    ssm::store_as((is_c ? dC : dB) + j, s);
   } else if (i < 2 * nbc + dn) {
     const long long e = i - 2 * nbc;
     float s = 0.f;
@@ -472,26 +522,61 @@ bool aligned(const void* p, int bytes) {
   return reinterpret_cast<uintptr_t>(p) % bytes == 0;
 }
 
-template <int G>
-cudaError_t launch(const BwdArgs& a, int B, cudaStream_t stream) {
+template <int G, class T>
+cudaError_t launch(const BwdArgs<T>& a, int B, cudaStream_t stream) {
   static hash_tile::DeviceOnce once;
-  constexpr size_t kBytes = Smem<G>::kFloats * sizeof(float);
+  constexpr size_t kBytes = Smem<G, T>::kBytes;
   int sms = 0;
   cudaError_t err = once.get(
       [] {
         cudaError_t e = cudaFuncSetAttribute(
-            ssm_scan_bwd_kernel<G>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kBytes);
+            ssm_scan_bwd_kernel<G, T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)kBytes);
         if (e != cudaSuccess) return e;
         // 4 blocks of 54 KB an SM at G 4: all of the SM's shared memory
-        return cudaFuncSetAttribute(ssm_scan_bwd_kernel<G>,
+        return cudaFuncSetAttribute(ssm_scan_bwd_kernel<G, T>,
                                     cudaFuncAttributePreferredSharedMemoryCarveout,
                                     (int)cudaSharedmemCarveoutMaxShared);
       },
       &sms);
   if (err != cudaSuccess) return err;
   dim3 grid((unsigned)a.blocks, (unsigned)B);
-  ssm_scan_bwd_kernel<G><<<grid, kCh * G, kBytes, stream>>>(a);
+  ssm_scan_bwd_kernel<G, T><<<grid, kCh * G, kBytes, stream>>>(a);
   return cudaGetLastError();
+}
+
+// the backward with dt, x, Bc, Cc and their gradients of type T
+template <class T>
+int scan_bwd(const void* dt, const void* x, const void* Bc, const void* Cc, const void* A,
+             const void* ckpt, const void* dy, const void* dh_fin, void* ddt, void* dx,
+             void* dB, void* dC, void* dA, void* dh0, void* scratch, int B, int L, int D, int N,
+             void* stream) {
+  if (B < 0 || L < 0 || D < 0 || N < 1 || N > kMaxN || B > 65535)
+    return (int)cudaErrorInvalidValue;
+  if (B == 0 || D == 0 || L == 0) return (int)cudaSuccess;
+  auto in = [](const void* p) { return static_cast<const T*>(p); };
+  auto f = [](const void* p) { return static_cast<const float*>(p); };
+  auto o = [](void* p) { return static_cast<float*>(p); };
+  const int blocks = (D + kCh - 1) / kCh;
+  const long long part = (long long)B * blocks * L * N;
+  float* s = o(scratch);
+  BwdArgs<T> a{in(dt), in(x), in(Bc), in(Cc), f(A), f(ckpt), f(dy), f(dh_fin),
+               static_cast<T*>(ddt), static_cast<T*>(dx), o(dh0), s, s + part, s + 2 * part,
+               L, D, N, blocks, false, false, false};
+  a.vec_dx = D % ssm::kPiece<T> == 0 && aligned(dt, 16) && aligned(x, 16) && aligned(dy, 16);
+  a.vec_bc = N == kMaxN && aligned(Bc, 16) && aligned(Cc, 16);
+  a.vec_ck = (long long)D * N % 4 == 0 && aligned(ckpt, 16);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err = N <= kS       ? launch<1, T>(a, B, st)
+                    : N <= 2 * kS ? launch<2, T>(a, B, st)
+                                  : launch<4, T>(a, B, st);
+  if (err != cudaSuccess) return (int)err;
+  const long long outputs = 2LL * B * L * N + (long long)D * N;
+  constexpr int kReduceThreads = 256;
+  ssm_scan_bwd_reduce<T><<<(unsigned)((outputs + kReduceThreads - 1) / kReduceThreads),
+                           kReduceThreads, 0, st>>>(a.pB, a.pC, a.dA_part, static_cast<T*>(dB),
+                                                    static_cast<T*>(dC), o(dA), B, L, D, N,
+                                                    blocks);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -501,27 +586,17 @@ extern "C" int ssm_scan_bwd_launch(const void* dt, const void* x, const void* Bc
                                    const void* dy, const void* dh_fin, void* ddt, void* dx,
                                    void* dB, void* dC, void* dA, void* dh0, void* scratch,
                                    int B, int L, int D, int N, void* stream) {
-  if (B < 0 || L < 0 || D < 0 || N < 1 || N > kMaxN || B > 65535)
-    return (int)cudaErrorInvalidValue;
-  if (B == 0 || D == 0 || L == 0) return (int)cudaSuccess;
-  auto f = [](const void* p) { return static_cast<const float*>(p); };
-  auto o = [](void* p) { return static_cast<float*>(p); };
-  const int blocks = (D + kCh - 1) / kCh;
-  const long long part = (long long)B * blocks * L * N;
-  float* s = o(scratch);
-  BwdArgs a{f(dt), f(x), f(Bc), f(Cc), f(A), f(ckpt), f(dy), f(dh_fin), o(ddt), o(dx), o(dh0),
-            s, s + part, s + 2 * part, L, D, N, blocks, false, false, false};
-  a.vec_dx = D % 4 == 0 && aligned(dt, 16) && aligned(x, 16) && aligned(dy, 16);
-  a.vec_bc = N == kMaxN && aligned(Bc, 16) && aligned(Cc, 16);
-  a.vec_ck = (long long)D * N % 4 == 0 && aligned(ckpt, 16);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err = N <= kS ? launch<1>(a, B, st) : N <= 2 * kS ? launch<2>(a, B, st)
-                                                                : launch<4>(a, B, st);
-  if (err != cudaSuccess) return (int)err;
-  const long long outputs = 2LL * B * L * N + (long long)D * N;
-  constexpr int kReduceThreads = 256;
-  ssm_scan_bwd_reduce<<<(unsigned)((outputs + kReduceThreads - 1) / kReduceThreads),
-                        kReduceThreads, 0, st>>>(a.pB, a.pC, a.dA_part, o(dB), o(dC), o(dA), B,
-                                                 L, D, N, blocks);
-  return (int)cudaGetLastError();
+  return scan_bwd<float>(dt, x, Bc, Cc, A, ckpt, dy, dh_fin, ddt, dx, dB, dC, dA, dh0, scratch,
+                         B, L, D, N, stream);
+}
+
+// the bf16 form: dt, x, Bc, Cc and ddt, dx, dB, dC in bf16; the rest float32
+extern "C" int ssm_scan_bwd_bf16_launch(const void* dt, const void* x, const void* Bc,
+                                        const void* Cc, const void* A, const void* ckpt,
+                                        const void* dy, const void* dh_fin, void* ddt,
+                                        void* dx, void* dB, void* dC, void* dA, void* dh0,
+                                        void* scratch, int B, int L, int D, int N,
+                                        void* stream) {
+  return scan_bwd<__nv_bfloat16>(dt, x, Bc, Cc, A, ckpt, dy, dh_fin, ddt, dx, dB, dC, dA, dh0,
+                                 scratch, B, L, D, N, stream);
 }

@@ -1,9 +1,11 @@
 // Shared pieces of the flash-attention kernels (flash_attn.cu, flash_attn_bwd.cu):
-// the 3xTF32 split and tensor-core product, the approximate exp2 and
-// reciprocal whose error both sources bound, and the cp.async staging of
-// rows padded with zeros to DP columns.
+// the 3xTF32 split and tensor-core product, the bf16 product of their bf16-P
+// forms (attn_bf16_probs), the approximate exp2 and reciprocal whose error
+// both sources bound, and the cp.async staging of rows padded with zeros to
+// DP columns.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -39,6 +41,27 @@ __device__ __forceinline__ float rcp_ftz(float v) {
 __device__ __forceinline__ void mma(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
                                     uint32_t b1) {
   asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two floats rounded to bf16 (to nearest even, as torch's .to(torch.bfloat16))
+// and packed as an MMA operand register: lo, the lower k index, in the low
+// half
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+// c += a b on the tensor cores, one m16n8k16 bf16 product with fp32
+// accumulation (the products of two bf16 values are exact in fp32).  A
+// (16 x 16, row major): a[0] row g, k 2t and 2t + 1; a[1] row g + 8, the
+// same k; a[2], a[3] those rows at k + 8.  B (16 x 8): b0 k 2t and 2t + 1,
+// b1 k 2t + 8 and 2t + 9, column g.  C as the m16n8k8 product's.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
       "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
       : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));

@@ -2,16 +2,20 @@
 `repro.kernels.ssm_scan.ref.ssm_scan_ref`, plus its batched form), and of
 its gradient as a reverse scan (the reference differentiates its scan with
 `jax.value_and_grad`; the port's backward kernel computes the same
-gradient)."""
+gradient).  dt, x, Bc and Cc may come in bf16 (the bf16 form of the
+kernel): they are widened to float32 first, and the gradients of the bf16
+ones are rounded back to bf16 at the end."""
 from __future__ import annotations
 
 import torch
 
 
 def ssm_scan_batched_ref(dt, x, Bc, Cc, A, h0):
-    """dt, x (B, L, D); Bc, Cc (B, L, N); A (D, N); h0 (B, D, N), float32.
-    Returns (y (B, L, D), h_fin (B, D, N)) with
+    """dt, x (B, L, D); Bc, Cc (B, L, N); A (D, N); h0 (B, D, N), float32
+    (dt, x, Bc, Cc also bf16, widened here).  Returns (y (B, L, D), h_fin
+    (B, D, N)) float32 with
       h_t = exp(dt_t A) * h_{t-1} + (dt_t x_t) B_t ;  y_t = h_t . C_t"""
+    dt, x, Bc, Cc = (t.to(torch.float32) for t in (dt, x, Bc, Cc))
     h = h0.to(torch.float32)
     ys = []
     for t in range(dt.shape[1]):
@@ -38,7 +42,10 @@ def ssm_scan_bwd_ref(dt, x, Bc, Cc, A, h0, dy, dh_fin=None):
       dC_t = sum_d dy_t h_t,  dB_t = sum_d g_t dt_t x_t,
       dx_t = dt_t sum_n g_t B_t,  ddt_t = sum_n g_t (A a_t h_{t-1} + x_t B_t),
       dA = sum_{b,t} g_t dt_t a_t h_{t-1},  dh0 = a_0 g_0.
-    Returns (ddt, dx, dB, dC, dA, dh0)."""
+    Returns (ddt, dx, dB, dC, dA, dh0), each of ddt, dx, dB and dC in its
+    input's type (the float32 gradient rounded once)."""
+    types = [t.dtype for t in (dt, x, Bc, Cc)]
+    dt, x, Bc, Cc = (t.to(torch.float32) for t in (dt, x, Bc, Cc))
     L = dt.shape[1]
     hs = [h0.to(torch.float32)]  # hs[t + 1] = h_t
     for t in range(L):
@@ -57,4 +64,5 @@ def ssm_scan_bwd_ref(dt, x, Bc, Cc, A, h0, dy, dh_fin=None):
         ddt[:, t] = (g * (A * u + x[:, t, :, None] * Bc[:, t, None, :])).sum(-1)
         dA += (g * dt[:, t, :, None] * u).sum(0)
         g_next = a * g
+    ddt, dx, dB, dC = (g.to(ty) for g, ty in zip((ddt, dx, dB, dC), types))
     return ddt, dx, dB, dC, dA, g_next

@@ -6,7 +6,12 @@ encoder's keys and values.  The attention itself runs through the
 version on CPU tensors --, which computes the reference's
 `chunked_attention` (causal with the ends aligned, or not causal;
 sliding window, logit soft-capping) and, at Sq = 1 over the cache's live
-keys, its `attention_decode`."""
+keys, its `attention_decode`.  A layer built with `bf16_probs` (the
+config's attn_bf16_probs, which the blocks pass) runs its full-sequence
+forward and prefill through the kernel's bf16-P form, as the reference's
+`attention_block` and `attention_prefill` take the knob; its decode and
+cross attention never do, as the reference's `attention_decode` and
+whisper's calls read no knob."""
 from __future__ import annotations
 
 from typing import NamedTuple
@@ -52,11 +57,14 @@ def init_cache(cfg: AttnConfig, batch: int, max_len: int, device=None) -> KVCach
 
 class Attention(nn.Module):
     """Parameters as the reference names them: wq (D, Hq dh), wk and wv
-    (D, Hkv dh), wo (Hq dh, D), and bq, bk, bv with `qkv_bias`."""
+    (D, Hkv dh), wo (Hq dh, D), and bq, bk, bv with `qkv_bias`.
+    `bf16_probs`: the forward and prefill round P and V to bf16 in the P V
+    product (the reference's attn_bf16_probs)."""
 
-    def __init__(self, cfg: AttnConfig, device=None):
+    def __init__(self, cfg: AttnConfig, device=None, bf16_probs: bool = False):
         super().__init__()
         self.cfg = cfg
+        self.bf16_probs = bf16_probs
         qd, kvd = cfg.n_heads * cfg.head_dim, cfg.n_kv * cfg.head_dim
         shapes = {"wq": (cfg.d_model, qd), "wk": (cfg.d_model, kvd),
                   "wv": (cfg.d_model, kvd), "wo": (qd, cfg.d_model)}
@@ -97,20 +105,22 @@ class Attention(nn.Module):
             k = apply_rope(k, pos1, cfg.rope_theta)
         return q, k, v
 
-    def _attend(self, q, k, v) -> torch.Tensor:
+    def _attend(self, q, k, v, bf16_probs: bool = False) -> torch.Tensor:
         """q (B, S, Hq, dh) over k, v -> the output projection (B, S, D).  The
         attention runs in float32 and its output is cast back to q's dtype,
         as the reference's (a bf16 training forward reaches the float32
-        kernel; float32 serving is unchanged)."""
+        kernel; float32 serving is unchanged); `bf16_probs` takes the
+        bf16-P form."""
         cfg = self.cfg
         f32 = torch.float32
         out = flash_ops.flash_attention(q.to(f32), k.to(f32), v.to(f32), causal=cfg.causal,
-                                        window=cfg.window, softcap=cfg.softcap)
+                                        window=cfg.window, softcap=cfg.softcap,
+                                        bf16_probs=bf16_probs)
         return matmul(out.to(q.dtype).reshape(q.shape[0], q.shape[1], -1), self.wo)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor | None) -> torch.Tensor:
         """x: (B, S, D), positions as `project_qkv` -> (B, S, D)."""
-        return self._attend(*self.project_qkv(x, positions))
+        return self._attend(*self.project_qkv(x, positions), bf16_probs=self.bf16_probs)
 
     def project_ctx_kv(self, ctx: torch.Tensor):
         """The keys and values of an encoder's states ctx (B, S_enc, D), no
@@ -132,7 +142,7 @@ class Attention(nn.Module):
         if S > max_len:
             raise ValueError(f"a prompt of {S} tokens does not fit a cache of {max_len}")
         q, k, v = self.project_qkv(x, positions)
-        out = self._attend(q, k, v)
+        out = self._attend(q, k, v, bf16_probs=self.bf16_probs)
         cache = init_cache(self.cfg, B, max_len, device=x.device)
         cache.k[:, :S] = k
         cache.v[:, :S] = v

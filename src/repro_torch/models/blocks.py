@@ -4,7 +4,9 @@ local / dense (attention + MLP), moe (attention + the MoE FFN), m1 / m2
 attention + MLP layer whose one set of weights the LM applies at every
 repeat), each in the reference's three modes -- the full-sequence forward,
 prefill (which also builds the layer's cache) and one-token decode against
-it."""
+it.  The config's bf16 activation knobs reach the layers as the reference's
+`apply_block` passes them: attn_bf16_probs to the attention's forward and
+prefill, ssm_bf16_acts (with ssm_fused_chunks) to Mamba-1's."""
 from __future__ import annotations
 
 import torch
@@ -65,13 +67,12 @@ class Block(nn.Module):
 
     def __init__(self, kind: str, cfg, device=None):
         super().__init__()
-        if cfg.attn_bf16_probs or cfg.ssm_bf16_acts:
-            raise NotImplementedError("the bf16 activation knobs are not ported (ROADMAP A11)")
         self.kind = kind
         self.cfg = cfg
         if kind in ATTN_KINDS:
             norms = ["ln1", "ln2"] + (["ln1p", "ln2p"] if cfg.post_norms else [])
-            self.attn = Attention(attn_cfg_for(cfg, kind), device=device)
+            self.attn = Attention(attn_cfg_for(cfg, kind), device=device,
+                                  bf16_probs=cfg.attn_bf16_probs)
             if kind == "moe":
                 self.moe = MoE(moe_cfg_for(cfg), device=device)
             else:
@@ -79,7 +80,9 @@ class Block(nn.Module):
                                activation=cfg.activation, device=device)
         elif kind == "m1":
             norms = ["ln1"]
-            self.ssm = Mamba1(m1_cfg_for(cfg), device=device)
+            # the reference rounds the scan's inputs only on its fused path
+            self.ssm = Mamba1(m1_cfg_for(cfg), device=device,
+                              bf16_acts=cfg.ssm_fused_chunks and cfg.ssm_bf16_acts)
         elif kind == "m2":
             norms = ["ln1"]
             self.ssm = Mamba2(m2_cfg_for(cfg), cfg.ssm_chunk, device=device)

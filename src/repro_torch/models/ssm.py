@@ -9,6 +9,11 @@ tensors, its plain version on CPU tensors.  It computes what the
 reference's `_mamba1_fused` and `_mamba1_scan` paths both compute, on the
 (B, L, d_inner) layout the projections produce; prefill and decode carry
 the state through it as h0 and h_fin, decode as one launch at L = 1.
+With `bf16_acts` (the config's ssm_fused_chunks and ssm_bf16_acts), the
+forward and prefill hand the scan dt, x, B and C rounded to bf16 (the
+kernel's bf16 form), as the reference's fused path casts them; the skip
+term keeps the unrounded x, and a decode step scans in float32, as the
+reference's unfused `mamba1_decode` does.
 
 Mamba-2 (SSD) is plain torch throughout, as the reference computes it in
 jnp outside any Pallas kernel: the chunked form -- the intra-chunk term as
@@ -81,11 +86,13 @@ def causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, tail: torch.T
 
 class Mamba1(nn.Module):
     """Parameters as the reference names them: in_proj, conv_w, conv_b,
-    x_proj, dt_proj, dt_bias, A_log, D, out_proj."""
+    x_proj, dt_proj, dt_bias, A_log, D, out_proj.  `bf16_acts`: the forward
+    and prefill scan bf16 dt, x, B and C."""
 
-    def __init__(self, cfg: Mamba1Config, device=None):
+    def __init__(self, cfg: Mamba1Config, device=None, bf16_acts: bool = False):
         super().__init__()
         self.cfg = cfg
+        self.bf16_acts = bf16_acts
         D, Di, N, R = cfg.d_model, cfg.d_inner, cfg.d_state, cfg.dt_rank
         shapes = {"in_proj": (D, 2 * Di), "conv_w": (cfg.d_conv, Di), "conv_b": (Di,),
                   "x_proj": (Di, R + 2 * N), "dt_proj": (R, Di), "dt_bias": (Di,),
@@ -111,11 +118,14 @@ class Mamba1(nn.Module):
         zero conv tail in the activations' dtype, a zero float32 state.
         Mixed dtypes (a bf16 training forward) compute what jnp computes:
         the products promote, and dt, x, B and C reach the float32 scan as
-        float32, as the reference's fused path casts them."""
+        float32, as the reference's fused path casts them; with `bf16_acts`
+        and no cache (the forward and prefill) they reach the scan's bf16
+        form as bf16."""
         cfg = self.cfg
         Di, N, R = cfg.d_inner, cfg.d_state, cfg.dt_rank
         f32 = torch.float32
         x1, z = torch.split(matmul(x, self.in_proj), [Di, Di], dim=-1)
+        act = torch.bfloat16 if self.bf16_acts and cache is None else f32
         if cache is None:
             cache = SSMCache(x1.new_zeros((x.shape[0], cfg.d_conv - 1, Di)),
                              torch.zeros((x.shape[0], Di, N), dtype=f32, device=x.device), 0)
@@ -124,8 +134,8 @@ class Mamba1(nn.Module):
         dt_r, Bc, Cc = torch.split(matmul(x1, self.x_proj), [R, N, N], dim=-1)
         dt = F.softplus(matmul(dt_r, self.dt_proj) + self.dt_bias)  # (B, L, Di)
         A = -torch.exp(self.A_log.to(f32))  # (Di, N)
-        y, h = scan_ops.ssm_scan(dt.to(f32), x1.to(f32), Bc.to(f32).contiguous(),
-                                 Cc.to(f32).contiguous(), A, cache.state)
+        y, h = scan_ops.ssm_scan(dt.to(act), x1.to(act), Bc.to(act).contiguous(),
+                                 Cc.to(act).contiguous(), A, cache.state)
         y = (y + x1.to(f32) * self.D).to(x.dtype)
         y = y * F.silu(z)
         return matmul(y, self.out_proj), SSMCache(tail, h, cache.length + x.shape[1])

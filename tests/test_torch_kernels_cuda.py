@@ -40,8 +40,9 @@ from repro_torch.exec import stages
 from repro_torch.kernels import common
 from repro_torch.kernels.circrun import circrun, circrun_ref, circrun_topk, circrun_topk_plain
 from repro_torch.kernels.circrun import ops as circrun_ops
-from repro_torch.kernels.flash_attn import (flash_attention, flash_attention_bwd,
-                                            flash_attention_bwd_ref, flash_attention_ref)
+from repro_torch.kernels.flash_attn import (flash_attention, flash_attention_bf16_tiles_ref,
+                                            flash_attention_bwd, flash_attention_bwd_ref,
+                                            flash_attention_ref)
 from repro_torch.kernels.flash_attn import ops as flash_ops
 from repro_torch.kernels.csa_probe import (
     csa_probe,
@@ -1307,3 +1308,163 @@ def test_baseline_on_card_matches_cpu(dev, method, metric, kw):
         hash_kernel = "hash_xp" if metric == "angular" else "hash_rp"
         assert after[hash_kernel] > before[hash_kernel]
         assert after["gather_l2_topk"] > before["gather_l2_topk"]
+
+
+# -- the bf16 forms (the models' attn_bf16_probs and ssm_bf16_acts) ----------
+#
+# ssm_scan / ssm_scan_bwd read dt, x, B, C in bf16 and widen them as they read
+# them: every output is, bit for bit, the float32 kernel's on the widened
+# inputs (the bf16 gradients its float32 gradients rounded once).  flash_attn
+# / flash_attn_bwd with bf16_probs round P and V (and the backward's dO) to
+# bf16 in their P V products: each output's mean gap from the plain mirror of
+# its own roundings (the forward's walk of its key tiles; the plain bf16-P
+# backward on the kernel's own o and lse) within KNOB_MIRROR_FACTOR of the
+# knob's mean gap (mean |plain bf16 - plain float32|), its largest gap from
+# the plain bf16-P version within 2x the knob's largest, and not equal to
+# the float32 kernel's output (the rounding happened).
+
+def _bits(a, b) -> bool:
+    return a.dtype == b.dtype and torch.equal(a.view(torch.int16 if a.dtype == torch.bfloat16
+                                                     else torch.int32),
+                                              b.view(torch.int16 if b.dtype == torch.bfloat16
+                                                     else torch.int32))
+
+
+SCAN_BF16_SHAPES = [(8, 64, 8192, 16),  # falcon-mamba-7b's training shape
+                    (32, 32, 1024, 16),  # the serving batch, channels cut
+                    (1, 300, 256, 16),  # one long sequence: four stages
+                    (4, 130, 512, 16),  # two channels a thread
+                    (2, 77, 130, 16),  # D % 8 != 0: bf16 dt, x by loads, not cp.async
+                    (3, 77, 200, 5), (2, 33, 70, 3), (1, 1, 1, 1)]
+
+
+def _bf16_scan_args(dev, B, L, D, N, seed):
+    ins, dy, dh = _scan_args(dev, B, L, D, N, seed)
+    acts = [t.to(torch.bfloat16) for t in ins[:4]]
+    return acts + ins[4:], [t.float() for t in acts] + ins[4:], dy, dh
+
+
+@pytest.mark.parametrize("B,L,D,N", SCAN_BF16_SHAPES)
+def test_ssm_scan_bf16_form_is_the_float32_kernel_on_widened_inputs(dev, B, L, D, N):
+    from repro_torch.kernels.ssm_scan import ops as scan_ops
+
+    bf, wide, _, _ = _bf16_scan_args(dev, B, L, D, N, L + D)
+    for ckpt in (False, True):
+        before = common.launch_counts()
+        got = scan_ops._forward(*bf, checkpoints=ckpt)
+        want = scan_ops._forward(*wide, checkpoints=ckpt)
+        torch.cuda.synchronize()
+        after = common.launch_counts()
+        assert after["ssm_scan_bf16"] == before["ssm_scan_bf16"] + 1
+        assert after["ssm_scan"] == before["ssm_scan"] + 1
+        for a, b in zip(got, want):
+            assert (a is None and b is None) or _bits(a, b)
+
+
+@pytest.mark.parametrize("B,L,D,N", SCAN_BF16_SHAPES)
+def test_ssm_scan_bwd_bf16_form_rounds_the_float32_kernel(dev, B, L, D, N):
+    from repro_torch.kernels.ssm_scan import ops as scan_ops
+
+    bf, wide, dy, dh = _bf16_scan_args(dev, B, L, D, N, L * N + D)
+    _, _, ckpt = scan_ops._forward(*bf, checkpoints=True)
+    before = common.launch_counts()
+    got = scan_ops.ssm_scan_bwd(*bf, ckpt, dy, dh)
+    want = scan_ops.ssm_scan_bwd(*wide, ckpt, dy, dh)
+    torch.cuda.synchronize()
+    after = common.launch_counts()
+    assert after["ssm_scan_bwd_bf16"] == before["ssm_scan_bwd_bf16"] + 1
+    assert after["ssm_scan_bwd"] == before["ssm_scan_bwd"] + 1
+    for i, (a, b) in enumerate(zip(got, want)):
+        assert _bits(a, b.to(torch.bfloat16) if i < 4 else b), SCAN_GRADS[i]
+
+
+def test_ssm_scan_bf16_grad_saves_bf16_and_returns_bf16(dev):
+    """Through `SSMScan`: the bf16 inputs are saved as bf16 (the same
+    tensors), their gradients come back bf16, A's and h0's float32; one
+    launch of each bf16 form and none of the float32 forms."""
+    bf, _, dy, dh = _bf16_scan_args(dev, 2, 70, 64, 16, 3)
+    args = [t.detach().requires_grad_() for t in bf]
+    before = common.launch_counts()
+    y, h = ssm_scan(*args)
+    saved = y.grad_fn.saved_tensors
+    assert [t.dtype for t in saved[:4]] == [torch.bfloat16] * 4
+    assert all(s.data_ptr() == a.data_ptr() for s, a in zip(saved[:4], args))
+    ((y * dy).sum() + (h * dh).sum()).backward()
+    torch.cuda.synchronize()
+    after = common.launch_counts()
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == {
+        "ssm_scan_bf16": 1, "ssm_scan_bwd_bf16": 1}
+    assert [a.grad.dtype for a in args] == [torch.bfloat16] * 4 + [torch.float32] * 2
+
+
+@pytest.mark.parametrize("which", ["A", "h0", "x"])
+def test_ssm_scan_bf16_refuses_a_mixed_set_on_the_card(dev, which):
+    bf, _, _, _ = _bf16_scan_args(dev, 2, 5, 8, 4, 0)
+    i = ("dt", "x", "Bc", "Cc", "A", "h0").index(which)
+    bf[i] = bf[i].to(torch.float32 if which == "x" else torch.bfloat16)
+    before = common.launch_counts()
+    with pytest.raises(TypeError, match="dtype torch.bfloat16"):
+        ssm_scan(*bf)
+    assert common.launch_counts() == before
+
+
+FLASH_BF16_CASES = ("gemma-2b serving", "odd length", "non-causal", "dh 64",
+                    "dh 112, group 1, causal", "dh 256", "Sq, Skv off the tiles", "Sq > Skv",
+                    "window + softcap", "128-row tiles", "non-causal, Sq < Skv")
+
+
+KNOB_MIRROR_FACTOR = 0.02  # chip_smoke.py's; its margins: test_torch_bf16_knobs.py
+
+
+def _within_knob_gap(got, mirror, plain_bf16, plain_f32, tag="") -> None:
+    diff = (plain_bf16 - plain_f32).abs()
+    err = float((got - plain_bf16).abs().max())
+    mean_err = float((got - mirror).abs().mean())
+    assert bool(torch.isfinite(got).all()), tag
+    assert err <= 2 * float(diff.max()), (tag, err, float(diff.max()))
+    assert mean_err <= KNOB_MIRROR_FACTOR * float(diff.mean()), (tag, mean_err, float(diff.mean()))
+
+
+@pytest.mark.parametrize("name", FLASH_BF16_CASES)
+def test_flash_attn_bf16_probs_within_the_knob_gap(dev, name):
+    q, k, v, kw = make_flash_case(name)
+    q, k, v = (torch.from_numpy(t).to(dev) for t in (q, k, v))
+    before = common.launch_counts()
+    out = flash_attention(q, k, v, bf16_probs=True, **kw)
+    torch.cuda.synchronize()
+    after = common.launch_counts()
+    assert after["flash_attn_bf16"] == before["flash_attn_bf16"] + 1
+    assert after["flash_attn"] == before["flash_attn"]
+    rows, keys = flash_ops.fwd_tiles(q.shape[0], q.shape[1], q.shape[2], k.shape[2])
+    _within_knob_gap(out, flash_attention_bf16_tiles_ref(q, k, v, block_rows=rows,
+                                                         key_tile=keys, **kw),
+                     flash_attention_ref(q, k, v, bf16_probs=True, **kw),
+                     flash_attention_ref(q, k, v, **kw), name)
+    assert not torch.equal(out, flash_attention(q, k, v, **kw))
+    assert _bits(out, flash_attention(q, k, v, bf16_probs=True, **kw))
+
+
+@pytest.mark.parametrize("name", ["causal", "window + softcap", "Sq > Skv (empty rows)",
+                                  "dh 100", "gemma-2b training, cut", "Sq < Skv, not causal",
+                                  "128-row tiles", "dh 200"])
+def test_flash_attn_bwd_bf16_probs_within_the_knob_gap(dev, name):
+    q, k, v, do, kw = _bwd_case(dev, name)
+    qa, ka, va = (t.clone().requires_grad_() for t in (q, k, v))
+    before = common.launch_counts()
+    out = flash_attention(qa, ka, va, bf16_probs=True, **kw)
+    out.backward(do)
+    torch.cuda.synchronize()
+    after = common.launch_counts()
+    assert {n: after[n] - before[n] for n in after if after[n] != before[n]} == {
+        "flash_attn_bf16": 1, "flash_attn_bwd_bf16": 1}
+    # the plain backward on the kernel's own o and lse (the autograd forward's bits)
+    o, lse = flash_ops._forward(q, k, v, kw["causal"], kw["window"], kw["softcap"], True,
+                                bf16_probs=True)
+    want = flash_attention_bwd_ref(q, k, v, o, lse, do, bf16_probs=True, **kw)
+    plain = flash_attention_bwd_ref(q, k, v, o, lse, do, **kw)
+    grads = (qa.grad, ka.grad, va.grad)
+    for got, w, p, tag in zip(grads, want, plain, ("dq", "dk", "dv")):
+        _within_knob_gap(got, w, w, p, f"{name} {tag}")
+    f32 = flash_attention_bwd(q, k, v, *flash_ops._forward(q, k, v, kw["causal"], kw["window"],
+                                                           kw["softcap"], True), do, **kw)
+    assert not torch.equal(grads[2], f32[2])

@@ -133,3 +133,14 @@ def test_cpu_wrapper_refuses_a_bf16_input(which):
     name = ("dt", "x", "Bc", "Cc", "A", "h0")[which]
     with pytest.raises(TypeError, match=rf"^{name}: dtype torch.bfloat16"):
         ssm_scan(*args)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cpu_wrapper_empty_sequence_returns_float32(dtype):
+    """L = 0: y is float32 zeros of shape (B, 0, D) whether dt, x, B, C come
+    in float32 or all in bf16 (the bf16 form), and h_fin is h0."""
+    args = [torch.from_numpy(a) for a in _inputs((2,), 0, 8, 4, 0)]
+    args[:4] = [a.to(dtype) for a in args[:4]]
+    y, h = ssm_scan(*args)
+    assert y.dtype == torch.float32 and tuple(y.shape) == (2, 0, 8)
+    assert torch.equal(h, args[5])
