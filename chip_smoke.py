@@ -104,13 +104,14 @@ Drives the port's paths on one NVIDIA card at the paper's SIFT size
     cosine-scheduled AdamW with float32 moments) on the train launcher's
     batches (8 x 64 tokens) through `DataPipeline` and the LCCS near-dup
     filter (its history check on the circrun kernels), every attention
-    layer launching the flash_attn forward (with its log-sum-exp) and the
-    hand-written flash_attn backward once a step: losses finite and
+    layer launching the flash_attn forward (with its log-sum-exp) twice
+    (the recompute) and the hand-written flash_attn backward once a step:
+    losses finite and
     falling, launches exact, peak memory beside the state's bytes, one step
     profiled; then falcon-mamba-7b the same at full width, 24 of its 64
     Mamba-1 layers (2.79 B parameters: the full depth's state does not fit
     one card), every layer launching the ssm_scan forward (with its tiles'
-    checkpoints) and the hand-written ssm_scan backward once a step; the
+    checkpoints) twice and the hand-written ssm_scan backward once a step; the
     smoke gemma-2b, qwen3-moe, whisper-tiny and falcon-mamba-7b on the card
     against the CPU for 3 steps; the Trainer resumed at step 6 against an
     uninterrupted run, then `launch.train --ckpt-dir D` and `launch.serve
@@ -122,14 +123,28 @@ Drives the port's paths on one NVIDIA card at the paper's SIFT size
     never); one training step of gemma-2b (18 layers) and of falcon-mamba-7b
     (24 layers) with the knob on the states of train_full / train_mamba
     (loss finite; gemma-2b's within KNOB_LOSS_REL_TOL of the knob-off loss
-    and not equal to it, falcon-mamba-7b's equal to it; one bf16 forward and
-    one bf16 backward launch a layer, nothing else); the four bf16 forms
+    and not equal to it, falcon-mamba-7b's equal to it; two bf16 forward
+    launches a layer (the recompute) and one bf16 backward, nothing else);
+    the four bf16 forms
     against their plain versions (ssm_scan / ssm_scan_bwd bit for bit the
     float32 forms on the widened inputs, flash_attn / flash_attn_bwd by
     knob_gap_check: the mean gap from the plain mirror of their own
     roundings within KNOB_MIRROR_FACTOR of the knob's mean gap) at the
     paths' shapes, each timed beside its float32 form; a mixed bf16 scan
-    refused.
+    refused;
+  * the launch analysis (phase `launch_analysis`, `repro_torch.launch`):
+    cells 9 and 10 dry-run on a 1x1 fake mesh (meta tensors, no launch),
+    their predicted peak within LAUNCH_PEAK_TOL of the real steps' in this
+    run, their kernel launches a step and aten FLOPs equal to a real
+    step's, their roofline bound beside the measured step ms; gemma-2b x
+    train_4k on the 16 x 16 fake mesh (its argument bytes those of the
+    specs' shards); `launch.train --mesh 1x1` under NCCL, its losses bit for
+    bit those of the run without a mesh.
+
+Cells 9 and 10 recompute each layer's activations in the backward (the
+configs' remat, "dots"): a step launches each layer's forward kernel twice
+and its backward once; one step of each with the recompute off is
+reported beside them (`train_no_remat`).
 
 Each search QPS of the index paths is the median of QPS_PASSES passes over
 its queries, with the passes' min, max and spread beside it (C10).
@@ -192,24 +207,18 @@ from pathlib import Path
 import numpy as np
 import torch
 
+sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
+# the card's published constants, one home for every bound (each's source there)
+from repro_torch.launch.roofline import (FP32_FLOPS, HBM_BYTES_PER_S,  # noqa: E402
+                                         INT32_OPS, L2_BYTES, RATES, SFU_EXP_PER_S,
+                                         kernel_cost)
+
 N, D, M, W_BUCKET = 1_000_000, 128, 64, 16.0
 N_QUERIES, BATCH, K = 10_000, 1_000, 10
 # each search QPS of the index paths is the median of this many passes over
 # its queries, with the passes' spread beside it: one pass read >= 40 %
 # apart between runs of unchanged code (ROADMAP C10)
 QPS_PASSES = 5
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory (published)
-L2_BYTES = 50 * 2**20  # H100 SXM L2 cache (published)
-FP32_FLOPS = 67e12  # H100 SXM float32 outside the tensor cores (published)
-TF32_FLOPS = 495e12  # H100 SXM TF32 on the tensor cores, dense (NVIDIA H100 data sheet)
-# H100 SXM int32 outside the tensor cores: 132 SMs x 64 INT32 lanes (Hopper
-# architecture white paper) x 1.98 GHz boost clock, one operation a lane
-INT32_OPS = 132 * 64 * 1.98e9
-BF16_FLOPS = 989e12  # H100 SXM bf16 on the tensor cores, dense (NVIDIA H100 data sheet)
-# H100 SXM exps: 16 exp2 results a clock an SM on the special-function units
-# (CUDA C++ Programming Guide, arithmetic instruction throughput table,
-# compute capability 9.0) x 132 SMs x 1.98 GHz boost clock
-SFU_EXP_PER_S = 132 * 16 * 1.98e9
 # the dynamic path: a bulk load of the first rows into one segment (padded to
 # 2^20), then the rest streamed in inserts of 2^14 rows (a 2^16 buffer)
 N_BULK, INSERT_ROWS, N_DELETE = 934_464, 16_384, 10_000
@@ -456,6 +465,9 @@ KNOB_GATE = (f"mean |kernel - plain mirror| <= {KNOB_MIRROR_FACTOR} x the knob's
 # dt, x, B and C are bf16 already and the bf16 scan is the float32 scan on
 # its widened inputs
 KNOB_LOSS_REL_TOL = 3e-5
+# phase launch_analysis: the dry run's peak (arguments + temp, 1x1 mesh)
+# against the measured peak over base of cells 9 and 10, relative
+LAUNCH_PEAK_TOL = 0.15
 PROFILE_PAD = 32
 # tiny kernels launched first in each torch.profiler session, one entry a
 # try: the profiler drops the first kernels of a session, the more of them
@@ -750,7 +762,6 @@ def main() -> None:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs an NVIDIA card")
-    sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
     torch.manual_seed(0)
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -1024,9 +1035,11 @@ def run(dev: torch.device, t_start: float) -> None:
     serve = run_serving(dev)
     lm = run_lm_decode(dev)
     train = run_training(dev)
+    analysis_counts = launch_analysis(dev, train["measured"])
     for k in launches:
         launches[k] += (serve["counts"][k] + lm["counts"][k] + train["counts"][k]
-                        + serve["knob_counts"][k] + train["knob_counts"][k])
+                        + serve["knob_counts"][k] + train["knob_counts"][k]
+                        + analysis_counts[k])
     for rec in kernels:
         rec["launches"] = launches[rec["name"]]
     kernels += serve_kernels_vs_plain(serve, launches)
@@ -3649,15 +3662,9 @@ def flash_record(q, k, v, kw: dict, bf16_probs: bool = False) -> dict:
         del ref
     mask = attn_mask(Sq, Skv, causal=kw["causal"], window=kw["window"], device=q.device)
     pairs = int(mask.sum()) * B * Hq
-    nbytes = 4 * (2 * B * Sq * Hq * dh + 2 * B * Skv * Hkv * dh)
-
-    def terms_of(bf: bool) -> dict:
-        pv_s = 2 * dh * pairs / BF16_FLOPS if bf else 3 * 2 * dh * pairs / TF32_FLOPS
-        return {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
-                "products" if bf else "tf32x3": (3 * 2 * dh * pairs / TF32_FLOPS + pv_s) * 1e3,
-                "exp": pairs / SFU_EXP_PER_S * 1e3}
-
-    terms = terms_of(bf16_probs)
+    dims = dict(B=B, Sq=Sq, Skv=Skv, Hq=Hq, Hkv=Hkv, dh=dh, causal=kw["causal"],
+                window=kw["window"])
+    terms, nbytes = kernel_terms(name, **dims)
     term = max(terms, key=terms.get)
     floor = bound_floor(terms, nbytes)
     rec = dict(**errs, ms=median_ms(call, 20),
@@ -3669,7 +3676,8 @@ def flash_record(q, k, v, kw: dict, bf16_probs: bool = False) -> dict:
     if bf16_probs:
         rec.update(fp32_form_ms=median_ms(f32, 20), library_ms=None,
                    **device_ms(f32, 20, 1, "flash_attn_kernel", key="fp32_form_device",
-                               floor_ms=bound_floor(terms_of(False), nbytes)))
+                               floor_ms=bound_floor(kernel_terms("flash_attn", **dims)[0],
+                                                    nbytes)))
         return rec
     qt, kt, vt = (t.transpose(1, 2).contiguous() for t in (q, k, v))
     sdpa_mask = None if kw["window"] == 0 and (Sq == Skv or not kw["causal"]) else mask
@@ -3681,6 +3689,20 @@ def flash_record(q, k, v, kw: dict, bf16_probs: bool = False) -> dict:
 
     rec.update(library_ms=median_ms(sdpa, 20), **device_ms(sdpa, 20, key="library_device"))
     return rec
+
+
+def kernel_terms(kernel: str, **shape) -> tuple[dict, int]:
+    """(the ms terms of a hand-written kernel's bound, its bytes) at
+    `shape`, from `roofline.kernel_cost`: its bytes over the HBM rate, its
+    products at their rates (one term: `tf32x3`, `fp32`, or `products`
+    where bf16 products join the 3xTF32 ones) and its exps on the
+    special-function units."""
+    cost = kernel_cost(kernel, **shape)
+    flops = cost["flops"]
+    key = next(iter(flops)) if len(flops) == 1 else "products"
+    return {"bytes": cost["bytes"] / HBM_BYTES_PER_S * 1e3,
+            key: sum(n / RATES[c] for c, n in flops.items()) * 1e3,
+            "exp": cost["exps"] / SFU_EXP_PER_S * 1e3}, cost["bytes"]
 
 
 def bits_equal(a: torch.Tensor, b: torch.Tensor) -> bool:
@@ -3735,15 +3757,7 @@ def scan_record(dt, x, Bc, Cc, A, h0) -> dict:
             fail(f"{name}: SSMScan saved dt, x, B, C as {saved}")
         rec.update(bits_equal_fp32_form_on_widened=True, saved_dtype=saved[0])
         del got, want, args, y
-    elems = B * L * D * N
-
-    def terms_of(in_bytes: int) -> tuple[dict, int]:
-        nbytes = in_bytes * (2 * B * L * D + 2 * B * L * N) + 4 * (
-            B * L * D + D * N + 2 * B * D * N)
-        return dict(bytes=nbytes / HBM_BYTES_PER_S * 1e3, fp32=7 * elems / FP32_FLOPS * 1e3,
-                    exp=elems / SFU_EXP_PER_S * 1e3), nbytes
-
-    terms, nbytes = terms_of(dt.element_size())
+    terms, nbytes = kernel_terms(name, B=B, L=L, D=D, N=N)
     term = max(terms, key=terms.get)
     floor = bound_floor(terms, nbytes)
     call = lambda: ssm_scan(*ins)  # noqa: E731
@@ -3757,7 +3771,8 @@ def scan_record(dt, x, Bc, Cc, A, h0) -> dict:
         f32 = lambda: ssm_scan(*wide)  # noqa: E731
         rec.update(fp32_form_ms=median_ms(f32, 20),
                    **device_ms(f32, 20, 1, "ssm_scan_kernel", key="fp32_form_device",
-                               floor_ms=bound_floor(*terms_of(4))))
+                               floor_ms=bound_floor(*kernel_terms("ssm_scan", B=B, L=L, D=D,
+                                                                  N=N))))
     return rec
 
 
@@ -3823,14 +3838,130 @@ def run_training(dev) -> dict:
 
     counts = {k: 0 for k in common.LAUNCHES}
     knob_counts = dict(counts)
-    full, full_knob = train_full(dev)
-    mamba, mamba_knob = train_full(dev, TRAIN_MAMBA_ARCH, TRAIN_MAMBA_LAYERS, "train_mamba")
+    full, full_knob, full_measured = train_full(dev)
+    mamba, mamba_knob, mamba_measured = train_full(dev, TRAIN_MAMBA_ARCH, TRAIN_MAMBA_LAYERS,
+                                                   "train_mamba")
     for part in (full, mamba, train_smoke_vs_cpu(dev), train_resume(dev)):
         for k in counts:
             counts[k] += part[k]
     for k in knob_counts:
         knob_counts[k] += full_knob[k] + mamba_knob[k]
-    return dict(counts=counts, knob_counts=knob_counts)
+    return dict(counts=counts, knob_counts=knob_counts,
+                measured={"train_full": full_measured, "train_mamba": mamba_measured})
+
+
+def launch_analysis(dev, measured: dict) -> dict:
+    """Phase launch_analysis (the port's dry run, `launch.dryrun`, and its
+    meshes): (a) cells 9 and 10 dry-run on a 1x1 fake mesh at the train
+    launcher's shape (TRAIN), against the real steps of train_full /
+    train_mamba in this run: the predicted peak (arguments + temp) within
+    LAUNCH_PEAK_TOL of the measured peak over base, the kernel launches a
+    step equal to the real step's, the aten FLOPs equal to FlopCounterMode's
+    over one real step (it does not see the ctypes kernels, which the launch
+    counts hold), the roofline bound from the H100 constants printed beside
+    the measured step ms; (b) gemma-2b x train_4k on the 16x16 fake mesh:
+    status ok, its argument bytes equal to the local shards' sum from the
+    specs; (c) `launch.train --mesh 1x1` on the card under NCCL with world
+    size 1: its losses equal, bit for bit, to the same run without --mesh,
+    flash_attn and flash_attn_bwd launched.  Returns the launches of (c)."""
+    from repro_torch.configs import ShapeCell, get_config
+    from repro_torch.kernels import common
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import train as train_cli
+    from repro_torch.launch.mesh import make_fake_mesh, release_fake_group
+    from repro_torch.sharding import AbstractMesh
+
+    t_phase = time.perf_counter()
+    cell = ShapeCell("train_launcher", TRAIN["seq_len"], TRAIN["global_batch"], "train")
+    try:
+        mesh = make_fake_mesh((1, 1), ("data", "model"))
+        for phase, m in measured.items():
+            rec = dryrun.lower_cell(m["arch"], cell, mesh=mesh, cfg=m["cfg"])
+            if rec["status"] != "ok":
+                fail(f"launch_analysis: the dry run of {phase}'s cell: {rec}")
+            mem = rec["memory_analysis"]
+            pred = mem["argument_size_in_bytes"] + mem["temp_size_in_bytes"]
+            ratio = pred / m["peak_mem_over_base_bytes"]
+            want = {k: v for k, v in m["launches_per_step"].items() if v}
+            emit(phase="launch_analysis", part="dry_run_vs_card", cell=phase, arch=m["arch"],
+                 layers=m["cfg"].n_layers, mesh="1x1", predicted_peak_bytes=pred,
+                 measured_peak_mem_over_base_bytes=m["peak_mem_over_base_bytes"],
+                 predicted_over_measured=ratio, tolerance=LAUNCH_PEAK_TOL,
+                 memory_analysis=mem, launches_per_step=rec["kernel_launches"],
+                 measured_launches_per_step=want,
+                 aten_flops=rec["aten_flops_per_device"], measured_aten_flops=m["aten_flops"],
+                 roofline=rec["roofline"], roofline_bound_ms=rec["roofline"]["roofline_bound_s"]
+                 * 1e3, measured_step_ms_median=m["step_ms_median"],
+                 breakdown=rec["breakdown"][:6], dry_run_s=rec["run_s"])
+            if abs(ratio - 1) > LAUNCH_PEAK_TOL:
+                fail(f"launch_analysis: {phase}'s predicted peak {pred} is {ratio:.3f} of the "
+                     f"measured {m['peak_mem_over_base_bytes']}")
+            if rec["kernel_launches"] != want:
+                fail(f"launch_analysis: {phase}'s dry run launched {rec['kernel_launches']}, "
+                     f"the card's step {want}")
+            if rec["aten_flops_per_device"] != m["aten_flops"]:
+                fail(f"launch_analysis: {phase}'s dry run counts {rec['aten_flops_per_device']} "
+                     f"aten FLOPs, FlopCounterMode {m['aten_flops']}")
+        # (b) one production cell
+        cfg = get_config(TRAIN_ARCH)
+        rec = dryrun.lower_cell(TRAIN_ARCH, "train_4k", multi_pod=False)
+        want_args = dryrun.argument_bytes(cfg, dryrun.SHAPES["train_4k"],
+                                          AbstractMesh((16, 16), ("data", "model")))
+        emit(phase="launch_analysis", part="production_cell", **{
+            k: rec.get(k) for k in ("arch", "shape", "mesh", "status", "n_chips", "run_s",
+                                    "memory_analysis", "hlo_flops_per_device",
+                                    "hlo_bytes_per_device", "collective_bytes_per_device",
+                                    "collective_by_kind", "kernel_launches", "roofline",
+                                    "model_flops_per_device", "useful_flops_ratio")},
+             argument_bytes_from_specs=want_args, predicted="H100 SXM constants, no card run")
+        if rec["status"] != "ok" or rec["memory_analysis"]["argument_size_in_bytes"] != want_args:
+            fail(f"launch_analysis: gemma-2b x train_4k x 16x16: {rec.get('status')}, arguments "
+                 f"{rec.get('memory_analysis')} against {want_args} from the specs")
+    finally:
+        release_fake_group()
+    # (c) the launcher's --mesh on the card
+    runs = {}
+    common.reset_launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        for tag, extra in (("no_mesh", []), ("mesh_1x1", ["--mesh", "1x1"])):
+            before = common.launch_counts()
+            out = train_cli.main(["--arch", TRAIN_ARCH, "--smoke", "--steps", "2",
+                                  "--ckpt-every", "100", "--ckpt-dir", str(Path(tmp) / tag),
+                                  *extra])
+            after = common.launch_counts()
+            runs[tag] = dict(losses=[h["loss"] for h in out["history"]],
+                             final_loss=out["final_loss"],
+                             launches={k: after[k] - before[k] for k in after
+                                       if after[k] != before[k]})
+    counts = common.launch_counts()
+    same = runs["no_mesh"]["losses"] == runs["mesh_1x1"]["losses"] and \
+        np.float64(runs["no_mesh"]["final_loss"]).tobytes() == \
+        np.float64(runs["mesh_1x1"]["final_loss"]).tobytes()
+    emit(phase="launch_analysis", part="train_mesh_1x1", backend="nccl", world_size=1,
+         runs=runs, bit_equal=same, seconds=time.perf_counter() - t_phase)
+    if not same:
+        fail(f"launch_analysis: --mesh 1x1 losses {runs['mesh_1x1']} != {runs['no_mesh']}")
+    got = runs["mesh_1x1"]["launches"]
+    if not got.get("flash_attn") or not got.get("flash_attn_bwd"):
+        fail(f"launch_analysis: --mesh 1x1 launched {got}")
+    return counts
+
+
+def train_step_launches(cfg) -> dict:
+    """The kernel launches of one train step: each layer's forward kernel
+    once, and once more for each layer the step recomputes (`cfg.remat`:
+    every layer of the pattern's repeats; whisper recomputes none, as the
+    reference), its backward kernel once."""
+    from repro_torch.models.blocks import ATTN_KINDS
+    from repro_torch.models.lm import layer_kinds
+
+    want = lm_kernel_layers(cfg)[0]
+    want.update(flash_attn_bwd=want["flash_attn"], ssm_scan_bwd=want["ssm_scan"])
+    if cfg.remat and not cfg.enc_dec:
+        repeated = layer_kinds(cfg)[:cfg.repeats * len(cfg.pattern)]
+        want["flash_attn"] += sum(kind in ATTN_KINDS for kind in repeated)
+        want["ssm_scan"] += repeated.count("m1")
+    return want
 
 
 def train_batch(cfg, step: int, B: int = 4, S: int = 32) -> dict:
@@ -3857,16 +3988,18 @@ def train_full(dev, arch: str = TRAIN_ARCH, layers: int | None = None,
     the Trainer drives them, without the checkpoint (a full-width state is
     30 GB of host disk); phase train_mamba the same for falcon-mamba-7b at
     full width, cut to `layers` layers (TRAIN_MAMBA_LAYERS).  Gates: every
-    loss finite, the last below the first, exactly one flash_attn and one
-    flash_attn_bwd launch an attention layer and one ssm_scan and one
-    ssm_scan_bwd launch a Mamba-1 layer a step and nothing else in a step,
+    loss finite, the last below the first, the launches of
+    `train_step_launches` a step (the forward kernel twice a layer under the
+    configs' recompute, the backward once) and nothing else in a step,
     the filter's circrun and circrun_topk launches; no plain version runs.
     Reports the step times (host clock fenced by the metrics' read),
     tokens/s, peak device memory beside the state's bytes, one profiled
-    step (`profile_<phase>_step`), the dropped rows.  Then one step of the
-    same state with the model's bf16 knob on (`train_with_knob`, phase
-    bf16_knobs).  Returns the launch counts of the steps, and of the knob's
-    step."""
+    step (`profile_<phase>_step`), the dropped rows; one step's aten FLOPs
+    under FlopCounterMode and one step without the recompute
+    (`no_remat_step`).  Then one step of the same state with the model's
+    bf16 knob on (`train_with_knob`, phase bf16_knobs).  Returns the launch
+    counts of the steps and of the knob's step, and what phase
+    launch_analysis holds its dry run to."""
     import dataclasses
 
     from repro_torch.configs import ARCHS
@@ -3893,8 +4026,7 @@ def train_full(dev, arch: str = TRAIN_ARCH, layers: int | None = None,
     step = make_train_step(cfg, lambda s: cosine_schedule(
         s, peak_lr=TRAIN["peak_lr"], warmup=TRAIN["warmup"], total=TRAIN["total"]),
         clip_norm=TRAIN["clip"])
-    want = lm_kernel_layers(cfg)[0]
-    want.update(flash_attn_bwd=want["flash_attn"], ssm_scan_bwd=want["ssm_scan"])
+    want = train_step_launches(cfg)
     history, secs = [], []
     common.reset_launch_counts()
     with plain_versions_refused():
@@ -3929,6 +4061,15 @@ def train_full(dev, arch: str = TRAIN_ARCH, layers: int | None = None,
          dropped_rows=dedup.n_dropped, peak_mem_over_base_bytes=peak,
          state_gb=dict(params_m_v=3 * gb, grads=gb, bf16_copies=gb / 2),
          seconds=time.perf_counter() - t_phase)
+    # phase launch_analysis reads one step's aten FLOPs (FlopCounterMode: it
+    # does not see the ctypes kernels) and the measured step and peak
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as flop_mode:
+        step(state, next(pipe))
+    measured = dict(arch=arch, cfg=cfg, step_ms_median=med * 1e3, peak_mem_over_base_bytes=peak,
+                    launches_per_step=want, aten_flops=flop_mode.get_total_flops())
+    no_remat_step(state, cfg, step, next(pipe), base, phase, med, peak)
     last = next(pipe)
     profile_call(lambda: step(state, last),
                  "profile_train_step" if phase == "train_full" else f"profile_{phase}_step",
@@ -3936,7 +4077,29 @@ def train_full(dev, arch: str = TRAIN_ARCH, layers: int | None = None,
     knob_counts = train_with_knob(state, cfg, next(pipe), phase)
     del state, pipe, dedup, step, last
     torch.cuda.empty_cache()
-    return counts, knob_counts
+    return counts, knob_counts, measured
+
+
+def no_remat_step(state, cfg, step, batch: dict, base: int, phase: str, med: float,
+                  peak: int) -> None:
+    """One step of the same state with the recompute off (the model's
+    config's remat), its ms (host clock fenced by the metrics' read) and
+    peak over the phase's base beside the recomputing steps'; no gate."""
+    import dataclasses
+
+    model = state.model
+    model.cfg = dataclasses.replace(cfg, remat=False)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        (_, metrics), secs = sync_time(lambda: step(state, batch))
+        float(metrics["loss"])
+    finally:
+        model.cfg = cfg
+    emit(phase="train_no_remat", after=phase, arch=cfg.name, layers=cfg.n_layers,
+         step_ms=secs * 1e3, peak_mem_over_base_bytes=torch.cuda.max_memory_allocated() - base,
+         remat_policy=cfg.remat_policy, recompute_step_ms_median=med * 1e3,
+         recompute_peak_mem_over_base_bytes=peak)
 
 
 def train_smoke_vs_cpu(dev) -> dict:
@@ -4206,16 +4369,9 @@ def flash_bwd_record(q, k, v, do, kw: dict, bf16_probs: bool = False) -> dict:
     del o_ref, lse_ref, got
     mask = attn_mask(Sq, Skv, causal=kw["causal"], window=kw["window"], device=q.device)
     pairs = int(mask.sum()) * B * Hq
-    nbytes = 4 * (4 * B * Sq * Hq * dh + 4 * B * Skv * Hkv * dh + B * Sq * Hq)
-
-    def terms_of(bf: bool) -> dict:
-        products = (3 * 6 * dh * pairs / TF32_FLOPS + 4 * dh * pairs / BF16_FLOPS if bf
-                    else 3 * 10 * dh * pairs / TF32_FLOPS)
-        return {"bytes": nbytes / HBM_BYTES_PER_S * 1e3,
-                "products" if bf else "tf32x3": products * 1e3,
-                "exp": pairs / SFU_EXP_PER_S * 1e3}
-
-    terms = terms_of(bf16_probs)
+    dims = dict(B=B, Sq=Sq, Skv=Skv, Hq=Hq, Hkv=Hkv, dh=dh, causal=kw["causal"],
+                window=kw["window"])
+    terms, nbytes = kernel_terms(name, **dims)
     term = max(terms, key=terms.get)
     rec = dict(max_abs_err=max(e["max_abs_err"] for e in errs.values()), errors=errs,
                lse_max_abs_err=lse_err, ms=median_ms(call, 10),
@@ -4230,7 +4386,8 @@ def flash_bwd_record(q, k, v, do, kw: dict, bf16_probs: bool = False) -> dict:
     if bf16_probs:
         rec.update(fp32_form_ms=median_ms(f32_call, 10), library_ms=None,
                    **device_ms(f32_call, 10, n_kernels, "flash_attn_bwd", key="fp32_form_device",
-                               floor_ms=bound_floor(terms_of(False), nbytes)))
+                               floor_ms=bound_floor(kernel_terms("flash_attn_bwd", **dims)[0],
+                                                    nbytes)))
         return rec
     sdpa, backend = sdpa_backward(q, k, v, do, kw)
     rec.update(library_ms=median_ms(sdpa, 10), **device_ms(sdpa, 10, key="library_device"),
@@ -4340,15 +4497,7 @@ def scan_bwd_record(ins: list, dy: torch.Tensor) -> dict:
             fail(f"{name}: {tag} off its plain version at {B, L, D, N}: {errs}")
     del got, ref
     T = -(-L // scan_ops.TILE)
-    elems = B * L * D * N
-
-    def terms_of(in_bytes: int) -> tuple[dict, int]:
-        nbytes = in_bytes * (4 * B * L * D + 4 * B * L * N) + 4 * (
-            B * L * D + 2 * D * N + B * T * D * N + B * D * N)
-        return dict(bytes=nbytes / HBM_BYTES_PER_S * 1e3, exp=elems / SFU_EXP_PER_S * 1e3,
-                    fp32=20 * elems / FP32_FLOPS * 1e3), nbytes
-
-    terms, nbytes = terms_of(dt.element_size())
+    terms, nbytes = kernel_terms(name, B=B, L=L, D=D, N=N)
     term = max(terms, key=terms.get)
     subs = lambda steps: -(-steps // SCAN_BWD_SUB)  # noqa: E731
     rerun = sum(SCAN_BWD_SUB * (subs(min(scan_ops.TILE, L - s0)) - 1)
@@ -4366,7 +4515,8 @@ def scan_bwd_record(ins: list, dy: torch.Tensor) -> dict:
         f32 = lambda: scan_ops.ssm_scan_bwd(*wide, ckpt, dy)  # noqa: E731
         rec.update(bits_equal_fp32_form_rounded=True, fp32_form_ms=median_ms(f32, 20),
                    **device_ms(f32, 20, 2, "ssm_scan_bwd", key="fp32_form_device",
-                               floor_ms=bound_floor(*terms_of(4))))
+                               floor_ms=bound_floor(*kernel_terms("ssm_scan_bwd", B=B, L=L,
+                                                                  D=D, N=N))))
     return rec
 
 
@@ -4463,7 +4613,8 @@ def train_with_knob(state, cfg, batch: dict, phase: str) -> dict:
     on that batch (the step's bf16 forward without the update).  Gates: the
     loss finite, and for gemma-2b within KNOB_LOSS_REL_TOL of the knob-off
     loss and not equal to it, for falcon-mamba-7b equal to it; the
-    knob's forward and backward forms once a layer each, nothing else."""
+    knob's forms as `train_step_launches` counts the float32 ones, nothing
+    else."""
     from repro_torch.kernels import common
     from repro_torch.train import make_train_step
     from repro_torch.train.step import TrainState, _Loss, cast_names
@@ -4477,9 +4628,7 @@ def train_with_knob(state, cfg, batch: dict, phase: str) -> dict:
         loss_off = float(torch.func.functional_call(_Loss(model), args, (batch,))[0])
     del args
     step = make_train_step(cfg_on, lambda s: TRAIN["peak_lr"], clip_norm=TRAIN["clip"])
-    want = lm_kernel_layers(cfg)[0]
-    want.update(flash_attn_bwd=want["flash_attn"], ssm_scan_bwd=want["ssm_scan"])
-    want = knob_form_counts(want)
+    want = knob_form_counts(train_step_launches(cfg))
     common.reset_launch_counts()
     with plain_versions_refused():
         (_, metrics), secs = sync_time(lambda: step(TrainState(with_knob(model, cfg_on),

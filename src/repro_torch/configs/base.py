@@ -1,6 +1,8 @@
 """ModelConfig: one dataclass describing each architecture (a jax-free copy
-of `repro.configs.base.ModelConfig`; the reference's shape cells and
-`input_specs`, which build JAX shape structs, are not carried over).
+of `repro.configs.base.ModelConfig`), and the shape cells every LM-family
+architecture is analysed at (`SHAPES`, `cell_applicable`), with
+`input_specs`, the batch of a cell as meta tensors (the reference's
+ShapeDtypeStructs).
 """
 from __future__ import annotations
 
@@ -136,3 +138,68 @@ class ModelConfig:
             window=min(self.window, 16) if self.window else 0,
             remat=False,
         )
+
+
+# ---------------------------------------------------------------------------
+# Shape cells (assigned to every LM-family architecture)
+# ---------------------------------------------------------------------------
+
+
+@dataclass(frozen=True)
+class ShapeCell:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+
+SHAPES: dict[str, ShapeCell] = {
+    "train_4k": ShapeCell("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeCell("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeCell("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeCell("long_500k", 524_288, 1, "decode"),
+}
+
+
+def cell_applicable(cfg: ModelConfig, shape: str) -> tuple[bool, str]:
+    """(whether `cfg` runs shape cell `shape`, the reference's reason where
+    it does not)."""
+    cell = SHAPES[shape]
+    if cell.name == "long_500k" and not cfg.supports_long:
+        return False, "long_500k skipped: full-attention arch (DESIGN.md §4)"
+    if cell.kind == "decode" and not cfg.supports_decode:
+        return False, "decode skipped: encoder-only arch"
+    return True, ""
+
+
+def input_specs(cfg: ModelConfig, shape: "str | ShapeCell", device="meta") -> dict:
+    """Every model input of a shape cell (a name in SHAPES, or a cell) as
+    tensors without data (on the meta device, or fake tensors under a
+    FakeTensorMode), in the reference's shapes and dtypes: int32 tokens and
+    labels, float32 patch and frame embeddings; a decode cell's one new
+    token a sequence."""
+    import torch
+
+    cell = SHAPES[shape] if isinstance(shape, str) else shape
+    B, S = cell.global_batch, cell.seq_len
+
+    def t(shape_, dtype):
+        return torch.empty(shape_, dtype=dtype, device=device)
+
+    i32, f32 = torch.int32, torch.float32
+    if cell.kind == "decode":
+        return {"token": t((B, 1), i32)}
+    train = cell.kind == "train"
+    if cfg.vlm:
+        batch = {"tokens": t((B, S - cfg.n_patches), i32)}
+        if train:
+            batch["labels"] = t((B, S), i32)
+        batch["patch_embeds"] = t((B, cfg.n_patches, cfg.d_model), f32)
+        return batch
+    batch = {}
+    if cfg.enc_dec:
+        batch["frames"] = t((B, cfg.n_audio_frames, cfg.d_model), f32)
+    batch["tokens"] = t((B, S), i32)
+    if train:
+        batch["labels"] = t((B, S), i32)
+    return batch

@@ -246,6 +246,41 @@ def check(name: str, t: torch.Tensor, *, device: torch.device, dtype: torch.dtyp
         raise ValueError(f"{name}: must be contiguous")
 
 
+def is_dry(*tensors: torch.Tensor) -> bool:
+    """Whether one of `tensors` is a dry run's (`launch.dryrun`): a meta
+    tensor or a FakeTensor, shapes without data, on which a wrapper
+    launches nothing."""
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    return any(t.device.type == "meta" or isinstance(t, FakeTensor) for t in tensors)
+
+
+def dry_launch(kernel: str, **shape) -> None:
+    """A wrapper's dry branch: where a dry run's counter is active (a
+    dispatch mode with `record_kernel`, `launch.roofline.OpCounter`), record
+    one launch of `kernel` at `shape` there.  Nothing is launched and
+    LAUNCHES does not move."""
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+
+    for mode in reversed(_get_current_dispatch_mode_stack()):
+        record = getattr(mode, "record_kernel", None)
+        if record is not None:
+            record(kernel, **shape)
+            return
+
+
+def on_shards_check(name: str, *tensors) -> None:
+    """Raise unless every DTensor argument of a kernel wrapper holds a dry
+    run's local shards or lies on a one-rank mesh: a real shard of a mesh
+    of several ranks would run the kernel on its rows alone."""
+    for t in tensors:
+        if t.device_mesh.size() > 1 and not is_dry(t.to_local()):
+            raise NotImplementedError(
+                f"{name}: DTensor inputs over {t.device_mesh.size()} ranks; the kernels run "
+                "sharded only in a dry run (ROADMAP A9b: a sequence shard of causal "
+                "attention needs a row offset)")
+
+
 def needs_grad(*tensors: torch.Tensor) -> bool:
     """Whether autograd would record through a call on `tensors`: grad mode
     is on and one of them requires grad."""

@@ -13,7 +13,16 @@ and dv from it (`FlashAttention`), all five products on the tensor cores in
 kernels' bf16-P forms (`flash_attn_bf16_launch`, `flash_attn_bwd_bf16_launch`:
 the P V product, and the backward's P^T dO and dO V^T, as one bf16 MMA a
 step), counted apart as `flash_attn_bf16` and `flash_attn_bwd_bf16`; a CUDA
-call with it launches them or raises, never the float32 form."""
+call with it launches them or raises, never the float32 form.
+
+A dry run (`launch.dryrun`) calls the wrappers on meta (or fake) tensors: they
+allocate the outputs a launch would write (o, and the lse autograd saves)
+and record the launch with the dry run's counter (`common.dry_launch`)
+instead of launching; LAUNCHES does not move.  On DTensor inputs, which
+only a dry run makes, the wrapper runs on the local shards: q may be
+sharded by sequence (the attention's constraint), k and v not; the launch
+is costed at the local shapes with the ends aligned (the pairs of the
+sequence's last shard, the busiest)."""
 from __future__ import annotations
 
 import torch
@@ -58,6 +67,10 @@ def _forward(q, k, v, causal: bool, window: int, softcap: float, with_lse: bool,
     out = torch.empty_like(q)
     lse = torch.empty((B, Sq, Hq), dtype=torch.float32, device=q.device) if with_lse else None
     if out.numel() == 0:
+        return out, lse
+    if common.is_dry(q, k, v):
+        common.dry_launch(FORMS[bool(bf16_probs)][0][0], B=B, Sq=Sq, Skv=Skv, Hq=Hq, Hkv=Hkv,
+                           dh=dh, causal=causal, window=window)
         return out, lse
     common.launch(*FORMS[bool(bf16_probs)][0], q.data_ptr(), k.data_ptr(), v.data_ptr(),
                   out.data_ptr(), None if lse is None else lse.data_ptr(), B, Sq, Skv, Hq,
@@ -105,7 +118,8 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True, window: int
     forward's.  `bf16_probs`: the bf16-P form, the gradient of the forward's
     bf16-P form.  No plain fallback: `ref.flash_attention_bwd_ref` is its
     plain version, for the tests and chip_smoke.py."""
-    if q.device.type != "cuda":
+    dry = common.is_dry(q, k, v)
+    if q.device.type != "cuda" and not dry:
         raise ValueError(f"flash_attn_bwd: the backward kernel needs CUDA tensors, got {q.device}")
     B, Sq, Skv, Hq, Hkv, dh = _check(q, k, v)
     dev = q.device
@@ -115,6 +129,10 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal: bool = True, window: int
     if q.numel() == 0:  # no query: nothing flows back, and no kernel is launched
         return torch.zeros_like(q), torch.zeros_like(k), torch.zeros_like(v)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if dry:  # the scratch (partials, delta) lives within the call: not modelled
+        common.dry_launch(FORMS[bool(bf16_probs)][1][0], B=B, Sq=Sq, Skv=Skv, Hq=Hq, Hkv=Hkv,
+                           dh=dh, causal=causal, window=window)
+        return dq, dk, dv
     # the partial dK and dV of C > 1 row chunks, then delta (B, Sq, Hq)
     C = bwd_chunks(B, Sq, Skv, Hq, Hkv, dh)
     scratch = torch.empty(2 * C * k.numel() * (C > 1) + B * Sq * Hq, dtype=torch.float32,
@@ -157,13 +175,60 @@ def flash_attention(q, k, v, *, causal: bool = True, window: int = 0,
     up to that position; `softcap` > 0 caps the scores as c tanh(s / c);
     `bf16_probs` rounds P and V to bf16 in the P V product (the bf16-P
     forms).  On CUDA tensors that autograd records, the call goes through
-    `FlashAttention` (the backward kernel); else one forward launch."""
-    if q.device.type == "cpu":
+    `FlashAttention` (the backward kernel); else one forward launch.  Fake
+    or meta tensors (a dry run's) take the kernel path without launching;
+    DTensors run on their local shards (`_on_shards`)."""
+    from torch.distributed.tensor import DTensor
+
+    kw = dict(causal=causal, window=window, softcap=softcap, bf16_probs=bf16_probs)
+    if isinstance(q, DTensor):
+        return _on_shards(q, k, v, kw)
+    dry = common.is_dry(q, k, v)  # a dry run: the kernel's path, which records the launch
+    if q.device.type == "cpu" and not dry:
         return flash_attention_ref(q, k, v, causal=causal, window=window, softcap=softcap,
                                    bf16_probs=bf16_probs)
-    if q.device.type != "cuda":
+    if q.device.type != "cuda" and not dry:
         raise ValueError(f"flash_attn: unsupported device {q.device}")
     if common.needs_grad(q, k, v):
         return FlashAttention.apply(q, k, v, causal, int(window), float(softcap),
                                     bool(bf16_probs))
     return _forward(q, k, v, causal, window, softcap, with_lse=False, bf16_probs=bf16_probs)[0]
+
+
+def _on_shards(q, k, v, kw: dict):
+    """flash_attention on DTensors (a dry run's).  q (B, S, Hq, dh) may be
+    sharded by batch, by sequence (the attention's constraint) and by heads
+    (a decode step's projection); k and v are placed to match on each mesh
+    dim: by batch with q's batch, whole where q's sequence is sharded, by
+    heads where q's heads are and Hkv divides (whole where Hkv is 1; else
+    q's heads are gathered); a pending sum in q is reduced.  Whatever placement that asks for is a
+    redistribution DTensor counts.  The wrapper runs on the local shards;
+    the output takes q's placements."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    if not (isinstance(k, DTensor) and isinstance(v, DTensor)):
+        raise TypeError("flash_attn: q is a DTensor, k and v must be too")
+    common.on_shards_check("flash_attn", q, k, v)
+    mesh = q.device_mesh
+    Hkv = k.shape[2]
+    qp, kp = list(q.placements), []
+    for i, p in enumerate(qp):
+        if p.is_shard(0):
+            kp.append(Shard(0))
+        elif p.is_shard(1) or p.is_replicate():
+            kp.append(Replicate())
+        elif p.is_shard(2) and Hkv % mesh.size(i) == 0:
+            kp.append(Shard(2))
+        elif p.is_shard(2):
+            if Hkv != 1:
+                qp[i] = Replicate()
+            kp.append(Replicate())
+        elif p.is_partial():  # a pending sum: reduced first
+            qp[i] = Replicate()
+            kp.append(Replicate())
+        else:
+            raise NotImplementedError(f"flash_attn: q placed {q.placements}")
+    q = q if qp == list(q.placements) else q.redistribute(mesh, qp)
+    k, v = (t if list(t.placements) == kp else t.redistribute(mesh, kp) for t in (k, v))
+    out = flash_attention(q.to_local(), k.to_local(), v.to_local(), **kw)
+    return DTensor.from_local(out, mesh, qp, run_check=False, shape=q.shape, stride=q.stride())

@@ -19,7 +19,15 @@ launch it always was.  In the bf16 form `SSMScan` saves the bf16 inputs as
 they are and returns their gradients in bf16 (`ssm_scan_bwd_bf16_launch`:
 the float32 gradients rounded once, to nearest even).  Each form counts its
 own launches (`ssm_scan` / `ssm_scan_bwd`, `ssm_scan_bf16` /
-`ssm_scan_bwd_bf16`)."""
+`ssm_scan_bwd_bf16`).
+
+A dry run (`launch.dryrun`) calls the wrappers on meta (or fake) tensors: they
+allocate the outputs a launch would write (y, h_fin, and the checkpoints
+autograd saves) and record the launch with the dry run's counter
+(`common.dry_launch`) instead of launching; LAUNCHES does not move.  On
+DTensor inputs, which only a dry run makes, the wrapper runs on the local
+shards, each input placed by dt's: the batch and the channels may be
+sharded, the sequence not (the scan carries its state along it)."""
 from __future__ import annotations
 
 import torch
@@ -76,6 +84,10 @@ def _forward(dt, x, Bc, Cc, A, h0, *, checkpoints: bool):
         return y, h0.clone() if checkpoints else h0, ckpt
     y = torch.empty((B, L, D), dtype=torch.float32, device=dev)
     h = torch.empty((B, D, N), dtype=torch.float32, device=dev)
+    if common.is_dry(dt, x, Bc, Cc, A, h0):
+        common.dry_launch(FORMS[dt.dtype][0][0], B=B, L=L, D=D, N=N,
+                           ckpt_tiles=0 if ckpt is None else ckpt.shape[1])
+        return y, h, ckpt
     common.launch(*FORMS[dt.dtype][0], dt.data_ptr(), x.data_ptr(), Bc.data_ptr(),
                   Cc.data_ptr(), A.data_ptr(), h0.data_ptr(), y.data_ptr(), h.data_ptr(),
                   None if ckpt is None else ckpt.data_ptr(), B, L, D, N)
@@ -99,7 +111,8 @@ def ssm_scan_bwd(dt, x, Bc, Cc, A, h0, ckpt, dy, dh_fin=None, *, want_dh0: bool 
     gradients rounded once; dA and dh0 are float32.  No plain fallback:
     `ref.ssm_scan_bwd_ref` is its plain version, for the tests and
     chip_smoke.py."""
-    if dt.device.type != "cuda":
+    dry = common.is_dry(dt, x, Bc, Cc, A, h0)
+    if dt.device.type != "cuda" and not dry:
         raise ValueError(f"ssm_scan_bwd: the backward kernel needs CUDA tensors, got {dt.device}")
     B, L, D, N = _check(dt, x, Bc, Cc, A, h0)
     if not 1 <= N <= MAX_N:
@@ -116,6 +129,9 @@ def ssm_scan_bwd(dt, x, Bc, Cc, A, h0, ckpt, dy, dh_fin=None, *, want_dh0: bool 
     ddt, dx = torch.empty_like(dt), torch.empty_like(x)
     dB, dC, dA = torch.empty_like(Bc), torch.empty_like(Cc), torch.empty_like(A)
     dh0 = torch.empty_like(h0) if want_dh0 else None
+    if dry:  # the scratch (partials) lives within the call: not modelled
+        common.dry_launch(FORMS[dt.dtype][1][0], B=B, L=L, D=D, N=N)
+        return ddt, dx, dB, dC, dA, dh0
     # the dB and dC partials of each channel block, then dA of each batch row
     scratch = torch.empty(2 * B * bwd_blocks(D) * L * N + B * D * N, dtype=torch.float32,
                           device=dev)
@@ -158,11 +174,18 @@ def ssm_scan(dt, x, Bc, Cc, A, h0, *, seq_chunk: int = SEQ_CHUNK):
     and Cc all float32 or all bf16 (the bf16 form), A and h0 float32.
     Returns (y (B, L, D), h_fin (B, D, N)) float32.  `seq_chunk` splits the
     CPU path only; the card scans [0, L) in one launch whatever it is,
-    through `SSMScan` where autograd records the call."""
+    through `SSMScan` where autograd records the call.  Meta (or fake)
+    tensors, a dry run's, take the kernel path without launching; DTensors
+    run on their local shards (`_on_shards`)."""
+    from torch.distributed.tensor import DTensor
+
     if seq_chunk < 1:
         raise ValueError(f"ssm_scan: seq_chunk must be >= 1, got {seq_chunk}")
+    if isinstance(dt, DTensor):
+        return _on_shards(dt, x, Bc, Cc, A, h0)
     B, L, D, N = _check(dt, x, Bc, Cc, A, h0)
-    if dt.device.type == "cpu":
+    dry = common.is_dry(dt, x, Bc, Cc, A, h0)  # a dry run: the kernel's path
+    if dt.device.type == "cpu" and not dry:
         ys, h = [], h0
         for lo in range(0, L, seq_chunk):
             hi = min(L, lo + seq_chunk)
@@ -170,9 +193,41 @@ def ssm_scan(dt, x, Bc, Cc, A, h0, *, seq_chunk: int = SEQ_CHUNK):
                                           Cc[:, lo:hi], A, h)
             ys.append(y_c)
         return (torch.cat(ys, dim=1) if ys else torch.zeros(dt.shape, dtype=torch.float32)), h
-    if dt.device.type != "cuda":
+    if dt.device.type != "cuda" and not dry:
         raise ValueError(f"ssm_scan: unsupported device {dt.device}")
     if common.needs_grad(dt, x, Bc, Cc, A, h0):
         return SSMScan.apply(dt, x, Bc, Cc, A, h0)
     y, h, _ = _forward(dt, x, Bc, Cc, A, h0, checkpoints=False)
     return y, h
+
+
+def _on_shards(dt, x, Bc, Cc, A, h0):
+    """ssm_scan on DTensors (a dry run's): dt (B, L, D) sharded by batch and
+    by channel, not by sequence; x takes dt's placements, Bc and Cc its
+    batch sharding, A (D, N) its channel sharding, h0 (B, D, N) both
+    (each redistributed there where it is placed otherwise).  The wrapper
+    runs on the local shards; y takes dt's placements, h_fin h0's."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    ins = (dt, x, Bc, Cc, A, h0)
+    if not all(isinstance(t, DTensor) for t in ins):
+        raise TypeError("ssm_scan: dt is a DTensor, every input must be")
+    common.on_shards_check("ssm_scan", *ins)
+    if any(not (p.is_replicate() or p.is_shard(0) or p.is_shard(2)) for p in dt.placements):
+        raise NotImplementedError(f"ssm_scan: dt placed {dt.placements}; the scan takes the "
+                                  "batch and the channels sharded, not the sequence")
+
+    def like(batch_dim, chan_dim):
+        return [Shard(batch_dim) if p.is_shard(0) and batch_dim is not None
+                else Shard(chan_dim) if p.is_shard(2) and chan_dim is not None
+                else Replicate() for p in dt.placements]
+
+    want = (dt.placements, like(0, 2), like(0, None), like(0, None), like(None, 0), like(0, 1))
+    ins = [t if tuple(t.placements) == tuple(w) else t.redistribute(t.device_mesh, w)
+           for t, w in zip(ins, want)]
+    y, h = ssm_scan(*(t.to_local() for t in ins))
+    mesh = dt.device_mesh
+    return (DTensor.from_local(y, mesh, dt.placements, run_check=False, shape=dt.shape,
+                               stride=(dt.shape[1] * dt.shape[2], dt.shape[2], 1)),
+            DTensor.from_local(h, mesh, want[5], run_check=False, shape=h0.shape,
+                               stride=h0.stride()))

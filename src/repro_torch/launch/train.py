@@ -7,18 +7,28 @@ of `repro.launch.train`).
 Trains on the card unless `--device cpu`.  Re-running the same command
 after an interruption resumes from the latest checkpoint in --ckpt-dir,
 which `repro_torch.launch.serve --ckpt-dir` (and the reference's launchers)
-can restore.  One process, one device: `--mesh` (the reference's data x
-model mesh) is not ported yet (ROADMAP A12).
+can restore.  `--mesh DxM` builds the reference's data x model mesh over
+the default process group (NCCL on the card, gloo on the CPU; started here
+at tcp://localhost:<a free port> with world size 1 and rank 0 where none
+is up) and trains under it (`sharding.shard_ctx`).  The state stays plain
+tensors on one device, so the models' constraints do nothing and the
+losses are those of a run without it, bit for bit; a mesh of more ranks
+than the group has raises, and so does a MoE model (its expert-parallel
+block is ROADMAP A9b).
 """
 from __future__ import annotations
 
 import argparse
 
+import torch.distributed as dist
+
 from ..configs import ARCHS
 from ..core.device import resolve_device
 from ..data import DataPipeline, lm_token_batches
 from ..data.dedup import NearDupFilter
+from ..sharding import shard_ctx
 from ..train.trainer import Trainer, TrainerConfig
+from .mesh import init_group, make_debug_mesh
 
 
 def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
@@ -37,7 +47,7 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
     ap.add_argument("--dedup", action="store_true",
                     help="enable the LCCS-LSH near-dup data filter")
     ap.add_argument("--mesh", default=None,
-                    help="'DxM' data x model mesh: not ported yet (ROADMAP A12)")
+                    help="'DxM' data x model mesh over the process group (at most its ranks)")
     ap.add_argument("--device", default="cuda",
                     help="device of the model, the optimizer and the filter (cuda or cpu)")
     return ap.parse_args(argv)
@@ -45,10 +55,21 @@ def parse_args(argv: list[str] | None = None) -> argparse.Namespace:
 
 def main(argv: list[str] | None = None) -> dict:
     args = parse_args(argv)
-    if args.mesh:
-        raise NotImplementedError("--mesh: device meshes are not ported yet (ROADMAP A12); "
-                                  "the port trains on one device")
     device = resolve_device(args.device)
+    own_group = bool(args.mesh) and not dist.is_initialized()
+    if own_group:
+        init_group(device)
+    try:
+        mesh = make_debug_mesh(*(int(v) for v in args.mesh.lower().split("x"))) \
+            if args.mesh else None
+        with shard_ctx(mesh):
+            return _train(args, device)
+    finally:
+        if own_group:
+            dist.destroy_process_group()
+
+
+def _train(args: argparse.Namespace, device) -> dict:
     cfg = ARCHS[args.arch]
     if args.smoke:
         cfg = cfg.smoke()
@@ -73,7 +94,6 @@ def main(argv: list[str] | None = None) -> dict:
         f"preempted={out['preempted']}{dropped}"
     )
     return out
-
 
 if __name__ == "__main__":
     main()

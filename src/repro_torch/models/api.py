@@ -35,12 +35,14 @@ def init_model(cfg, seed: int = 0, device=None) -> LM | Whisper:
     `torch.Generator` seeded with `seed`, so a full-width model is never
     built on the host and copied.  Returned in eval mode without gradients,
     as serving runs it; `train.init_train_state` makes the parameters
-    trainable."""
+    trainable.  On the meta device (a dry run's shapes, `launch.dryrun`)
+    nothing is drawn: a generator draws no number there."""
     dev = resolve_device(device)
     model = Whisper(cfg, device=dev) if cfg.enc_dec else LM(cfg, device=dev)
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(seed)
-    model.reset_parameters(gen)
+    if dev.type != "meta":
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        model.reset_parameters(gen)
     return model.eval().requires_grad_(False)
 
 

@@ -18,8 +18,10 @@ from typing import NamedTuple
 
 import torch
 from torch import nn
+from torch.distributed.tensor import DTensor, Replicate
 
 from ..kernels.flash_attn import ops as flash_ops
+from ..sharding import with_logical_constraint as wlc
 from .common import apply_mrope, apply_rope, dense_init_, matmul
 
 
@@ -55,6 +57,45 @@ def init_cache(cfg: AttnConfig, batch: int, max_len: int, device=None) -> KVCach
                    torch.zeros(shape, dtype=CACHE_DTYPE, device=device), 0)
 
 
+def _whole_heads(t, heads: int):
+    """A dry run's DTensor (..., heads dh) whose last dim is sharded over a
+    mesh dim that does not divide `heads`, gathered there: DTensor cannot
+    split a shard of heads dh that holds part of a head."""
+    last = t.ndim - 1
+    want = [Replicate() if p.is_shard(last) and heads % t.device_mesh.size(i) else p
+            for i, p in enumerate(t.placements)]
+    return t if want == list(t.placements) else t.redistribute(t.device_mesh, want)
+
+
+class _MergedHeads(torch.autograd.Function):
+    """The heads' outputs merged (B, S, heads dh), as they are; their
+    gradient `_whole_heads`, so that the merge's backward can split it."""
+
+    @staticmethod
+    def forward(ctx, t, heads: int):
+        ctx.heads = heads
+        return t.view_as(t)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _whole_heads(g, ctx.heads), None
+
+
+def _split_heads(t: torch.Tensor, heads: int, dh: int) -> torch.Tensor:
+    """(B, S, heads dh) -> (B, S, heads, dh) (a dry run's DTensor through
+    `_whole_heads`)."""
+    if isinstance(t, DTensor):
+        t = _whole_heads(t, heads)
+    return t.reshape(t.shape[0], t.shape[1], heads, dh)
+
+
+def _merge_heads(t: torch.Tensor) -> torch.Tensor:
+    """(B, S, heads, dh) -> (B, S, heads dh) (a dry run's DTensor through
+    `_MergedHeads`)."""
+    out = t.reshape(t.shape[0], t.shape[1], -1)
+    return _MergedHeads.apply(out, t.shape[2]) if isinstance(t, DTensor) else out
+
+
 class Attention(nn.Module):
     """Parameters as the reference names them: wq (D, Hq dh), wk and wv
     (D, Hkv dh), wo (Hq dh, D), and bq, bk, bv with `qkv_bias`.
@@ -81,21 +122,30 @@ class Attention(nn.Module):
                 for name in ("bq", "bk", "bv"):
                     getattr(self, name).zero_()
 
-    def _project(self, x: torch.Tensor, name: str, heads: int) -> torch.Tensor:
-        """x (B, S, D) @ w{name} (+ b{name}) -> (B, S, heads, dh)."""
+    def _project(self, x: torch.Tensor, name: str, heads: int, *logical) -> torch.Tensor:
+        """x (B, S, D) @ w{name} (+ b{name}) -> (B, S, heads, dh), under a
+        mesh constrained to `logical` (of the (B, S, heads dh) product)
+        first, where given."""
         out = matmul(x, getattr(self, f"w{name}"))
         if self.cfg.qkv_bias:
             out = out + getattr(self, f"b{name}")
-        return out.reshape(x.shape[0], x.shape[1], heads, self.cfg.head_dim)
+        if logical:
+            out = wlc(out, *logical)
+        return _split_heads(out, heads, self.cfg.head_dim)
 
-    def project_qkv(self, x: torch.Tensor, positions: torch.Tensor | None):
+    def project_qkv(self, x: torch.Tensor, positions: torch.Tensor | None,
+                    seq_sharded: bool = False):
         """q, k, v of x (B, S, D), rotated at `positions`: (B, S, 3) streams
         with `mrope`, else (B, S) (or the first of three streams, as the
-        reference reads them); None where the layer has no rotary."""
+        reference reads them); None where the layer has no rotary.
+        `seq_sharded`: under a mesh, q's sequence is sharded over `model`
+        and k and v are whole there (the full-sequence forward's layout),
+        from the products on."""
         cfg = self.cfg
-        q = self._project(x, "q", cfg.n_heads)
-        k = self._project(x, "k", cfg.n_kv)
-        v = self._project(x, "v", cfg.n_kv)
+        qc, kvc = (("batch", "seq", None), ("batch", None, None)) if seq_sharded else ((), ())
+        q = self._project(x, "q", cfg.n_heads, *qc)
+        k = self._project(x, "k", cfg.n_kv, *kvc)
+        v = self._project(x, "v", cfg.n_kv, *kvc)
         if cfg.mrope:
             q = apply_mrope(q, positions, cfg.rope_theta)
             k = apply_mrope(k, positions, cfg.rope_theta)
@@ -105,22 +155,35 @@ class Attention(nn.Module):
             k = apply_rope(k, pos1, cfg.rope_theta)
         return q, k, v
 
-    def _attend(self, q, k, v, bf16_probs: bool = False) -> torch.Tensor:
-        """q (B, S, Hq, dh) over k, v -> the output projection (B, S, D).  The
-        attention runs in float32 and its output is cast back to q's dtype,
-        as the reference's (a bf16 training forward reaches the float32
-        kernel; float32 serving is unchanged); `bf16_probs` takes the
-        bf16-P form."""
+    def _heads(self, q, k, v, bf16_probs: bool = False) -> torch.Tensor:
+        """q (B, S, Hq, dh) over k, v -> the heads' outputs (B, S, Hq dh).
+        The attention runs in float32 and its output is cast back to q's
+        dtype, as the reference's (a bf16 training forward reaches the
+        float32 kernel; float32 serving is unchanged); `bf16_probs` takes
+        the bf16-P form."""
         cfg = self.cfg
         f32 = torch.float32
         out = flash_ops.flash_attention(q.to(f32), k.to(f32), v.to(f32), causal=cfg.causal,
                                         window=cfg.window, softcap=cfg.softcap,
                                         bf16_probs=bf16_probs)
-        return matmul(out.to(q.dtype).reshape(q.shape[0], q.shape[1], -1), self.wo)
+        return _merge_heads(out.to(q.dtype))
+
+    def _attend(self, q, k, v, bf16_probs: bool = False) -> torch.Tensor:
+        """q (B, S, Hq, dh) over k, v -> the output projection (B, S, D)."""
+        return matmul(self._heads(q, k, v, bf16_probs), self.wo)
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor | None) -> torch.Tensor:
-        """x: (B, S, D), positions as `project_qkv` -> (B, S, D)."""
-        return self._attend(*self.project_qkv(x, positions), bf16_probs=self.bf16_probs)
+        """x: (B, S, D), positions as `project_qkv` -> (B, S, D).  Under a
+        mesh the sequence of x, q and the heads' output is sharded over
+        `model`, and k and v are replicated over it (the reference's
+        `attention_block`)."""
+        x = wlc(x, "batch", "seq", None)
+        q, k, v = self.project_qkv(x, positions, seq_sharded=True)
+        q = wlc(q, "batch", "seq", None, None)
+        k = wlc(k, "batch", None, None, None)
+        v = wlc(v, "batch", None, None, None)
+        out = wlc(self._heads(q, k, v, self.bf16_probs), "batch", "seq", None)
+        return matmul(out, self.wo)
 
     def project_ctx_kv(self, ctx: torch.Tensor):
         """The keys and values of an encoder's states ctx (B, S_enc, D), no
@@ -143,10 +206,13 @@ class Attention(nn.Module):
             raise ValueError(f"a prompt of {S} tokens does not fit a cache of {max_len}")
         q, k, v = self.project_qkv(x, positions)
         out = self._attend(q, k, v, bf16_probs=self.bf16_probs)
-        cache = init_cache(self.cfg, B, max_len, device=x.device)
+        # zeros like k: on a dry run's DTensor k the cache is one too
+        cache = KVCache(*(t.new_zeros((B, max_len, *t.shape[2:]), dtype=CACHE_DTYPE)
+                          for t in (k, v)), 0)
         cache.k[:, :S] = k
         cache.v[:, :S] = v
-        return out, cache._replace(length=S)
+        return out, KVCache(wlc(cache.k, "batch", "kv_seq", None, None),
+                            wlc(cache.v, "batch", "kv_seq", None, None), S)
 
     def decode(self, x: torch.Tensor, cache: KVCache, position: torch.Tensor | None):
         """One token, x (B, 1, D), at position `cache.length`, which
@@ -166,7 +232,8 @@ class Attention(nn.Module):
         q, k, v = self.project_qkv(x, position)
         cache.k[:, t] = k[:, 0]
         cache.v[:, t] = v[:, 0]
+        kc = wlc(cache.k, "batch", "kv_seq", None, None)
+        vc = wlc(cache.v, "batch", "kv_seq", None, None)
         lo = max(0, t + 1 - cfg.window) if cfg.window > 0 else 0
-        keys, values = (c[:, lo:t + 1].to(torch.float32).contiguous()
-                        for c in (cache.k, cache.v))
-        return self._attend(q, keys, values), cache._replace(length=t + 1)
+        keys, values = (c[:, lo:t + 1].to(torch.float32).contiguous() for c in (kc, vc))
+        return self._attend(q, keys, values), KVCache(kc, vc, t + 1)

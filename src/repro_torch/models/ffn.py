@@ -6,6 +6,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..sharding import with_logical_constraint as wlc
 from .common import dense_init_, matmul
 
 
@@ -36,4 +37,6 @@ class MLP(nn.Module):
             h = _act(matmul(x, self.w_gate), self.activation) * h_up
         else:
             h = _act(h_up, self.activation)
-        return matmul(h, self.w_down)
+        # Megatron column -> row: the hidden activations sharded over model
+        # ("tp") under a mesh, the sequence not
+        return matmul(wlc(h, "batch", None, "tp"), self.w_down)

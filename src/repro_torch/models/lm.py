@@ -15,14 +15,74 @@ it, so every place runs the same tensors while each keeps its own KV cache
 in the list.
 
 The VLM (qwen2-vl-7b) is this LM fed `inputs_embeds`, the patch embeddings
-spliced ahead of the text's, at M-RoPE position streams (`models/vlm.py`)."""
+spliced ahead of the text's, at M-RoPE position streams (`models/vlm.py`).
+
+Activation recompute (the config's `remat` and `remat_policy`, the
+reference's `jax.checkpoint` around its scan body): where autograd records
+the forward, each repeat of the pattern runs under
+`torch.utils.checkpoint.checkpoint` (non-reentrant), and its backward
+recomputes the repeat's forward, hand-written kernels included; the tail
+is not wrapped, as in the reference.  "dots" keeps the outputs of the
+products without batch dims (`aten.mm`, `aten.addmm`: every weight
+product) and recomputes everything else; "nothing" recomputes all."""
 from __future__ import annotations
+
+import contextlib
+import functools
 
 import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
+from ..sharding import with_logical_constraint as wlc
 from .blocks import ATTN_KINDS, Block, init_block_cache
-from .common import dense_init_, layer_norm, rms_norm, softmax_cross_entropy
+from .common import (dense_init_, embedding_lookup, layer_norm, matmul, rms_norm,
+                     softmax_cross_entropy)
+
+# the products a "dots" recompute keeps (jax's dots_with_no_batch_dims_saveable)
+SAVED_PRODUCTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def dots_policy(ctx, op, *args, **kwargs):
+    """The "dots" policy of a selective checkpoint: keep a product's output,
+    recompute any other op."""
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in SAVED_PRODUCTS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _context_fn(policy: str):
+    if policy == "dots":
+        return functools.partial(ckpt.create_selective_checkpoint_contexts, dots_policy)
+    if policy == "nothing":
+        return ckpt.noop_context_fn
+    raise ValueError(f"unknown remat_policy {policy!r} (dots | nothing)")
+
+
+def _slots(modules) -> list[tuple[nn.Module, str]]:
+    """(module, name) of every parameter slot of `modules` and their
+    submodules, each once."""
+    seen, out = set(), []
+    for top in modules:
+        for mod in top.modules():
+            if id(mod) in seen:
+                continue
+            seen.add(id(mod))
+            out += [(mod, name) for name, t in mod._parameters.items() if t is not None]
+    return out
+
+
+@contextlib.contextmanager
+def _bound(slots, tensors):
+    """Bind `tensors` to the parameter slots for the body (as
+    `torch.func.functional_call` binds its arguments), then restore them."""
+    old = [mod._parameters[name] for mod, name in slots]
+    for (mod, name), t in zip(slots, tensors):
+        mod._parameters[name] = t
+    try:
+        yield
+    finally:
+        for (mod, name), t in zip(slots, old):
+            mod._parameters[name] = t
 
 
 def layer_kinds(cfg) -> list[str]:
@@ -110,10 +170,10 @@ class LM(nn.Module):
             self.shared.reset_parameters(generator)
 
     def embed_tokens(self, tokens: torch.Tensor) -> torch.Tensor:
-        x = self.embedding[tokens]
+        x = embedding_lookup(self.embedding, tokens)
         if self.cfg.embed_scale:  # gemma: x * sqrt(d_model), in the activation dtype
             x = x * torch.tensor(self.cfg.d_model ** 0.5, dtype=x.dtype, device=x.device)
-        return x
+        return wlc(x, "batch", "seq", None)
 
     def final_norm(self, x: torch.Tensor) -> torch.Tensor:
         if self.fn_bias is None:
@@ -122,12 +182,18 @@ class LM(nn.Module):
 
     def unembed(self, x: torch.Tensor) -> torch.Tensor:
         """Final hidden states (..., D) -> logits (..., vocab_padded), through
-        the tied embedding or `lm_head`, soft-capped by `final_softcap`."""
-        logits = x @ (self.embedding.T if self.lm_head is None else self.lm_head)
+        the tied embedding or `lm_head`, soft-capped by `final_softcap`.
+        Under a mesh the logits are split by vocab, so the hidden states'
+        sequence is whole first (GSPMD infers that from the logits'
+        constraint; the product here follows its operands' placements)."""
+        x = wlc(x, "batch", None, None)
+        logits = matmul(x, self.embedding.T if self.lm_head is None else self.lm_head)
         cap = self.cfg.final_softcap
         if cap > 0:
             logits = cap * torch.tanh(logits / cap)
-        return logits
+        # vocab-sharded logits (the loss's logsumexp reduces over the sharded
+        # axis); the sequence is not sharded too: one mesh axis a spec
+        return wlc(logits, "batch", None, "vocab")
 
     def _inputs(self, tokens, positions, inputs_embeds):
         """The first layer's input (B, S, D), `inputs_embeds` where given
@@ -146,10 +212,39 @@ class LM(nn.Module):
         reference's `forward`; `positions` and `inputs_embeds` as `_inputs`."""
         x, positions = self._inputs(tokens, positions, inputs_embeds)
         aux = 0.0  # a float until a MoE layer adds its tensor
-        for layer in self.layers:
+        n_pat = len(self.cfg.pattern)
+        recompute = self.cfg.remat and torch.is_grad_enabled()
+        for r in range(self.cfg.repeats if recompute else 0):
+            x, auxes = self._recomputed(self.layers[r * n_pat:(r + 1) * n_pat], x, positions)
+            for layer_aux in auxes:
+                aux = aux + layer_aux
+        for layer in self.layers[self.cfg.repeats * n_pat if recompute else 0:]:
             x, layer_aux = layer(x, positions)
             aux = aux + layer_aux
         return self.final_norm(x), torch.as_tensor(aux, dtype=torch.float32, device=x.device)
+
+    def _recomputed(self, layers, x: torch.Tensor, positions: torch.Tensor):
+        """One repeat of the pattern under a checkpoint: (x after it, each
+        layer's aux).  The tensors bound to its parameters now (a train
+        step's bf16 copies under `functional_call`) go into the checkpoint
+        as inputs and are bound again for the recompute, which runs after
+        the caller has restored the float32 masters."""
+        modules = list(layers)
+        if any(isinstance(layer, SharedPlace) for layer in layers):
+            modules.append(self.shared)
+        slots = _slots(modules)
+
+        def body(x, positions, *tensors):
+            auxes = []
+            with _bound(slots, tensors):
+                for layer in layers:
+                    x, layer_aux = layer(x, positions)
+                    auxes.append(layer_aux)
+            return x, auxes
+
+        return ckpt.checkpoint(body, x, positions, *(mod._parameters[name] for mod, name in slots),
+                               use_reentrant=False,
+                               context_fn=_context_fn(self.cfg.remat_policy))
 
     def forward(self, tokens: torch.Tensor | None, positions: torch.Tensor | None = None,
                 inputs_embeds: torch.Tensor | None = None) -> torch.Tensor:

@@ -5,8 +5,9 @@ dropping, the expert SwiGLU as batched products over every expert, and the
 gate-weighted combine; plus the optional shared expert.
 
 The reference's expert-parallel path (`_moe_sharded`: shard_map, ZeRO
-gathers, all-to-all) is not ported (ROADMAP A9b); on one device the
-reference itself takes `_moe_local`.
+gathers, all-to-all) is not ported (ROADMAP A9b): under a mesh with a
+`model` axis, where the reference takes it, the block raises; on one
+device the reference itself takes `_moe_local`.
 
 The reference's combine scatter-adds each token's K contributions
 (`.at[st].add`), which XLA on the CPU adds in the sorted order, by expert.
@@ -24,6 +25,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..core.lsh import topk_largest
+from ..sharding import current_mesh, with_logical_constraint as wlc
+from ..sharding.specs import mesh_axes
 from .common import dense_init_, matmul
 from .ffn import MLP
 
@@ -206,6 +209,12 @@ class MoE(nn.Module):
 
     def forward(self, x: torch.Tensor):
         """x (B, S, D) -> (out (B, S, D), aux: E * sum(frac_tokens * frac_probs))."""
+        mesh = current_mesh()
+        if mesh is not None and "model" in mesh_axes(mesh):
+            # the reference takes its expert-parallel `_moe_sharded` here
+            raise NotImplementedError(
+                "MoE under a mesh with a model axis: the expert-parallel _moe_sharded "
+                "(shard_map, ZeRO gathers, all-to-all) is not ported yet (ROADMAP A9b)")
         cfg = self.cfg
         B, S, D = x.shape
         T, E = B * S, cfg.n_experts
@@ -219,4 +228,4 @@ class MoE(nn.Module):
         out = combine(eo, routes, T).reshape(B, S, D).to(x.dtype)
         if self.shared is not None:
             out = out + self.shared(x)
-        return out, balance_loss(eidx, probs)
+        return wlc(out, "batch", "seq", None), balance_loss(eidx, probs)

@@ -30,6 +30,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..kernels.ssm_scan import ops as scan_ops
+from ..sharding import with_logical_constraint as wlc
 from .common import dense_init_, matmul, rms_norm
 
 
@@ -75,8 +76,16 @@ def causal_conv(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor, tail: torch.T
     `tail` (B, k - 1, C) the inputs before x (zeros: no history).  Sums the
     taps in the reference's order.  Returns (out (B, L, C), the new tail:
     the last k - 1 inputs, a copy, so that a cache does not hold the whole
-    padded input)."""
+    padded input).  On a dry run's DTensor x, the tail is placed as x is
+    (its zeros come unsharded), so that the concatenation gathers nothing."""
+    from torch.distributed.tensor import DTensor, Replicate
+
     k, L = w.shape[0], x.shape[1]
+    if isinstance(x, DTensor) and getattr(tail, "placements", None) != x.placements:
+        if not isinstance(tail, DTensor):
+            tail = DTensor.from_local(tail, x.device_mesh, [Replicate()] * x.device_mesh.ndim,
+                                      run_check=False)
+        tail = tail.redistribute(x.device_mesh, x.placements)
     xp = torch.cat([tail, x], dim=1)  # (B, L + k - 1, C)
     out = xp[:, 0:L, :] * w[0]
     for i in range(1, k):
@@ -124,11 +133,12 @@ class Mamba1(nn.Module):
         cfg = self.cfg
         Di, N, R = cfg.d_inner, cfg.d_state, cfg.dt_rank
         f32 = torch.float32
-        x1, z = torch.split(matmul(x, self.in_proj), [Di, Di], dim=-1)
+        xz = wlc(matmul(x, self.in_proj), "batch", None, "tp")  # column-sharded
+        x1, z = torch.split(xz, [Di, Di], dim=-1)
         act = torch.bfloat16 if self.bf16_acts and cache is None else f32
         if cache is None:
             cache = SSMCache(x1.new_zeros((x.shape[0], cfg.d_conv - 1, Di)),
-                             torch.zeros((x.shape[0], Di, N), dtype=f32, device=x.device), 0)
+                             x1.new_zeros((x.shape[0], Di, N), dtype=f32), 0)
         x1, tail = causal_conv(x1, self.conv_w, self.conv_b, cache.conv_tail)
         x1 = F.silu(x1)
         dt_r, Bc, Cc = torch.split(matmul(x1, self.x_proj), [R, N, N], dim=-1)
@@ -138,7 +148,8 @@ class Mamba1(nn.Module):
                                  Cc.to(act).contiguous(), A, cache.state)
         y = (y + x1.to(f32) * self.D).to(x.dtype)
         y = y * F.silu(z)
-        return matmul(y, self.out_proj), SSMCache(tail, h, cache.length + x.shape[1])
+        out = wlc(matmul(y, self.out_proj), "batch", None, None)
+        return out, SSMCache(tail, h, cache.length + x.shape[1])
 
     def prefill(self, x: torch.Tensor):
         """The forward over a prompt and the cache after it."""
@@ -199,7 +210,8 @@ class Mamba2(nn.Module):
         cfg = self.cfg
         B, L, _ = x.shape
         Di, N, H, hd = cfg.d_inner, cfg.d_state, cfg.n_heads, cfg.head_dim
-        z, xbc, dt = torch.split(x @ self.in_proj, [Di, Di + 2 * N, H], dim=-1)
+        proj = wlc(matmul(x, self.in_proj), "batch", None, None)
+        z, xbc, dt = torch.split(proj, [Di, Di + 2 * N, H], dim=-1)
         xbc, tail = causal_conv(xbc, self.conv_w, self.conv_b, cache.conv_tail)
         xs, Bc, Cc = torch.split(F.silu(xbc), [Di, N, N], dim=-1)
         dt = F.softplus(dt.to(torch.float32) + self.dt_bias_h)  # (B, L, H)
@@ -241,7 +253,8 @@ class Mamba2(nn.Module):
         y = y + Xc.reshape(B, nc * chunk, H, hd)[:, :L] * self.D_h[:, None]
         y = y.reshape(B, L, Di).to(x.dtype) * F.silu(z)
         y = rms_norm(y, self.norm_scale)
-        return y @ self.out_proj, SSMCache(tail, S, cache.length + L)
+        return wlc(matmul(y, self.out_proj), "batch", None, None), SSMCache(tail, S,
+                                                                           cache.length + L)
 
     def prefill(self, x: torch.Tensor):
         """The forward over a prompt and the cache after it."""

@@ -6,13 +6,15 @@ grid positions, text continues sequentially.  The LM then runs the spliced
 sequence (`LM.hidden` / `loss` / `prefill` with `inputs_embeds` and
 `positions`), and decode continues the text streams at the cache's length.
 
-The config's `vlm_sharded_splice` is a GSPMD sharding hint of the
-reference (it aligns the two inputs' shardings before the concatenation);
-on one device it changes nothing, so the port does not read it."""
+The config's `vlm_sharded_splice` (set by qwen2-vl-7b) is a sharding hint
+of the reference: under a mesh it aligns the two inputs to batch-only
+shardings, concatenates them locally, then shards the result's sequence;
+without a mesh its constraints do nothing."""
 from __future__ import annotations
 
 import torch
 
+from ..sharding import with_logical_constraint as wlc
 from .lm import LM
 
 
@@ -42,5 +44,10 @@ def splice_patches(model: LM, batch: dict):
     text = model.embed_tokens(tokens)
     patches = torch.as_tensor(batch["patch_embeds"]).to(device=dev, dtype=text.dtype)
     B, P, _ = patches.shape
-    x = torch.cat([patches, text], dim=1)
+    if model.cfg.vlm_sharded_splice:
+        patches = wlc(patches, "batch", None, None)
+        text = wlc(text, "batch", None, None)
+        x = wlc(torch.cat([patches, text], dim=1), "batch", "seq", None)
+    else:
+        x = torch.cat([patches, text], dim=1)
     return x, mrope_positions(B, P, tokens.shape[1], device=dev)

@@ -20,7 +20,9 @@ import torch
 from torch import nn
 
 from .attention import Attention, AttnConfig, KVCache
-from .common import layer_norm, sinusoidal_positions, softmax_cross_entropy
+from .common import (embedding_lookup, layer_norm, matmul, sinusoidal_positions,
+                     softmax_cross_entropy)
+from ..sharding import with_logical_constraint as wlc
 from .ffn import MLP
 
 
@@ -148,10 +150,15 @@ class Whisper(nn.Module):
         if start + tokens.shape[1] > self.cfg.max_pos:
             raise ValueError(f"position {start + tokens.shape[1] - 1} is past the "
                              f"{self.cfg.max_pos} learned positions")
-        return self.embedding[tokens] + self.pos_embedding[start:start + tokens.shape[1]][None]
+        return (embedding_lookup(self.embedding, tokens)
+                + self.pos_embedding[start:start + tokens.shape[1]][None])
 
     def unembed(self, x: torch.Tensor) -> torch.Tensor:
-        return x @ self.embedding.T
+        """Hidden states -> logits through the tied embedding.  Under a mesh
+        the LM's layout: the sequence whole, the logits split by vocab (the
+        reference constrains neither; GSPMD picks a layout of its own)."""
+        x = wlc(x, "batch", None, None)
+        return wlc(matmul(x, self.embedding.T), "batch", None, "vocab")
 
     def decode_train(self, tokens: torch.Tensor, enc_states: torch.Tensor) -> torch.Tensor:
         """The decoder over tokens (B, S) at positions 0 .. S - 1 and the

@@ -319,8 +319,9 @@ def test_train_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
                  lambda: main(["--smoke", "--steps", "1", "--ckpt-dir", str(tmp_path / "c")])):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
-    with pytest.raises(NotImplementedError, match="A12"):
-        main(["--smoke", "--device", "cpu", "--mesh", "2x1"])
+    # --mesh is ported (A12): a mesh of more ranks than the one-rank group raises
+    with pytest.raises(RuntimeError, match="need 2 ranks"):
+        main(["--smoke", "--device", "cpu", "--mesh", "2x1", "--ckpt-dir", str(tmp_path / "m")])
 
 
 def test_serve_restores_what_train_wrote(tmp_path):
